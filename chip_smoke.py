@@ -14,14 +14,27 @@ of which raises on failure (an uncaught exception exits non-zero):
      soup (dynamic shared memory above 48 KB); a ragged ray count;
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
-  4. the main path: the render CLI on `cornell` at full size (512x512,
-     4 spp, 4 bounces) with launch counts reset just before it;
-  5. a 64x64 render on the card against the committed reference golden
-     (tests/data/cornell_64_golden.npy).
+  4. K1 (block-stream tracer) against its plain-torch version on
+     `helmet_proc` (100,352 triangles, 1,024 clusters): 512x512 morton
+     camera rays, direction-sorted surface bounce rays, env shadow rays
+     (any hit, root-culled t_max) and a ragged ray count, through phase A
+     as the integrator calls it; kernel and plain times at 262,144 camera
+     rays;
+  5. the cornell main path: the render CLI on `cornell` at full size
+     (512x512, 4 spp, 4 bounces) with launch counts reset just before it
+     (36 K2, 1 K3, 0 K1);
+  6. a 64x64 cornell render on the card against the committed reference
+     golden (tests/data/cornell_64_golden.npy);
+  7. the helmet_proc main path: the render CLI on `helmet_proc` at full
+     size (512x512, 4 spp, 3 bounces) with launch counts reset just before
+     it (28 K1, 0 K2, 1 K3);
+  8. a 32x32 helmet_proc render against its reference golden
+     (tests/data/helmet_proc_32_golden.npy).
 
 Prints, before the last line, the card, one JSON line with the kernels
-({"kernels": [...]}) and one JSON line with the measurements; the last line
-is {"ok": true, "device": {...}}.
+({"kernels": [...]}: `launches` is the sum over the two main-path runs,
+`launches_by_path` the count of each run) and one JSON line with the
+measurements; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -32,20 +45,34 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "cornell_64_golden.npy"
+HELMET_GOLDEN = ROOT / "tests" / "data" / "helmet_proc_32_golden.npy"
 
-# Full-size cornell film mean: the CPU port renders 0.1577-0.1596 at 64x64
-# and 128x128 (4 spp, 4 bounces), so a 512x512 frame lies well inside this.
-FILM_MEAN_BAND = (0.14, 0.18)
+# Full-size film means: the CPU port renders cornell at 0.1577-0.1596
+# (64x64 and 128x128, 4 spp, 4 bounces) and helmet_proc at 0.63066 (64x64)
+# and 0.63147 (128x128, 4 spp, 3 bounces), so a 512x512 frame lies well
+# inside these bands.
+FILM_MEAN_BAND = {"cornell": (0.14, 0.18), "helmet_proc": (0.60, 0.66)}
+# Main-path launches per frame.  cornell: 4 spp x (5 closest + 4 shadow)
+# K2 queries.  helmet_proc: no area emitter and no directional light, so
+# 4 spp x (4 closest + 3 env shadow) K1 queries; one K3 each.
+EXPECTED_LAUNCHES = {
+    "cornell": {"resident": 36, "trace_blocks": 0, "tonemap": 1},
+    "helmet_proc": {"resident": 0, "trace_blocks": 28, "tonemap": 1},
+}
 # Render agreement (same as tests/test_torch_render.py): a pixel agrees
 # within atol + rtol*|ref|; at least PIXEL_FRAC of pixels must agree.
 ATOL, RTOL, PIXEL_FRAC, MEAN_REL = 1e-4, 1e-3, 0.99, 5e-3
-# Kernel tolerances: K2 winners may differ only on exact ties between
-# triangles that share an edge, with t within T_REL; K3 within K3_ATOL.
-K2_MAX_MISMATCH_FRAC, T_REL, K3_ATOL = 1e-4, 1e-5, 1e-5
+# Kernel tolerances: K1 and K2 winners may differ only on exact ties
+# between triangles that share an edge (at most MAX_MISMATCH_FRAC of the
+# rays), with t within T_REL there; where the winners agree, t is equal
+# (both kernels are built with -fmad=false); K3 within K3_ATOL.
+MAX_MISMATCH_FRAC, T_REL, K3_ATOL = 1e-4, 1e-5, 1e-5
 BIG = 1e30
 
 
@@ -72,8 +99,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-class K2Stats:
-    def __init__(self):
+class TraceStats:
+    """Agreement of a tracer kernel with its plain version."""
+
+    def __init__(self, kernel: str):
+        self.kernel = kernel
         self.rays = 0
         self.mismatch = 0
         self.max_abs_err = 0.0
@@ -87,30 +117,38 @@ class K2Stats:
             rel = ((tk[diff] - tp[diff]).abs()
                    / tp[diff].abs().clamp_min(1e-30)).max().item()
             if rel > T_REL:
-                raise AssertionError(f"K2 {label}: {n_diff} winners differ "
-                                     f"with t rel diff {rel:.3g}")
-        if n_diff > K2_MAX_MISMATCH_FRAC * ik.numel():
-            raise AssertionError(f"K2 {label}: {n_diff}/{ik.numel()} "
-                                 "winners differ")
+                raise AssertionError(f"{self.kernel} {label}: {n_diff} winners "
+                                     f"differ with t rel diff {rel:.3g}")
+        if n_diff > MAX_MISMATCH_FRAC * ik.numel():
+            raise AssertionError(f"{self.kernel} {label}: {n_diff}/"
+                                 f"{ik.numel()} winners differ")
         hit = (ik >= 0) & (ip >= 0)
         if bool(((ik < 0) != (ip < 0)).any()):
-            raise AssertionError(f"K2 {label}: hit/miss disagrees")
-        err = (tk[hit] - tp[hit]).abs().max().item() if bool(hit.any()) else 0.0
+            raise AssertionError(f"{self.kernel} {label}: hit/miss disagrees")
+        same = hit & (ik == ip)
+        err = ((tk[same] - tp[same]).abs().max().item() if bool(same.any())
+               else 0.0)
+        if not torch.equal(tk[same], tp[same]):
+            raise AssertionError(f"{self.kernel} {label}: hit distances "
+                                 "differ where the winners agree "
+                                 f"(max |dt| {err:.3g})")
         if not torch.equal(tk[~hit], tp[~hit]):
-            raise AssertionError(f"K2 {label}: miss distances differ")
+            raise AssertionError(f"{self.kernel} {label}: miss distances "
+                                 "differ")
         self.rays += ik.numel()
         self.mismatch += n_diff
         self.max_abs_err = max(self.max_abs_err, err)
-        print(f"K2 {label}: {ik.numel()} rays, {int(hit.sum())} hits, "
-              f"{n_diff} winner mismatches, max |dt| {err:.3g}")
+        print(f"{self.kernel} {label}: {ik.numel()} rays, {int(hit.sum())} "
+              f"hits, {n_diff} winner mismatches, max |dt| {err:.3g}")
 
     def any_hit(self, label, kern, plain):
         n_diff = int((kern != plain).sum())
         if n_diff:
-            raise AssertionError(f"K2 {label}: {n_diff} any-hit masks differ")
+            raise AssertionError(f"{self.kernel} {label}: {n_diff} any-hit "
+                                 "masks differ")
         self.rays += kern.numel()
-        print(f"K2 {label}: {kern.numel()} rays, {int(kern.sum())} occluded, "
-              "masks equal")
+        print(f"{self.kernel} {label}: {kern.numel()} rays, "
+              f"{int(kern.sum())} occluded, masks equal")
 
 
 def random_soup(n_tris: int, rng):
@@ -142,7 +180,7 @@ def phase_k2(dev):
         make_cornell_box)
     from physically_based_renderer_tpu_torch.scene.types import upload_scene
 
-    st = K2Stats()
+    st = TraceStats("K2")
     rng = np.random.default_rng(0)
     scene = upload_scene(make_cornell_box(), dev)
     soup = resident.pack_resident_soup(scene.geometry)
@@ -251,6 +289,108 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
+def phase_k1(dev):
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import morton
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.core.camera import (
+        generate_rays_at)
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.integrator.shading import (
+        shade_surface)
+    from physically_based_renderer_tpu_torch.models import lights
+    from physically_based_renderer_tpu_torch.ops import blocktrace
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    from physically_based_renderer_tpu_torch.utils import config
+
+    st = TraceStats("K1")
+    rng = np.random.default_rng(2)
+    bc = config.get("helmet_proc")
+    cfg = bc.render
+    scene, cam = config.build_scene(bc.scene, dev)
+    grid = scene.clusters
+    kw = dict(block=cfg.block_size, max_u=cfg.max_u, chunk=cfg.chunk)
+
+    # 512x512 camera rays in morton order, as _sample_radiance makes them.
+    w, h = cfg.width, cfg.height
+    pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
+    keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
+    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
+    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
+                                    (pix // w).float(), jit)
+    n = o_cam.shape[0]
+
+    def both(args, n_rays, t_min, any_hit):
+        """Kernel and plain outputs over the real (unpadded) lanes."""
+        k = tb.trace_blocks(*args, t_min=t_min, any_hit=any_hit,
+                            chunk=cfg.chunk)
+        p = tb.trace_blocks_plain(*args, t_min=t_min, any_hit=any_hit,
+                                  chunk=cfg.chunk)
+        torch.cuda.synchronize()
+        flat = lambda x: x.reshape(-1)[:n_rays]
+        if any_hit:
+            return flat(k), flat(p)
+        return (flat(k[0]), flat(k[1])), (flat(p[0]), flat(p[1]))
+
+    def compare(label, o, d, t_min, t_max, sort, any_hit):
+        args, _ = blocktrace.block_inputs(grid, o, d, t_min, t_max,
+                                          sort=sort, **kw)
+        nv = args[5].float()
+        print(f"K1 {label}: candidates per block mean {nv.mean().item():.2f}"
+              f", max {int(nv.max())}")
+        (st.any_hit if any_hit else st.closest)(
+            label, *both(args, o.shape[0], t_min, any_hit))
+        return args
+
+    cam_args = compare("camera closest", o_cam, d_cam, 0.0, 1e30, False,
+                       False)
+    # Surface bounce rays: from the camera hits, directions about the
+    # geometric normal; dead lanes (camera misses) carry t_max = 0.
+    hit = path.closest_hit(scene, o_cam, d_cam, 0.0, cfg)
+    active = ~hit.miss
+    sp = shade_surface(scene, hit, o_cam, d_cam)
+    o_b = (sp.pos + sp.ng * cfg.ray_eps).contiguous()
+    jitter = torch.from_numpy(rng.normal(size=(n, 3)).astype(
+        np.float32)).to(dev)
+    d_b = torch.nn.functional.normalize(
+        sp.ng + torch.nn.functional.normalize(jitter, dim=-1), dim=-1)
+    alive = torch.where(active, 1e30, 0.0)
+    for t_min in (1e-3, 0.0):
+        compare(f"bounce closest sorted t_min={t_min}", o_b, d_b, t_min,
+                alive, True, False)
+    # Interior rays: from just inside the surface, uniform directions (most
+    # hit the far side; a harder, direction-scattered stream).
+    o_in = (sp.pos - sp.ng * cfg.ray_eps).contiguous()
+    d_in = torch.nn.functional.normalize(jitter, dim=-1)
+    compare("interior closest sorted", o_in, d_in, cfg.ray_eps, alive, True,
+            False)
+    # Env shadow rays: environment NEE directions from the same points.
+    u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    es = lights.sample_env(scene, n, u2)
+    t_sh = torch.where(active & es.valid, es.dist * (1.0 - 1e-3), 0.0)
+    compare("env shadow any-hit sorted", o_b, es.wi, cfg.ray_eps, t_sh,
+            True, True)
+    compare("env shadow any-hit unsorted", o_b, es.wi, cfg.ray_eps, t_sh,
+            False, True)
+    # Ragged ray count (not a multiple of the block size).
+    nr = n - 77
+    compare("ragged closest", o_cam[:nr], d_cam[:nr], 0.0, 1e30, False,
+            False)
+    rand_tm = torch.from_numpy(rng.uniform(0.05, 4.0, nr).astype(
+        np.float32)).to(dev)
+    compare("ragged any-hit random t_max", o_b[:nr], d_b[:nr], 1e-3,
+            rand_tm, True, True)
+
+    # Time at the main path's shape: 262,144 morton camera rays.
+    ms = time_ms(lambda: tb.trace_blocks(*cam_args, t_min=0.0,
+                                         any_hit=False), 50)
+    plain_ms = time_ms(lambda: tb.trace_blocks_plain(
+        *cam_args, t_min=0.0, any_hit=False), 5, warmup=1)
+    return st, ms, plain_ms
+
+
 def run_cli(argv):
     """Run the render CLI; return its --stats JSON (echoing its stderr)."""
     from physically_based_renderer_tpu_torch.apps import render
@@ -279,7 +419,8 @@ def main() -> int:
     import numpy as np
 
     from physically_based_renderer_tpu_torch.ops import (cuda_lib, resident,
-                                                         tonemap)
+                                                         tonemap,
+                                                         trace_blocks)
 
     card = card_line()
     print(card)
@@ -300,57 +441,89 @@ def main() -> int:
           f"plain {k2_plain_ms:.4f} ms")
     print(f"K3 512x512: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # 4. the main path at full size
-        png, hdr_path = Path(tmp) / "cornell.png", Path(tmp) / "cornell.npy"
-        resident.LAUNCHES = 0
-        tonemap.LAUNCHES = 0
-        stats = run_cli(["cornell", "-o", str(png), "--hdr-output",
-                         str(hdr_path), "--stats", "--device", "cuda"])
-        launches = {"resident": resident.LAUNCHES, "tonemap": tonemap.LAUNCHES}
-        hdr = np.load(hdr_path)
-        if hdr.shape != (512, 512, 3) or not np.isfinite(hdr).all():
-            raise AssertionError(f"cornell film: shape {hdr.shape}, finite "
-                                 f"{bool(np.isfinite(hdr).all())}")
-        mean = float(hdr.mean())
-        if not FILM_MEAN_BAND[0] <= mean <= FILM_MEAN_BAND[1]:
-            raise AssertionError(f"cornell film mean {mean} outside "
-                                 f"{FILM_MEAN_BAND}")
-        if launches != {"resident": 36, "tonemap": 1}:
-            raise AssertionError(f"main-path launches {launches}, expected "
-                                 "36 resident (4 spp x (5 closest + 4 "
-                                 "shadow)) and 1 tonemap")
-        if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
-            raise AssertionError("render CLI wrote no PNG")
-        print(f"cornell 512x512 4 spp 4 bounces: {stats['seconds']:.3f} s, "
-              f"{stats['rays']} ray queries, {stats['rays_per_s']:.4g} rays/s, "
-              f"film mean {mean:.5f}, launches {launches}")
+    # 4. K1 against its plain version
+    k1, k1_ms, k1_plain_ms = phase_k1(dev)
+    print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms")
 
-        # 5. golden from the reference package
-        g_npy = Path(tmp) / "golden.npy"
-        run_cli(["cornell", "-o", str(Path(tmp) / "g.png"), "--hdr-output",
-                 str(g_npy), "--width", "64", "--height", "64", "--spp", "2",
-                 "--bounces", "2", "--seed", "0", "--stats", "--device",
-                 "cuda"])
-        img, ref = np.load(g_npy), np.load(GOLDEN)
-        frac, n_bad = render_agreement(img, ref)
-        mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
-        print(f"golden 64x64: {frac:.4%} pixels agree ({n_bad} differ), "
-              f"mean rel diff {mean_rel:.3g}")
-        if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
-            raise AssertionError("64x64 render disagrees with the golden")
+    counters = {"resident": resident, "trace_blocks": trace_blocks,
+                "tonemap": tonemap}
+    launches = {name: {} for name in counters}
+    runs, goldens = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, golden, (size, spp, bounces) in (
+                ("cornell", GOLDEN, (64, 2, 2)),
+                ("helmet_proc", HELMET_GOLDEN, (32, 1, 2))):
+            # 5, 7. the main path at full size, counts reset just before
+            png, hdr_path = Path(tmp) / f"{name}.png", Path(tmp) / f"{name}.npy"
+            for mod in counters.values():
+                mod.LAUNCHES = 0
+            stats = run_cli([name, "-o", str(png), "--hdr-output",
+                             str(hdr_path), "--stats", "--device", "cuda"])
+            got = {k: mod.LAUNCHES for k, mod in counters.items()}
+            hdr = np.load(hdr_path)
+            if hdr.shape != (512, 512, 3) or not np.isfinite(hdr).all():
+                raise AssertionError(f"{name} film: shape {hdr.shape}, finite "
+                                     f"{bool(np.isfinite(hdr).all())}")
+            mean = float(hdr.mean())
+            lo, hi = FILM_MEAN_BAND[name]
+            if not lo <= mean <= hi:
+                raise AssertionError(f"{name} film mean {mean} outside "
+                                     f"({lo}, {hi})")
+            if got != EXPECTED_LAUNCHES[name]:
+                raise AssertionError(f"{name} main-path launches {got}, "
+                                     f"expected {EXPECTED_LAUNCHES[name]}")
+            if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("render CLI wrote no PNG")
+            for k in launches:
+                launches[k][name] = got[k]
+            runs[name] = {"seconds": stats["seconds"], "rays": stats["rays"],
+                          "rays_per_s": stats["rays_per_s"],
+                          "film_mean": mean, "launches": got}
+            print(f"{name} 512x512: {stats['seconds']:.3f} s, "
+                  f"{stats['rays']} ray queries, "
+                  f"{stats['rays_per_s']:.4g} rays/s, film mean {mean:.5f}, "
+                  f"launches {got}")
+
+            # 6, 8. golden from the reference package
+            g_npy = Path(tmp) / f"{name}_golden.npy"
+            run_cli([name, "-o", str(Path(tmp) / "g.png"), "--hdr-output",
+                     str(g_npy), "--width", str(size), "--height", str(size),
+                     "--spp", str(spp), "--bounces", str(bounces), "--seed",
+                     "0", "--stats", "--device", "cuda"])
+            img, ref = np.load(g_npy), np.load(golden)
+            frac, n_bad = render_agreement(img, ref)
+            mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+            print(f"{name} golden {size}x{size}: {frac:.4%} pixels agree "
+                  f"({n_bad} differ), mean rel diff {mean_rel:.3g}")
+            if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
+                raise AssertionError(f"{name} {size}x{size} render disagrees "
+                                     "with the golden")
+            goldens[name] = {"size": size, "pixel_frac": frac,
+                             "pixels_differ": n_bad, "mean_rel": mean_rel}
 
     print(json.dumps({"kernels": [
         {"name": "resident", "route": "cuda",
          "source": "physically_based_renderer_tpu_torch/csrc/resident.cu",
          "replaces": "physically_based_renderer_tpu/ops/resident.py:54",
-         "launches": launches["resident"], "max_abs_err": k2.max_abs_err,
+         "launches": sum(launches["resident"].values()),
+         "launches_by_path": launches["resident"],
+         "max_abs_err": k2.max_abs_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "tonemap", "route": "cuda",
          "source": "physically_based_renderer_tpu_torch/csrc/tonemap.cu",
          "replaces": "physically_based_renderer_tpu/ops/tonemap.py:52",
-         "launches": launches["tonemap"], "max_abs_err": k3["max_abs_err"],
+         "launches": sum(launches["tonemap"].values()),
+         "launches_by_path": launches["tonemap"],
+         "max_abs_err": k3["max_abs_err"],
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "trace_blocks", "route": "cuda",
+         "source": "physically_based_renderer_tpu_torch/csrc/trace_blocks.cu",
+         "replaces": "physically_based_renderer_tpu/ops/pallas_trace.py:54",
+         "launches": sum(launches["trace_blocks"].values()),
+         "launches_by_path": launches["trace_blocks"],
+         "max_abs_err": k1.max_abs_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,
@@ -359,10 +532,12 @@ def main() -> int:
                "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
-        "cornell": {"seconds": stats["seconds"], "rays": stats["rays"],
-                    "rays_per_s": stats["rays_per_s"], "film_mean": mean},
-        "golden_64": {"pixel_frac": frac, "pixels_differ": n_bad,
-                      "mean_rel": mean_rel},
+        "k1": {"rays_compared": k1.rays, "winner_mismatches": k1.mismatch,
+               "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,
+               "plain_ms": k1_plain_ms,
+               "shape": "262144 helmet_proc camera rays x 1024 clusters"},
+        "main_paths": runs, "goldens": goldens,
+        "seconds": time.perf_counter() - T0,
     }))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@ Radiometric quantities stay attached; sampling decisions (directions,
 pdfs, MIS weights, Russian roulette) are detached, at the same points as
 the reference, so the estimator's gradients can follow it in a later port.
 
-Ported tracers: `resident` (K2, ops/resident.py) and `brute` (the oracle).
-The block and BVH tracers, the fused whole-frame kernel, batched spp and
-the ring ray exchange are not ported yet and raise.
+Ported tracers: `resident` (K2, ops/resident.py), `pallas` (the block
+tracer: phase A in torch + K1, ops/blocktrace.py; the reference's route
+name, on the card the CUDA kernel) and `brute` (the oracle).  The XLA
+block tracer (`block`), the BVH tracer, the fused whole-frame kernel,
+batched spp and the ring ray exchange are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,12 +23,15 @@ from ..core import math3d
 from ..core import rng as rng_mod
 from ..core.camera import Camera, generate_rays_at
 from ..core.film import Film
+from ..core.morton import morton_pixel_ids
 from ..models import lights as lights_mod
 from ..models.bsdf import eval_bsdf, sample_bsdf
 from ..ops import resident
-from ..ops.intersect import Hit, intersect_brute, occluded_brute
+from ..ops.blocktrace import intersect_blocks_pallas
+from ..ops.intersect import BIG, Hit, intersect_brute, occluded_brute
+from ..ops.texture import build_pyramid
 from ..scene.types import Scene
-from .shading import TEXTURES_TODO, pack_tri_attrs, shade_surface
+from .shading import pack_tri_attrs, shade_surface
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +47,7 @@ class RenderConfig:
     rr_start: int = 100           # bounce index where Russian roulette starts
     ray_eps: float = 1e-3         # shadow/secondary ray offset
     tri_chunk: int = 2048         # brute-force intersection chunk size
-    tracer: str = "auto"          # auto|brute|resident (ported)
+    tracer: str = "auto"          # auto|brute|resident|pallas (ported)
     block_size: int = 256         # ray block of the block tracers
     max_u: int = 48               # candidate clusters per block
     chunk: int = 4                # clusters per kernel loop iteration
@@ -61,31 +66,49 @@ def _power_mis(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
 
 def _auto_tracer(scene: Scene) -> str:
     """Pick the intersection backend (host decision): the resident tracer
-    for scenes of at most RESIDENT_AUTO_MAX_TRIS triangles."""
+    up to RESIDENT_AUTO_MAX_TRIS triangles, else the block tracer ("pallas",
+    K1) when the scene has a cluster grid."""
     n = scene.geometry.num_tris
     if n <= resident.RESIDENT_AUTO_MAX_TRIS:
         return "resident"
+    if scene.clusters is not None:
+        return "pallas"
     raise NotImplementedError(
-        f"scene has {n} triangles (> {resident.RESIDENT_AUTO_MAX_TRIS}): it "
-        "needs the block tracer, which is not ported yet (ROADMAP.md, module "
-        "queue: block tracer); pass tracer='brute' or 'resident' explicitly")
+        f"scene has {n} triangles (> {resident.RESIDENT_AUTO_MAX_TRIS}) and "
+        "no cluster grid: attach one (scene.types.with_clusters) for the "
+        "block tracer, or pass tracer='brute' or 'resident' explicitly")
 
 
 def _tracer(scene: Scene, cfg: RenderConfig) -> str:
     tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
-    if tracer not in ("resident", "brute"):
-        raise NotImplementedError(
-            f"tracer {tracer!r} is not ported yet (ported: resident, brute)")
+    if tracer not in ("resident", "brute", "pallas"):
+        raise NotImplementedError(f"tracer {tracer!r} is not ported yet "
+                                  "(ported: resident, pallas, brute)")
+    if tracer == "pallas" and scene.clusters is None:
+        raise ValueError("tracer 'pallas' needs a cluster grid "
+                         "(scene.types.with_clusters)")
     return tracer
 
 
 def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
-                soup=None) -> Hit:
-    """Closest-hit dispatch (cfg.tracer: auto|resident|brute).  `soup` is
-    the prebuilt resident soup (frame_tables)."""
-    if _tracer(scene, cfg) == "resident":
+                active=None, sort: bool = False, soup=None) -> Hit:
+    """Closest-hit dispatch (cfg.tracer: auto|resident|pallas|brute).
+
+    Block tracer only: `active` (bool[N]) turns dead lanes into t_max = 0
+    rays, which drop out of the bundle bounds and the kernel's early exit
+    (dead lanes report a miss); `sort` is the in-tracer direction-bin sort
+    for direction-scattered bounce rays.  `soup` is the prebuilt resident
+    soup (frame_tables)."""
+    tracer = _tracer(scene, cfg)
+    if tracer == "resident":
         return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
                                            soup=soup)
+    if tracer == "pallas":
+        t_max = BIG if active is None else torch.where(active, BIG, 0.0)
+        return intersect_blocks_pallas(
+            scene.clusters, o, d, t_min=t_min, t_max=t_max,
+            block=cfg.block_size, max_u=cfg.max_u, sort=sort,
+            chunk=cfg.chunk)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return intersect_brute(o, d, v0, v1, v2, t_min=t_min,
                            chunk=cfg.tri_chunk)
@@ -93,11 +116,18 @@ def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
 
 def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig,
              soup=None) -> torch.Tensor:
-    """Any-hit (shadow) dispatch -> bool[N]."""
-    if _tracer(scene, cfg) == "resident":
+    """Any-hit (shadow) dispatch -> bool[N].  The block tracer sorts shadow
+    rays by direction bin when cfg.resort."""
+    tracer = _tracer(scene, cfg)
+    if tracer == "resident":
         return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
                                            t_max=t_max, any_hit=True,
                                            soup=soup)
+    if tracer == "pallas":
+        return intersect_blocks_pallas(
+            scene.clusters, o, d, t_min=t_min, t_max=t_max, any_hit=True,
+            block=cfg.block_size, max_u=cfg.max_u, sort=cfg.resort,
+            chunk=cfg.chunk)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return occluded_brute(o, d, v0, v1, v2, t_min=t_min, t_max=t_max,
                           chunk=cfg.tri_chunk)
@@ -109,52 +139,78 @@ class FrameTables:
 
     tri_attrs: torch.Tensor             # pack_tri_attrs
     emitter_attrs: torch.Tensor | None  # pack_emitter_attrs
+    pyramid: torch.Tensor | None        # texture quad pyramid
     soup: torch.Tensor | None           # resident soup (resident tracer)
 
 
 def frame_tables(scene: Scene, cfg: RenderConfig) -> FrameTables:
-    if scene.has_textures:
-        raise NotImplementedError(TEXTURES_TODO)
     return FrameTables(
         tri_attrs=pack_tri_attrs(scene),
         emitter_attrs=(lights_mod.pack_emitter_attrs(scene)
                        if scene.has_emitters else None),
+        pyramid=(build_pyramid(scene.textures) if scene.has_textures
+                 else None),
         soup=(resident.pack_resident_soup(scene.geometry)
               if _tracer(scene, cfg) == "resident" else None))
 
 
 def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                    keys: torch.Tensor, cfg: RenderConfig,
-                   return_stats: bool = False,
+                   return_stats: bool = False, cone_angle=None,
                    tables: FrameTables | None = None):
     """Estimate radiance along rays (o, d) [N, 3] -> L [N, 3].
 
     One sample per ray; `keys` int64[N, 2] are per-ray keys
-    (core.rng.ray_keys).  With return_stats=True also returns the int64
-    count of ray queries issued by ACTIVE lanes (closest-hit + shadow).
+    (core.rng.ray_keys).  `cone_angle` (scalar) is the pixel footprint
+    angle for ray-cone mip selection (None: level-0 texture fetches).  With
+    return_stats=True also returns the int64 count of ray queries made by
+    ACTIVE lanes (closest-hit + shadow).
     """
-    if scene.env is not None:
-        raise NotImplementedError(lights_mod.ENV_TODO)
     n = o.shape[0]
     dev = o.device
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     has_emitters = scene.has_emitters
+    has_env = scene.env is not None
     if tables is None:
         tables = frame_tables(scene, cfg)
+    path_dist = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     # pdf of the *previous* BSDF sampling decision, for MIS of emitter hits.
     prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
+    # Bounce rays are direction-scattered: the block tracer sorts them by
+    # direction bin inside the trace call (only o/d/t_max move).
+    use_sort = cfg.resort and _tracer(scene, cfg) == "pallas"
 
     for bounce in range(cfg.max_bounces + 1):
         ray_count = ray_count + active.sum()
         hit = closest_hit(scene, o, d,
                           t_min=0.0 if bounce == 0 else cfg.ray_eps, cfg=cfg,
-                          soup=tables.soup)
-        active = active & ~hit.miss
-        sp = shade_surface(scene, hit, o, d, tri_attrs=tables.tri_attrs)
+                          active=None if bounce == 0 else active,
+                          sort=use_sort and bounce > 0, soup=tables.soup)
+        miss = hit.miss
+
+        # --- escaped rays: environment ---------------------------------
+        if has_env:
+            env_l = lights_mod.env_radiance(scene, d)
+            if cfg.mis and cfg.nee and bounce > 0:
+                w_env = torch.where(
+                    prev_pdf > 0.0,
+                    _power_mis(prev_pdf, lights_mod.env_pdf(scene, d)), 1.0)
+            else:
+                w_env = torch.ones((n,), dtype=torch.float32, device=dev)
+            L = L + torch.where((active & miss)[:, None],
+                                throughput * env_l * w_env[:, None], 0.0)
+        active = active & ~miss
+
+        # Ray-cone width at the hit (texture mip selection).
+        path_dist = path_dist + torch.clamp_max(hit.t.detach(), 1e6) * (
+            ~miss).to(torch.float32)
+        cone_w = path_dist * cone_angle if cone_angle is not None else None
+        sp = shade_surface(scene, hit, o, d, tri_attrs=tables.tri_attrs,
+                           pyramid=tables.pyramid, cone_width=cone_w)
 
         # --- emitter hit through BSDF sampling (or camera) --------------
         if has_emitters:
@@ -185,7 +241,8 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
 
         # --- NEE: one occluded() call per light family ------------------
         if cfg.nee:
-            n_shadow = int(has_emitters) + int(scene.has_directional)
+            n_shadow = (int(has_emitters) + int(has_env)
+                        + int(scene.has_directional))
             ray_count = ray_count + n_shadow * active.sum()
             u = rng_mod.ray_uniform(keys, bounce, rng_mod.STREAM_LIGHT, 5)
             pending = []
@@ -194,6 +251,10 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                     scene, sp.pos.detach(), u[:, 0], u[:, 1:3],
                     emitter_attrs=tables.emitter_attrs)
                 pending.append(_nee_prepare(sp, wo, ls, throughput, active,
+                                            mis=cfg.mis))
+            if has_env:
+                es = lights_mod.sample_env(scene, n, u[:, 3:5])
+                pending.append(_nee_prepare(sp, wo, es, throughput, active,
                                             mis=cfg.mis))
             # Directional (delta) light: always NEE, never MIS.
             if scene.has_directional:
@@ -278,18 +339,33 @@ def _check_config(cfg: RenderConfig) -> None:
 def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
                      cfg: RenderConfig, return_stats: bool = False,
                      tables: FrameTables | None = None):
-    """One sample per pixel -> radiance [H, W, 3] (row-major ray order: the
-    ported tracers are order-invariant, so no morton order)."""
+    """One sample per pixel -> radiance [H, W, 3].
+
+    Per-ray keys derive from the global pixel ids.  With the block tracer
+    the rays are processed in morton order (compact 16x16 tiles per
+    256-ray block, core/morton.py) and unscrambled at the end; the other
+    tracers are order-invariant and take row-major order."""
     dev = scene.device
-    pix = torch.arange(cfg.height * cfg.width, dtype=torch.int64, device=dev)
+    n_pix = cfg.height * cfg.width
+    morton = _tracer(scene, cfg) == "pallas"
+    if morton:
+        pix = torch.from_numpy(morton_pixel_ids(cfg.height, cfg.width)).to(
+            device=dev, dtype=torch.int64)
+    else:
+        pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
     keys = rng_mod.ray_keys(key, pix)
     jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
     px = (pix % cfg.width).to(torch.float32)
     py = (pix // cfg.width).to(torch.float32)
     o, d = generate_rays_at(camera, cfg.width, cfg.height, px, py, jitter)
+    # Pixel footprint angle for ray-cone mip selection (ops/texture.py).
+    cone_angle = (2.0 * torch.tan(camera.fov_y * 0.5) / cfg.height
+                  if scene.has_textures else None)
     out = trace_radiance(scene, o, d, keys, cfg, return_stats=return_stats,
-                         tables=tables)
+                         cone_angle=cone_angle, tables=tables)
     L, count = out if return_stats else (out, None)
+    if morton:
+        L = torch.zeros_like(L).index_put_((pix,), L)
     img = L.reshape(cfg.height, cfg.width, 3)
     return (img, count) if return_stats else img
 

@@ -4,8 +4,10 @@ All per-triangle shading data is packed once per frame into one wide table
 f32[T, 86] with the reference's column layout (`pack_tri_attrs`, attached
 to the scene tensors so gradients can flow), and each bounce does a single
 row gather.  The winner is re-intersected here, attached, so tracers may
-return detached hits (ops/resident.py).  Texture fetches are not ported
-yet: a scene with textures raises.
+return detached hits (ops/resident.py, ops/blocktrace.py).  Texture
+slots (base colour, metallic-roughness, normal, emissive) are sampled from
+the quad pyramid (ops/texture.py) with ray-cone mip selection; each slot
+is skipped when no material uses it (`Scene.tex_slots`).
 """
 
 from __future__ import annotations
@@ -18,17 +20,15 @@ from ..core import math3d
 from ..models.bsdf import BsdfParams
 from ..ops.gather import take_rows
 from ..ops.intersect import Hit
-from ..ops.texture import META_W, texture_meta
-from ..scene.types import Scene
+from ..ops.texture import META_W, build_pyramid, sample_slot, texture_meta
+from ..scene.types import MIP_LINEAR, Scene
 
 # Column offsets of the packed per-triangle attribute row (pack_tri_attrs).
 COL_MAT = 47
 COL_PDF_AREA = 48
+COL_UV_DENSITY = 49
 COL_META = 50          # 4 slots x META_W texture metadata
 ATTR_W = COL_META + 4 * META_W
-
-TEXTURES_TODO = ("texture sampling is not ported yet "
-                 "(ROADMAP.md, module queue: textures and cornell_ggx)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +103,17 @@ def pack_tri_attrs(scene: Scene) -> torch.Tensor:
 
 def shade_surface(scene: Scene, hit: Hit, ray_o: torch.Tensor,
                   ray_d: torch.Tensor,
-                  tri_attrs: torch.Tensor | None = None) -> ShadingPoint:
+                  tri_attrs: torch.Tensor | None = None,
+                  pyramid: torch.Tensor | None = None,
+                  cone_width: torch.Tensor | None = None) -> ShadingPoint:
     """Shading points for hits (finite garbage for misses; callers mask by
-    hit.miss).  Barycentrics are re-derived attached from (ray_o, ray_d)."""
-    if scene.has_textures:
-        raise NotImplementedError(TEXTURES_TODO)
+    hit.miss).  Barycentrics are re-derived attached from (ray_o, ray_d).
+
+    Pass a prebuilt `tri_attrs` (pack_tri_attrs) and `pyramid`
+    (ops.texture.build_pyramid) to amortize them over bounces.
+    `cone_width` f32[N] is the ray cone's world-space width at the hit;
+    None selects level-0 bilinear fetches everywhere.
+    """
     tri = torch.clamp_min(hit.tri, 0)
     if tri_attrs is None:
         tri_attrs = pack_tri_attrs(scene)
@@ -142,9 +148,49 @@ def shade_surface(scene: Scene, hit: Hit, ray_o: torch.Tensor,
 
     mat = rows[:, COL_MAT].to(torch.int32)
 
-    # TBN frame: tangent orthogonalized against the interpolated normal.
+    lod, trilinear = None, False
+    if scene.has_textures:
+        if pyramid is None:
+            pyramid = build_pyramid(scene.textures)
+        trilinear = any(f[2] == MIP_LINEAR for f in scene.textures.filt)
+        if cone_width is not None:
+            # Ray-cone LOD (no curvature or BSDF spread): the cone width
+            # stretched by 1/|cos| at grazing angles and converted to uv
+            # units by the triangle's uv density; sample_slot adds the
+            # texture-size term.  A detached sampling decision.
+            cosg = torch.abs(torch.sum(ng.detach() * ray_d, dim=-1))
+            foot = (cone_width.detach() * rows[:, COL_UV_DENSITY]
+                    / torch.clamp_min(cosg, 0.08))
+            lod = torch.log2(torch.clamp_min(foot.detach(), 1e-30))
+
+    def meta(slot):
+        c = COL_META + slot * META_W
+        return rows[:, c:c + META_W]
+
+    def fetch(slot, default=1.0):
+        return sample_slot(pyramid, meta(slot), uv, lod, default=default,
+                           trilinear=trilinear)
+
+    # TBN frame: tangent orthogonalized against the interpolated normal,
+    # bitangent = cross(N, T) * T.w.
     t = t4[:, :3] - torch.sum(t4[:, :3] * ns, dim=-1, keepdim=True) * ns
     t = math3d.normalize(t)
+    b = math3d.cross(ns, t) * t4[:, 3:4]
+
+    if scene.tex_slots[2]:
+        # Normal mapping: n = tex * 2 - 1 in the TBN frame, glTF
+        # normal_scale on the tangential components.
+        has_nm = (meta(2)[:, 0] >= 0.0)[:, None]
+        nm = fetch(2, default=0.5)[:, :3] * 2.0 - 1.0
+        scale = rows[:, 46:47]
+        nm = torch.cat([nm[:, :2] * scale, nm[:, 2:3]], dim=-1)
+        # Sanitize before normalize: lanes without a normal map carry the
+        # zero vector, whose normalize-gradient is NaN.
+        nm = torch.where(has_nm, nm, nm.new_tensor([0.0, 0.0, 1.0]))
+        nm = math3d.normalize(nm)
+        ns_mapped = math3d.normalize(
+            nm[:, 0:1] * t + nm[:, 1:2] * b + nm[:, 2:3] * ns)
+        ns = torch.where(has_nm, ns_mapped, ns)
 
     # Keep the shading normal in the oriented geometric hemisphere.
     flip = torch.sum(ns * ng_o, dim=-1, keepdim=True) < 0.0
@@ -152,17 +198,31 @@ def shade_surface(scene: Scene, hit: Hit, ray_o: torch.Tensor,
         flip, ns - 2.0 * torch.sum(ns * ng_o, dim=-1, keepdim=True) * ng_o,
         ns))
 
-    # Rebuild the tangent frame around the final shading normal; bitangent
-    # = cross(N, T) * T.w.
+    # Rebuild the tangent frame around the final shading normal.
     t = t - torch.sum(t * ns, dim=-1, keepdim=True) * ns
     t = math3d.normalize(t)
     b = math3d.cross(ns, t) * t4[:, 3:4]
 
-    # One-sided emission: only the geometric front face emits.
-    emissive = torch.where(front[:, None], rows[:, 42:45], 0.0)
+    # Material parameters = factor x texture (glTF: B = metallic,
+    # G = roughness).
+    base_color = rows[:, 36:39]
+    if scene.tex_slots[0]:
+        base_color = base_color * fetch(0)[:, :3]
+    metallic = rows[:, 40]
+    roughness = rows[:, 41]
+    if scene.tex_slots[1]:
+        mr = fetch(1)
+        metallic = metallic * mr[:, 2]
+        roughness = roughness * mr[:, 1]
+    emissive = rows[:, 42:45]
+    if scene.tex_slots[3]:
+        emissive = emissive * fetch(3)[:, :3]
 
-    params = BsdfParams(base_color=rows[:, 36:39], metallic=rows[:, 40],
-                        roughness=rows[:, 41], specular=rows[:, 45])
+    # One-sided emission: only the geometric front face emits.
+    emissive = torch.where(front[:, None], emissive, 0.0)
+
+    params = BsdfParams(base_color=base_color, metallic=metallic,
+                        roughness=roughness, specular=rows[:, 45])
     return ShadingPoint(pos=pos, ng=ng_o, ns=ns, tang=t, bitang=b, uv=uv,
                         bsdf=params, emissive=emissive, front=front, mat=mat,
                         pdf_area=rows[:, COL_PDF_AREA])

@@ -1,24 +1,24 @@
 """Light models + next-event-estimation sampling (port of `models/lights.py`).
 
-Area emitters (emissive triangles) and the directional light are ported;
-the environment-map functions raise until the environment slice lands.
-Samplers return solid-angle pdfs so the integrator can MIS them against
-BSDF sampling; the caller supplies the uniforms (core/rng.py keying).
+Area emitters (emissive triangles), the directional light and the
+equirect environment map.  Samplers return solid-angle pdfs so the
+integrator can MIS them against BSDF sampling; the caller supplies the
+uniforms (core/rng.py keying).  Emissive textures on area emitters are
+not ported yet: NEE on such a scene raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..core import math3d
 from ..ops.gather import take_rows
 from ..ops.intersect import BIG
+from ..ops.texture import sample_env_bilinear
 from ..scene.types import Scene
-
-ENV_TODO = ("environment lighting is not ported yet "
-            "(ROADMAP.md, module queue: textures and cornell_ggx)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +77,8 @@ def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
     """
     if scene.tex_slots[3]:
         raise NotImplementedError(
-            "emissive textures are not ported yet "
-            "(ROADMAP.md, module queue: textures and cornell_ggx)")
+            "emissive textures in area-light NEE are not ported yet "
+            "(ROADMAP.md, module queue: asset ingest)")
     em = scene.emitters
     if emitter_attrs is None:
         emitter_attrs = pack_emitter_attrs(scene)
@@ -141,13 +141,48 @@ def sample_directional(scene: Scene, n_rays: int) -> LightSample:
         valid=on.expand(n_rays))
 
 
+def _env(scene: Scene):
+    if scene.env is None:
+        raise ValueError("the scene has no environment map")
+    return scene.env
+
+
 def sample_env(scene: Scene, n_rays: int, u2: torch.Tensor) -> LightSample:
-    raise NotImplementedError(ENV_TODO)
+    """Importance-sample the environment map through its Walker alias table:
+    u2[:, 0] picks the slot, u2[:, 1] accepts it or takes its alias."""
+    env = _env(scene)
+    h, w = env.data.shape[0], env.data.shape[1]
+    m = h * w
+    slot = torch.clamp((u2[:, 0] * m).to(torch.int32), 0, m - 1)
+    accept = u2[:, 1] < env.alias_prob[slot]
+    texel = torch.where(accept, slot, env.alias_idx[slot])
+    row = texel // w
+    col = texel - row * w
+    theta = (row.to(torch.float32) + 0.5) / h * math.pi
+    phi = ((col.to(torch.float32) + 0.5) / w - 0.5) * 2.0 * math.pi
+    sin_t = torch.sin(theta)
+    wi = torch.stack([sin_t * torch.cos(phi), torch.cos(theta),
+                      sin_t * torch.sin(phi)], dim=-1)
+    texel = row * w + col
+    pdf = env.pdf.reshape(-1)[texel]
+    return LightSample(
+        wi=wi, dist=torch.full((n_rays,), BIG, dtype=torch.float32,
+                               device=u2.device),
+        radiance=env.data.reshape(-1, 3)[texel], pdf=pdf, valid=pdf > 0.0)
 
 
 def env_pdf(scene: Scene, d: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(ENV_TODO)
+    """Solid-angle pdf of env NEE producing direction d[N, 3] (for MIS)."""
+    env = _env(scene)
+    h, w = env.data.shape[0], env.data.shape[1]
+    theta = torch.arccos(torch.clamp(d[:, 1], -1.0, 1.0))
+    phi = torch.atan2(d[:, 2], d[:, 0])
+    row = torch.clamp((theta / math.pi * h).to(torch.int32), 0, h - 1)
+    col = torch.clamp(((phi / (2.0 * math.pi) + 0.5) * w).to(torch.int32),
+                      0, w - 1)
+    return env.pdf.reshape(-1)[row * w + col]
 
 
 def env_radiance(scene: Scene, d: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(ENV_TODO)
+    """Environment radiance for escaped rays (bilinear)."""
+    return sample_env_bilinear(_env(scene).data, d)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-Every source is compiled by one `nvcc` call into one shared library with a
-plain C interface, loaded with ctypes: seconds to build, where an extension
-that includes PyTorch's headers takes minutes.  The library lands in
+Each source is compiled by its own `nvcc` process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes: seconds to build, where an extension that
+includes PyTorch's headers takes minutes.  The library lands in
 `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
 the sources and the flags, and is built at first use.  A failed build
 raises; nothing falls back to the plain versions.
@@ -10,7 +11,8 @@ raises; nothing falls back to the plain versions.
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA, so
 each kernel rounds exactly like its plain-torch version (one rounding per
 operation) and the resident tracer's hit distances and winners agree with
-the plain version bit for bit.  No `--use_fast_math`.
+the plain version bit for bit (the block tracer likewise).  No
+`--use_fast_math`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,9 +30,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("resident.cu", "tonemap.cu")
+SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -42,6 +45,13 @@ _SIGNATURES = {
     "pbr_resident_any": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     # hdr, out, n_pixels, inv_gamma, stream
     "pbr_tonemap": [_P, _P, _I, _F, _P],
+    # u_idx, n_valid, entry, o, d, t_max, soup, n_blocks, block, n_u, k, ch,
+    # t_min, best_t, best_flat, stream
+    "pbr_trace_blocks_closest": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _F, _P, _P, _P],
+    # ... t_min, occ_out, stream
+    "pbr_trace_blocks_any": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,6 +78,18 @@ def build_dir() -> Path:
     return _PKG.parent / "build" / "torch_kernels" / h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run commands in parallel; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet."""
     global BUILD_SECONDS
@@ -78,15 +100,17 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
+    # Objects and the unfinished library live in a scratch directory that
+    # is removed whether or not the build succeeds.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{Path(s).stem}.o" for s in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+              for src, obj in zip(SOURCES, objs)])
+        tmp = Path(tmp_dir) / LIB_NAME
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for obj in objs)]])
+        os.replace(tmp, lib_path)
     BUILD_SECONDS = time.perf_counter() - t0
     return lib_path
 

@@ -1,15 +1,22 @@
-"""Procedural test scenes (port of `scene/procedural.py`, untextured part).
+"""Procedural test scenes (port of `scene/procedural.py`).
 
 The builders compute in numpy exactly as the reference does and wrap the
 result in CPU tensors; `scene.types.upload_scene` moves it to the device.
+`make_helmet_class_scene` is the `helmet_proc` config: a displaced
+224x224 UV sphere of 100,352 triangles with 256x256 albedo and
+metallic-roughness maps under a procedural HDR sky.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .types import DirectionalLight, Geometry, Materials, Scene, make_scene
+from .types import (FILTER_LINEAR, MIP_NONE, WRAP_REPEAT, DirectionalLight,
+                    EnvMap, Geometry, Materials, Scene, TextureStack,
+                    build_env_tables, make_scene)
 
 
 def _geometry_from_arrays(positions, indices, tri_material, uvs=None,
@@ -105,16 +112,15 @@ def _quad(p00, p10, p11, p01):
 def make_cornell_box(light_scale: float = 1.0,
                      metallic_tall_block: bool = False,
                      roughness: float = 1.0,
-                     textured: bool = False) -> Scene:
+                     textured: bool = False,
+                     tex_size: int = 8) -> Scene:
     """Cornell box with an area light (+ optional GGX metallic tall block).
 
-    The textured variant (the `cornell_ggx` configs) waits for the texture
-    slice of the port.
+    textured=True attaches a checker albedo map on the white surfaces and a
+    metallic-roughness map (G = roughness ramp) on the tall block, both
+    tex_size^2 and MIP_NONE (the `cornell_ggx` and `cornell_tex256`
+    configs).
     """
-    if textured:
-        raise NotImplementedError(
-            "textured Cornell box: texture sampling is not ported yet "
-            "(ROADMAP.md, module queue: textures and cornell_ggx)")
     verts: list = []
     faces: list = []
     mat_ids: list = []
@@ -169,7 +175,130 @@ def make_cornell_box(light_scale: float = 1.0,
         metallic[4] = 1.0
         rough[4] = roughness
     # Diffuse-only walls: zero dielectric specular => exact Lambert.
-    mats = _materials(base_color_factor=base, emissive_factor=emissive,
-                      metallic_factor=metallic, roughness_factor=rough,
-                      specular_factor=np.zeros((5,), np.float32))
-    return make_scene(geometry, mats)
+    cols = dict(base_color_factor=base, emissive_factor=emissive,
+                metallic_factor=metallic, roughness_factor=rough,
+                specular_factor=np.zeros((5,), np.float32))
+    textures = None
+    if textured:
+        ts = tex_size
+        albedo = make_checker_texture(ts, 4 if ts <= 16 else 8,
+                                      (1.0, 1.0, 1.0), (0.55, 0.55, 0.55))
+        mr = np.ones((ts, ts, 4), np.float32)
+        xx = np.arange(ts, dtype=np.float32) / (ts - 1.0)
+        mr[..., 1] = 0.4 + 0.6 * xx[None, :]   # roughness scale ramp
+        mr[..., 2] = 1.0                       # metallic scale (factor rules)
+        textures = TextureStack.from_images(
+            [albedo, mr], wrap=((WRAP_REPEAT, WRAP_REPEAT),) * 2,
+            filt=((FILTER_LINEAR, FILTER_LINEAR, MIP_NONE),) * 2)
+        bc_tex = np.full((5,), -1, np.int32)
+        mr_tex = np.full((5,), -1, np.int32)
+        bc_tex[0] = 0                          # checker on white surfaces
+        mr_tex[4] = 1                          # roughness ramp on the block
+        cols.update(base_color_tex=bc_tex, metallic_roughness_tex=mr_tex)
+    return make_scene(geometry, _materials(**cols), textures=textures)
+
+
+def make_furnace_scene(albedo: float = 0.7, env_radiance: float = 1.0,
+                       metallic: float = 0.0, roughness: float = 1.0,
+                       specular: float = 0.0) -> Scene:
+    """Furnace test: a sphere in a constant environment.  A Lambert sphere
+    of albedo 1 disappears into the background."""
+    sphere = make_uv_sphere(radius=1.0, rings=32, sectors=64)
+    mats = _materials(
+        base_color_factor=np.asarray([[albedo, albedo, albedo, 1.0]],
+                                     np.float32),
+        metallic_factor=np.asarray([metallic], np.float32),
+        roughness_factor=np.asarray([roughness], np.float32),
+        specular_factor=np.asarray([specular], np.float32))
+    return make_scene(sphere, mats,
+                      env=EnvMap.constant((env_radiance,) * 3))
+
+
+def make_uv_sphere(radius: float = 1.0, rings: int = 16, sectors: int = 32,
+                   center=(0.0, 0.0, 0.0), material: int = 0) -> Geometry:
+    """UV-sphere triangle mesh with exact normals and spherical UVs."""
+    ring_t = np.linspace(0.0, np.pi, rings + 1)
+    sec_t = np.linspace(0.0, 2.0 * np.pi, sectors + 1)
+    verts, normals, uvs = [], [], []
+    for i, th in enumerate(ring_t):
+        for j, ph in enumerate(sec_t):
+            n = np.array([np.sin(th) * np.cos(ph), np.cos(th),
+                          np.sin(th) * np.sin(ph)], np.float32)
+            verts.append(np.asarray(center, np.float32) + radius * n)
+            normals.append(n)
+            uvs.append([j / sectors, i / rings])
+    faces = []
+    stride = sectors + 1
+    for i in range(rings):
+        for j in range(sectors):
+            a = i * stride + j
+            b = a + stride
+            faces.append([a, b, a + 1])
+            faces.append([a + 1, b, b + 1])
+    faces_np = np.asarray(faces, np.int32)
+    return _geometry_from_arrays(
+        np.asarray(verts), faces_np, [material] * len(faces_np),
+        uvs=np.asarray(uvs, np.float32), normals=np.asarray(normals))
+
+
+def make_checker_texture(size: int = 256, squares: int = 8,
+                         c0=(0.8, 0.8, 0.8), c1=(0.2, 0.3, 0.6)):
+    """Procedural checkerboard RGBA texture (linear) f32[size, size, 4]."""
+    y, x = np.mgrid[0:size, 0:size]
+    cell = ((x * squares // size) + (y * squares // size)) % 2
+    tex = np.where(cell[..., None] == 0,
+                   np.asarray(c0 + (1.0,), np.float32),
+                   np.asarray(c1 + (1.0,), np.float32))
+    return tex.astype(np.float32)
+
+
+def make_gradient_sky(height: int = 64, width: int = 128,
+                      zenith=(0.3, 0.5, 1.2), horizon=(0.9, 0.8, 0.7),
+                      sun_dir=(0.3, 0.8, 0.2), sun_radiance=(60.0,) * 3,
+                      sun_sharpness: float = 400.0) -> EnvMap:
+    """Procedural HDR sky (gradient + sun disc) with importance tables."""
+    theta = (np.arange(height) + 0.5) / height * np.pi
+    phi = ((np.arange(width) + 0.5) / width - 0.5) * 2.0 * np.pi
+    y = np.cos(theta)[:, None]
+    t = np.clip(y, 0.0, 1.0)
+    base = (t[..., None] * np.asarray(zenith, np.float32)
+            + (1 - t)[..., None] * np.asarray(horizon, np.float32))
+    dirs = np.stack(np.broadcast_arrays(
+        np.sin(theta)[:, None] * np.cos(phi)[None, :],
+        np.broadcast_to(y, (height, width)),
+        np.sin(theta)[:, None] * np.sin(phi)[None, :]), axis=-1)
+    sd = np.asarray(sun_dir, np.float32)
+    sd = sd / np.linalg.norm(sd)
+    cos = np.clip((dirs * sd).sum(-1), 0.0, 1.0)
+    sun = np.exp((cos - 1.0) * sun_sharpness)[..., None] * np.asarray(
+        sun_radiance, np.float32)
+    return build_env_tables((base + sun).astype(np.float32))
+
+
+def make_helmet_class_scene(rings: int = 224, sectors: int = 224,
+                            bump: float = 0.06, seed: int = 0) -> Scene:
+    """The `helmet_proc` scene: a ~100k-triangle displaced, textured,
+    metallic-roughness sphere under an HDR sky (`seed` is unused, as in
+    the reference)."""
+    g = make_uv_sphere(radius=1.0, rings=rings, sectors=sectors)
+    p = g.positions.numpy()
+    n = g.normals.numpy()
+    disp = (np.sin(5.0 * p[:, 0]) * np.sin(4.0 * p[:, 1])
+            * np.sin(6.0 * p[:, 2]))
+    p = (p + n * (bump * disp)[:, None].astype(np.float32)).astype(
+        np.float32)
+    g = dataclasses.replace(
+        g, positions=torch.from_numpy(p),
+        normals=torch.from_numpy(_vertex_normals(p, g.indices.numpy())))
+
+    albedo = make_checker_texture(256, 12, (0.7, 0.45, 0.2), (0.2, 0.2, 0.25))
+    # MR texture: G = roughness ramp, B = metallic split
+    mr = np.zeros((256, 256, 4), np.float32)
+    yy, xx = np.mgrid[0:256, 0:256]
+    mr[..., 1] = 0.15 + 0.7 * (xx / 255.0)
+    mr[..., 2] = (yy > 128).astype(np.float32)
+    mr[..., 3] = 1.0
+    mats = _materials(base_color_tex=np.asarray([0], np.int32),
+                      metallic_roughness_tex=np.asarray([1], np.int32))
+    return make_scene(g, mats, textures=TextureStack.from_images([albedo, mr]),
+                      env=make_gradient_sky())

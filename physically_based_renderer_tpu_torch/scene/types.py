@@ -17,6 +17,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..accel.clusters import (SOUP_ROWS, ClusterGrid, build_clusters,
+                              pack_soup_host)
+
 # Texture wrap modes / filters: same encoding as the reference.
 WRAP_REPEAT = 0
 WRAP_CLAMP = 1
@@ -98,8 +101,10 @@ class Materials:
 class TextureStack:
     """All scene textures as one flat texel arena (linear RGBA rows).
 
-    Shapes, wrap modes and filters are static tuples.  Texture sampling is
-    not ported yet; an untextured scene carries the 1x1 `empty()` stack.
+    `texels[offsets[i] : offsets[i] + h_i * w_i]` is texture i, row-major
+    (y down).  Shapes, wrap modes and filters are static tuples; the
+    sampler (ops/texture.py) builds the mip pyramid from the arena.  An
+    untextured scene carries the 1x1 `empty()` stack.
     """
 
     texels: torch.Tensor  # f32[R, 4]
@@ -112,6 +117,36 @@ class TextureStack:
         return cls(texels=torch.ones((1, 4)), shapes=((1, 1),),
                    wrap=((WRAP_REPEAT, WRAP_REPEAT),),
                    filt=((FILTER_LINEAR, FILTER_LINEAR, MIP_NONE),))
+
+    @classmethod
+    def from_images(cls, images, wrap=None, filt=None) -> "TextureStack":
+        """Build from a list of [h, w, 4] float arrays (host).
+
+        wrap: per-texture (wrapS, wrapT), default repeat; filt: per-texture
+        (mag, min_inner, min_mip), default trilinear (MIP_LINEAR), the glTF
+        default when a sampler leaves its filters undefined.
+        """
+        images = [np.asarray(im, np.float32) for im in images]
+        if not images:
+            return cls.empty()
+        n = len(images)
+        wrap = (tuple(tuple(w) for w in wrap) if wrap is not None
+                else ((WRAP_REPEAT, WRAP_REPEAT),) * n)
+        filt = (tuple(tuple(f) for f in filt) if filt is not None
+                else ((FILTER_LINEAR, FILTER_LINEAR, MIP_LINEAR),) * n)
+        texels = np.concatenate([im.reshape(-1, 4) for im in images], axis=0)
+        return cls(texels=torch.from_numpy(texels),
+                   shapes=tuple((im.shape[0], im.shape[1]) for im in images),
+                   wrap=wrap, filt=filt)
+
+    @property
+    def offsets(self) -> tuple:
+        """Static start row of each texture in `texels`."""
+        offs, acc = [], 0
+        for (h, w) in self.shapes:
+            offs.append(acc)
+            acc += h * w
+        return tuple(offs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +193,8 @@ class DirectionalLight:
 
 @dataclasses.dataclass(frozen=True)
 class EnvMap:
-    """Equirect HDR environment map with importance-sampling tables.
-
-    Type only: environment lighting is not ported yet, and the light
-    functions that read it raise (models/lights.py).
-    """
+    """Equirect HDR environment map with importance-sampling tables
+    (`build_env_tables`); sampled by models/lights.py."""
 
     data: torch.Tensor             # f32[H, W, 3] radiance
     conditional_cdf: torch.Tensor  # f32[H, W]
@@ -170,6 +202,12 @@ class EnvMap:
     pdf: torch.Tensor              # f32[H, W] solid-angle pdf per texel
     alias_prob: torch.Tensor       # f32[H*W]
     alias_idx: torch.Tensor        # i32[H*W]
+
+    @classmethod
+    def constant(cls, radiance, height: int = 8, width: int = 16) -> "EnvMap":
+        data = np.broadcast_to(np.asarray(radiance, np.float32),
+                               (height, width, 3))
+        return build_env_tables(data)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +218,9 @@ class Scene:
     emitters: EmitterTable
     directional: DirectionalLight
     env: EnvMap | None
+    # The block tracer's cluster grid (accel/clusters.py, `with_clusters`);
+    # None => the resident or brute tracer.
+    clusters: ClusterGrid | None = None
     # Static flags: the integrator skips whole light paths / texture slots.
     has_emitters: bool = False
     has_directional: bool = False
@@ -213,6 +254,34 @@ def _build_alias_table(p: np.ndarray):
         (small if scaled[l] < 1.0 else large).append(l)
     # Leftovers (float slop) keep prob = 1 (self-alias).
     return prob.astype(np.float32), alias.astype(np.int32)
+
+
+def build_env_tables(data) -> EnvMap:
+    """Importance tables for an equirect env map (host numpy).
+
+    Rows are weighted by sin(theta); pdf is in solid-angle measure:
+    p(omega) = p_img(x, y) * (H * W) / (2 pi^2 sin(theta)).
+    """
+    data = np.asarray(data, np.float32)
+    h, w = data.shape[0], data.shape[1]
+    lum = np.maximum(data.mean(axis=-1), 1e-12)
+    theta = (np.arange(h, dtype=np.float32) + 0.5) / h * np.pi
+    sin_t = np.sin(theta).astype(np.float32)
+    weighted = lum * sin_t[:, None]
+    row_sums = weighted.sum(axis=1)
+    total = max(row_sums.sum(), 1e-12)
+    conditional_cdf = np.cumsum(weighted, axis=1) / np.maximum(
+        row_sums[:, None], 1e-12)
+    marginal_cdf = np.cumsum(row_sums) / total
+    p_img = weighted / total  # probability of each texel
+    pdf_sa = p_img * (h * w) / (2.0 * np.pi * np.pi * np.maximum(
+        sin_t[:, None], 1e-6))
+    alias_prob, alias_idx = _build_alias_table(p_img.reshape(-1))
+    return EnvMap(data=_f32(np.ascontiguousarray(data)),
+                  conditional_cdf=_f32(conditional_cdf.astype(np.float32)),
+                  marginal_cdf=_f32(marginal_cdf.astype(np.float32)),
+                  pdf=_f32(pdf_sa.astype(np.float32)),
+                  alias_prob=_f32(alias_prob), alias_idx=_i32(alias_idx))
 
 
 def _np(x) -> np.ndarray:
@@ -298,6 +367,16 @@ def _to_device(obj, device):
     return obj
 
 
+def with_clusters(scene: Scene) -> Scene:
+    """Build the cluster grid (`accel.clusters.CLUSTER_K` triangles a
+    cluster) and its packed soup (host numpy builder) and attach it; the
+    block tracer (ops/blocktrace.py) needs it."""
+    pos = _np(scene.geometry.positions)
+    idx = _np(scene.geometry.indices)
+    grid = pack_soup_host(build_clusters(pos, idx), pos, idx)
+    return dataclasses.replace(scene, clusters=_to_device(grid, scene.device))
+
+
 def upload_scene(scene: Scene, device) -> Scene:
     """Move every tensor of the scene to `device`; the scene's device is
     then the render device of everything derived from it."""
@@ -332,10 +411,19 @@ def scene_from_numpy(arrays: Mapping[str, Any], device=None) -> Scene:
     `arrays` maps each record name (geometry, materials, textures,
     emitters, directional, env) to a mapping of its field names to numpy
     arrays (tuples for the texture stack's static fields; env may be None),
-    plus "flags": a mapping of the Scene's static flags.  Acceleration
-    structures attached to the reference scene are not carried over.
+    plus "flags": a mapping of the Scene's static flags.  An optional
+    "clusters" mapping carries the reference's cluster grid; its soup's
+    zero rows beyond the first 9 (TPU DMA alignment) are dropped.
     """
     flags = arrays["flags"]
+    grid = arrays.get("clusters")
+    if grid is not None:
+        grid = ClusterGrid(
+            aabb_min=_f32(grid["aabb_min"]), aabb_max=_f32(grid["aabb_max"]),
+            tri_id=_i32(grid["tri_id"]), parent_min=_f32(grid["parent_min"]),
+            parent_max=_f32(grid["parent_max"]),
+            soup=(None if grid.get("soup") is None else _f32(
+                np.ascontiguousarray(np.asarray(grid["soup"])[:, :SOUP_ROWS]))))
     scene = Scene(
         geometry=_record(Geometry, arrays["geometry"]),
         materials=_record(Materials, arrays["materials"]),
@@ -344,6 +432,7 @@ def scene_from_numpy(arrays: Mapping[str, Any], device=None) -> Scene:
         directional=_record(DirectionalLight, arrays["directional"]),
         env=(None if arrays.get("env") is None
              else _record(EnvMap, arrays["env"])),
+        clusters=grid,
         **{k: (tuple(bool(x) for x in flags[k]) if k == "tex_slots"
                else bool(flags[k])) for k in _FLAG_FIELDS},
     )

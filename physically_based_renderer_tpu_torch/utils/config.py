@@ -1,8 +1,10 @@
 """Named render configs (port of `utils/config.py`).
 
 Same config names and `RenderConfig`s as the reference.  `build_scene`
-builds the scenes the port can render so far (triangle, cornell); the
-other builders raise until their slice is ported.
+builds every procedural scene (triangle, cornell, cornell_ggx,
+cornell_tex256, helmet_proc) and attaches the cluster grid, as the
+reference does; the glTF builders (`helmet`, `gltf`) raise until asset
+ingest is ported.
 """
 
 from __future__ import annotations
@@ -99,17 +101,29 @@ def build_scene(spec: SceneSpec, device=None):
     """Materialize (scene, camera) for a SceneSpec on `device`."""
     from ..core.camera import Camera
     from ..scene import procedural
-    from ..scene.types import upload_scene
+    from ..scene.types import upload_scene, with_clusters
 
     b = spec.builder
     if b == "triangle":
         scene = procedural.make_triangle_scene()
     elif b == "cornell":
         scene = procedural.make_cornell_box()
-    else:
+    elif b == "cornell_ggx":
+        scene = procedural.make_cornell_box(
+            metallic_tall_block=True,
+            roughness=spec.extra.get("roughness", 0.25), textured=True,
+            tex_size=spec.extra.get("tex_size", 8))
+    elif b == "helmet":
+        scene = procedural.make_helmet_class_scene(**spec.extra)
+    elif b in ("helmet_glb", "gltf"):
         raise NotImplementedError(
-            f"scene builder {b!r} is not ported yet (ported: triangle, "
-            "cornell); see ROADMAP.md, module queue")
+            f"scene builder {b!r} needs glTF ingest, which is not ported yet "
+            "(ROADMAP.md, module queue: asset ingest)")
+    else:
+        raise ValueError(f"unknown scene builder {b!r}")
+    # Always attach the cluster grid, as the reference does; scenes of at
+    # most 512 triangles still take the resident tracer.
+    scene = with_clusters(scene)
     if device is not None:
         scene = upload_scene(scene, device)
     camera = Camera.make(position=spec.camera_position,

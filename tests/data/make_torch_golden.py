@@ -1,13 +1,20 @@
-"""Write the reference golden that the PyTorch port is held against on the card.
+"""Write the reference goldens that the PyTorch port is held against on the card.
 
-    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py
+    JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py [cornell|helmet_proc]
 
-Renders the `cornell` config at 64x64, 2 spp, 2 bounces, seed 0 with the
-JAX package on the CPU (tracer="resident", the resident kernel in interpret
-mode) and saves the mean HDR image, f32[64, 64, 3], to
-tests/data/cornell_64_golden.npy.  `chip_smoke.py` compares the port's GPU
-render with it using numpy alone; tests/test_torch_render.py checks that
-the committed file still matches a fresh render.
+Renders with the JAX package on the CPU and saves the mean HDR image:
+
+  * cornell: the `cornell` config at 64x64, 2 spp, 2 bounces, seed 0
+    (tracer="resident", the resident kernel in interpret mode), f32[64, 64, 3]
+    in tests/data/cornell_64_golden.npy;
+  * helmet_proc: the `helmet_proc` config at full geometry (100,352
+    triangles, its textures and sky) at 32x32, 1 spp, 2 bounces, seed 0
+    (tracer="pallas", the block-stream kernel in interpret mode),
+    f32[32, 32, 3] in tests/data/helmet_proc_32_golden.npy.
+
+With no argument it writes both.  `chip_smoke.py` compares the port's GPU
+renders with them using numpy alone; tests/test_torch_render.py checks that
+the committed files still match fresh renders.
 """
 
 from __future__ import annotations
@@ -21,35 +28,49 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 GOLDEN = HERE / "cornell_64_golden.npy"
 SIZE, SPP, BOUNCES, SEED = 64, 2, 2, 0
+# The helmet_proc golden: (config, size, spp, bounces, seed, tracer, path).
+HELMET = dict(config="helmet_proc", size=32, spp=1, bounces=2, seed=0,
+              tracer="pallas", path=HERE / "helmet_proc_32_golden.npy")
 
 
-def render_golden() -> np.ndarray:
+def _render(config: str, size: int, spp: int, bounces: int, seed: int,
+            tracer: str) -> np.ndarray:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from physically_based_renderer_tpu.core.camera import Camera
     from physically_based_renderer_tpu.integrator.path import render_with_stats
-    from physically_based_renderer_tpu.scene.procedural import make_cornell_box
-    from physically_based_renderer_tpu.utils.config import get
+    from physically_based_renderer_tpu.utils.config import build_scene, get
 
-    bc = get("cornell")
-    spec = bc.scene
-    cfg = dataclasses.replace(bc.render, width=SIZE, height=SIZE, spp=SPP,
-                              max_bounces=BOUNCES, tracer="resident")
-    camera = Camera.make(position=spec.camera_position,
-                         target=spec.camera_target, fov_y=spec.fov_y)
-    film, _ = render_with_stats(make_cornell_box(), camera,
-                                jax.random.key(SEED), cfg)
+    bc = get(config)
+    cfg = dataclasses.replace(bc.render, width=size, height=size, spp=spp,
+                              max_bounces=bounces, tracer=tracer)
+    scene, camera = build_scene(bc.scene)
+    film, _ = render_with_stats(scene, camera, jax.random.key(seed), cfg)
     return np.asarray(film.mean(), np.float32)
 
 
-def main() -> int:
+def render_golden() -> np.ndarray:
+    return _render("cornell", SIZE, SPP, BOUNCES, SEED, "resident")
+
+
+def render_helmet_golden() -> np.ndarray:
+    h = HELMET
+    return _render(h["config"], h["size"], h["spp"], h["bounces"], h["seed"],
+                   h["tracer"])
+
+
+def main(argv) -> int:
     sys.path.insert(0, str(HERE.parent.parent))
-    img = render_golden()
-    np.save(GOLDEN, img)
-    print(f"wrote {GOLDEN} {img.shape} mean {img.mean():.6f}")
+    which = argv[1:] or ["cornell", "helmet_proc"]
+    for name in which:
+        render, path = {"cornell": (render_golden, GOLDEN),
+                        "helmet_proc": (render_helmet_golden,
+                                        HELMET["path"])}[name]
+        img = render()
+        np.save(path, img)
+        print(f"wrote {path} {img.shape} mean {img.mean():.6f}")
     return 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv))

@@ -15,7 +15,8 @@ import torch
 
 from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.integrator import path
-from physically_based_renderer_tpu_torch.ops import resident, tonemap
+from physically_based_renderer_tpu_torch.ops import (blocktrace, resident,
+                                                     tonemap, trace_blocks)
 from physically_based_renderer_tpu_torch.utils import config
 from torch_parity import (MEAN_REL, PIXEL_FRAC, cuda_device,  # noqa: F401
                           golden_module, render_agreement)
@@ -70,6 +71,51 @@ def test_k2_kernel_matches_plain(cuda_device, n_tris, n_rays):
         assert torch.equal(occ_k, occ_p)
 
 
+@pytest.fixture(scope="module")
+def helmet_proc():
+    bc = config.get("helmet_proc")
+    return bc, config.build_scene(bc.scene, "cpu")
+
+
+def _sphere_rays(n, seed, device):
+    """Rays from a box around the helmet_proc sphere, a third starting
+    inside it, with random per-ray t_max."""
+    g = np.random.default_rng(seed)
+    o = g.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    o[: n // 3] *= np.float32(0.5)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = g.uniform(0.05, 3.0, n).astype(np.float32)
+    return [torch.from_numpy(x).to(device) for x in (o, d, tm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("n_rays", [65_536, 100_003])
+def test_k1_kernel_matches_plain(cuda_device, helmet_proc, sort, n_rays):
+    bc, (scene, _) = helmet_proc
+    grid = scene.clusters
+    grid = type(grid)(**{f: getattr(grid, f).to(cuda_device)
+                         for f in grid.__dataclass_fields__})
+    o, d, tm = _sphere_rays(n_rays, 11, cuda_device)
+    for t_min in (0.0, 1e-3):
+        for any_hit, t_max in ((False, 1e30), (True, tm)):
+            args, _ = blocktrace.block_inputs(grid, o, d, t_min, t_max,
+                                              sort=sort)
+            before = trace_blocks.LAUNCHES
+            k = trace_blocks.trace_blocks(*args, t_min=t_min,
+                                          any_hit=any_hit)
+            torch.cuda.synchronize()
+            assert trace_blocks.LAUNCHES == before + 1
+            p = trace_blocks.trace_blocks_plain(*args, t_min=t_min,
+                                                any_hit=any_hit)
+            # built with -fmad=false: exact agreement
+            if any_hit:
+                assert torch.equal(k, p)
+            else:
+                assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+
+
 @pytest.mark.cuda
 def test_main_path_matches_golden(cuda_device):
     golden = golden_module()
@@ -85,6 +131,27 @@ def test_main_path_matches_golden(cuda_device):
     # per sample: (bounces + 1) closest queries + bounces shadow queries
     assert resident.LAUNCHES - before == golden.SPP * (2 * golden.BOUNCES + 1)
     img, ref = film.mean().cpu().numpy(), np.load(golden.GOLDEN)
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+
+
+@pytest.mark.cuda
+def test_helmet_proc_path_matches_golden(cuda_device, helmet_proc):
+    h = golden_module().HELMET
+    bc, _ = helmet_proc
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
+                              spp=h["spp"], max_bounces=h["bounces"])
+    before = (trace_blocks.LAUNCHES, resident.LAUNCHES)
+    film, _ = path.render_with_stats(scene, cam,
+                                     rng.key(h["seed"], cuda_device), cfg)
+    torch.cuda.synchronize()
+    # per sample: (bounces + 1) closest queries + bounces env shadow queries
+    assert (trace_blocks.LAUNCHES - before[0],
+            resident.LAUNCHES - before[1]) == (h["spp"] * (2 * h["bounces"]
+                                                           + 1), 0)
+    img, ref = film.mean().cpu().numpy(), np.load(h["path"])
     frac, _ = render_agreement(img, ref)
     assert frac >= PIXEL_FRAC
     assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL

@@ -13,6 +13,7 @@ from physically_based_renderer_tpu.models import lights as jlights
 from physically_based_renderer_tpu.ops.intersect import (
     intersect_brute as j_brute)
 from physically_based_renderer_tpu.scene import procedural as jproc
+from physically_based_renderer_tpu.scene import types as jtypes
 from physically_based_renderer_tpu_torch.integrator import shading
 from physically_based_renderer_tpu_torch.models import bsdf, lights
 from physically_based_renderer_tpu_torch.ops import resident
@@ -128,12 +129,14 @@ def test_directional_sampling_matches_reference():
 
 
 def test_env_functions_raise():
+    """Environment lookups on a scene without an environment map raise
+    (the functions themselves: tests/test_torch_texture.py)."""
     port = scene_from_numpy(scene_arrays(jproc.make_cornell_box()))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="environment"):
         lights.sample_env(port, 4, torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="environment"):
         lights.env_radiance(port, torch.zeros(4, 3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="environment"):
         lights.env_pdf(port, torch.zeros(4, 3))
 
 
@@ -174,10 +177,22 @@ def test_shade_surface_matches_reference(name):
 
 
 def test_shade_surface_raises_on_textures():
+    """Textured shading is ported (tests/test_torch_texture.py); what still
+    raises is an emissive texture in area-light NEE."""
     ref = jproc.make_cornell_box(textured=True)
     port = scene_from_numpy(scene_arrays(ref))
     assert port.has_textures
     hit = resident.intersect_resident(port.geometry, torch.zeros(2, 3),
                                       torch.ones(2, 3))
+    sp = shading.shade_surface(port, hit, torch.zeros(2, 3), torch.ones(2, 3))
+    assert bool(torch.isfinite(sp.bsdf.base_color).all())
+    em_tex = np.full((5,), -1, np.int32)
+    em_tex[3] = 0                                # textured area light
+    ref_em = jtypes.make_scene(
+        ref.geometry, ref.materials.replace(emissive_tex=em_tex),
+        textures=ref.textures)
+    port_em = scene_from_numpy(scene_arrays(ref_em))
+    assert port_em.tex_slots[3] and port_em.has_emitters
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shading.shade_surface(port, hit, torch.zeros(2, 3), torch.ones(2, 3))
+        lights.sample_area_emitters(port_em, torch.zeros(2, 3),
+                                    torch.zeros(2), torch.zeros(2, 2))

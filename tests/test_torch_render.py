@@ -18,12 +18,15 @@ from physically_based_renderer_tpu.core.camera import Camera as JCamera
 from physically_based_renderer_tpu.integrator.path import (
     RenderConfig as JRenderConfig, render_with_stats as j_render_with_stats)
 from physically_based_renderer_tpu.scene import procedural as jproc
+from physically_based_renderer_tpu.scene import types as jtypes
 from physically_based_renderer_tpu_torch.apps import render as render_app
 from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.core.camera import camera_from_numpy
 from physically_based_renderer_tpu_torch.integrator import path
-from physically_based_renderer_tpu_torch.ops import resident, tonemap
-from physically_based_renderer_tpu_torch.scene.types import scene_from_numpy
+from physically_based_renderer_tpu_torch.ops import (resident, tonemap,
+                                                     trace_blocks)
+from physically_based_renderer_tpu_torch.scene.types import (scene_from_numpy,
+                                                             with_clusters)
 from physically_based_renderer_tpu_torch.utils import config
 from torch_parity import (COUNT_REL, MEAN_REL, PIXEL_FRAC, flat,
                           golden_module, render_agreement, scene_arrays)
@@ -76,6 +79,74 @@ def test_render_matches_reference(name, seed):
                           int(count), float(jcount))
 
 
+HELMET_CAM = dict(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
+                  fov_y=1.0)
+# (reference builder, camera, render settings, reference tracer, port
+# tracer).  On the CPU the reference's auto tracer takes its XLA block
+# tracer, so the reference names its tracer: "pallas" is K1 in interpret
+# mode.  helmet24: 1,152 triangles in 16 clusters (above the 512-triangle
+# resident cutoff); helmet48 with max_u = 8: 4,608 triangles in 64
+# clusters, the hierarchical candidate selection.
+TEXTURED = {
+    "helmet24": (lambda: jtypes.with_clusters(
+        jproc.make_helmet_class_scene(24, 24)), HELMET_CAM,
+        dict(width=16, height=16, spp=2, max_bounces=2), "pallas", "auto"),
+    "helmet48": (lambda: jtypes.with_clusters(
+        jproc.make_helmet_class_scene(48, 48)), HELMET_CAM,
+        dict(width=16, height=16, spp=2, max_bounces=2, max_u=8), "pallas",
+        "auto"),
+    "cornell_ggx": (lambda: jtypes.with_clusters(jproc.make_cornell_box(
+        metallic_tall_block=True, roughness=0.25, textured=True)),
+        SCENES["cornell"][1], SMALL, "resident", "auto"),
+    "furnace": (jproc.make_furnace_scene, HELMET_CAM,
+                dict(width=16, height=16, spp=2, max_bounces=2), "brute",
+                "brute"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEXTURED))
+def test_textured_render_matches_reference(name):
+    build, cam_kw, small, j_tracer, tracer = TEXTURED[name]
+    ref = build()
+    jcam = JCamera.make(**cam_kw)
+    jfilm, jcount = j_render_with_stats(
+        ref, jcam, jax.random.key(0), JRenderConfig(**small, tracer=j_tracer))
+    port = scene_from_numpy(scene_arrays(ref))
+    if ref.clusters is not None:
+        port = with_clusters(port)
+    cfg = path.RenderConfig(**small, tracer=tracer)
+    assert path._tracer(port, cfg) == ("pallas" if j_tracer == "pallas"
+                                       else j_tracer)
+    before = trace_blocks.LAUNCHES
+    film, count = path.render_with_stats(port, camera_from_numpy(flat(jcam)),
+                                         rng.key(0), cfg)
+    assert trace_blocks.LAUNCHES == before          # CPU: plain versions
+    _assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),
+                          int(count), float(jcount))
+
+
+def test_helmet_golden_matches_fresh_reference_render():
+    """The committed helmet_proc golden is what the reference renders
+    today (full geometry, K1 in interpret mode)."""
+    mod = golden_module()
+    np.testing.assert_allclose(mod.render_helmet_golden(),
+                               np.load(mod.HELMET["path"]), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_port_matches_helmet_golden_on_cpu():
+    h = golden_module().HELMET
+    bc = config.get(h["config"])
+    scene, cam = config.build_scene(bc.scene, "cpu")
+    assert scene.geometry.num_tris == 100_352
+    assert scene.clusters.num_clusters == 1024
+    cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
+                              spp=h["spp"], max_bounces=h["bounces"])
+    assert path._tracer(scene, cfg) == "pallas"
+    film, _ = path.render_with_stats(scene, cam, rng.key(h["seed"]), cfg)
+    _assert_render_agrees(film.mean().numpy(), np.load(h["path"]))
+
+
 def test_brute_tracer_render_matches_resident():
     _, _, port, cam = _both("cornell")
     imgs = [path.render_with_stats(
@@ -100,7 +171,7 @@ def test_render_is_differentiable_and_equals_stats_render():
 @pytest.mark.parametrize("change", [dict(batch_spp=True),
                                     dict(exchange_axis="tiles"),
                                     dict(tracer="fused"),
-                                    dict(tracer="pallas")])
+                                    dict(tracer="block")])
 def test_unported_options_raise(change):
     _, _, port, cam = _both("cornell")
     cfg = path.RenderConfig(width=4, height=4, spp=1, **change)
@@ -143,7 +214,7 @@ def test_cli_renders_on_cpu(tmp_path, capsys):
                                   ["cornell", "--blinn-phong"],
                                   ["cornell", "--debug-checks"],
                                   ["scene.glb"],
-                                  ["cornell_ggx", "--device", "cpu"]])
+                                  ["helmet", "--device", "cpu"]])
 def test_cli_unported_paths_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         render_app.main(argv + ["-o", str(tmp_path / "x.png")])

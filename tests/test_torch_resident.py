@@ -185,3 +185,20 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_lib.build()
     assert not cuda_lib.build_dir().exists()
+
+
+def test_failed_kernel_build_raises_and_leaves_no_files(monkeypatch,
+                                                        tmp_path):
+    """A compiler error raises with its output; no object, temporary or
+    half-written library is left in the build directory."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\necho 'error: no card here'\nexit 3\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(cuda_lib, "_PKG", tmp_path / "pkg")
+    with pytest.raises(RuntimeError, match="nvcc failed \\(3\\)"):
+        cuda_lib.build()
+    out_dir = cuda_lib.build_dir()
+    assert out_dir.is_relative_to(tmp_path)
+    assert list(out_dir.iterdir()) == []
