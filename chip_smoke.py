@@ -20,19 +20,24 @@ of which raises on failure (an uncaught exception exits non-zero):
      (any hit, root-culled t_max) and a ragged ray count, through phase A
      as the integrator calls it; kernel and plain times at 262,144 camera
      rays;
-  5. the cornell main path: the render CLI on `cornell` at full size
-     (512x512, 4 spp, 4 bounces) with launch counts reset just before it
-     (36 K2, 1 K3, 0 K1);
-  6. a 64x64 cornell render on the card against the committed reference
-     golden (tests/data/cornell_64_golden.npy);
-  7. the helmet_proc main path: the render CLI on `helmet_proc` at full
-     size (512x512, 4 spp, 3 bounces) with launch counts reset just before
-     it (28 K1, 0 K2, 1 K3);
-  8. a 32x32 helmet_proc render against its reference golden
-     (tests/data/helmet_proc_32_golden.npy).
+  5. K4 (fused whole-frame kernel) against its plain-torch version on the
+     same packed tables: `cornell` and `cornell_ggx` at their full configs
+     (512x512, 4 spp, 4 bounces), `triangle` at its full config (256x256,
+     4 spp, 1 bounce) and a ragged 24x20 cornell frame, images and ray
+     counts; kernel and plain times of the cornell frame;
+  6. the main paths at full size, launch counts reset just before each:
+     the render CLI on `cornell` and on `cornell_ggx`, which K4 renders
+     (1 K4, 1 K3, no tracer kernel); the dense cornell path,
+     `render_with_stats` with tracer="resident" (36 K2); the render CLI on
+     `helmet_proc` (28 K1, 1 K3);
+  7. renders on the card against the committed reference goldens: 64x64
+     cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
+     helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
+     cornell_ggx through K4 (tests/data/cornell_ggx_fused_64_golden.npy,
+     the reference's fused kernel in interpret mode).
 
 Prints, before the last line, the card, one JSON line with the kernels
-({"kernels": [...]}: `launches` is the sum over the two main-path runs,
+({"kernels": [...]}: `launches` is the sum over the main-path runs,
 `launches_by_path` the count of each run) and one JSON line with the
 measurements; the last line is {"ok": true, "device": {...}}.
 """
@@ -40,6 +45,7 @@ measurements; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -52,22 +58,48 @@ T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "cornell_64_golden.npy"
 HELMET_GOLDEN = ROOT / "tests" / "data" / "helmet_proc_32_golden.npy"
+FUSED_GOLDEN = ROOT / "tests" / "data" / "cornell_ggx_fused_64_golden.npy"
 
-# Full-size film means: the CPU port renders cornell at 0.1577-0.1596
-# (64x64 and 128x128, 4 spp, 4 bounces) and helmet_proc at 0.63066 (64x64)
-# and 0.63147 (128x128, 4 spp, 3 bounces), so a 512x512 frame lies well
-# inside these bands.
-FILM_MEAN_BAND = {"cornell": (0.14, 0.18), "helmet_proc": (0.60, 0.66)}
-# Main-path launches per frame.  cornell: 4 spp x (5 closest + 4 shadow)
-# K2 queries.  helmet_proc: no area emitter and no directional light, so
-# 4 spp x (4 closest + 3 env shadow) K1 queries; one K3 each.
+# Full-size film means: the CPU port renders cornell at 0.1577-0.1596 on
+# the dense path and 0.15309 / 0.15847 through K4's plain version (64x64 /
+# 128x128, 4 spp, 4 bounces), cornell_ggx at 0.13906 / 0.14392 through K4's
+# plain version, and helmet_proc at 0.63066 / 0.63147 (4 spp, 3 bounces),
+# so a 512x512 frame lies well inside these bands.
+FILM_MEAN_BAND = {"cornell": (0.14, 0.18), "cornell_ggx": (0.12, 0.17),
+                  "cornell_dense": (0.14, 0.18), "helmet_proc": (0.60, 0.66)}
+# The main paths: (label, config, how it is driven: the render CLI, or
+# render_with_stats with the named tracer).
+MAIN_PATHS = (("cornell", "cornell", "cli"),
+              ("cornell_ggx", "cornell_ggx", "cli"),
+              ("cornell_dense", "cornell", "resident"),
+              ("helmet_proc", "helmet_proc", "cli"))
+# Launches per frame.  cornell and cornell_ggx: one K4 launch renders the
+# frame.  cornell_dense: 4 spp x (5 closest + 4 shadow) K2 queries and no
+# tonemap (it does not go through the CLI).  helmet_proc: no area emitter
+# and no directional light, so 4 spp x (4 closest + 3 env shadow) K1
+# queries; one K3 for each CLI run.
 EXPECTED_LAUNCHES = {
-    "cornell": {"resident": 36, "trace_blocks": 0, "tonemap": 1},
-    "helmet_proc": {"resident": 0, "trace_blocks": 28, "tonemap": 1},
+    "cornell": {"fused": 1, "resident": 0, "trace_blocks": 0, "tonemap": 1},
+    "cornell_ggx": {"fused": 1, "resident": 0, "trace_blocks": 0,
+                    "tonemap": 1},
+    "cornell_dense": {"fused": 0, "resident": 36, "trace_blocks": 0,
+                      "tonemap": 0},
+    "helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 28,
+                    "tonemap": 1},
 }
+# The goldens: (label, config, file, (size, spp, bounces), how it is
+# driven, as in MAIN_PATHS).
+GOLDENS = (("cornell", "cornell", GOLDEN, (64, 2, 2), "resident"),
+           ("helmet_proc", "helmet_proc", HELMET_GOLDEN, (32, 1, 2), "cli"),
+           ("cornell_ggx_fused", "cornell_ggx", FUSED_GOLDEN, (64, 2, 2),
+            "cli"))
 # Render agreement (same as tests/test_torch_render.py): a pixel agrees
 # within atol + rtol*|ref|; at least PIXEL_FRAC of pixels must agree.
 ATOL, RTOL, PIXEL_FRAC, MEAN_REL = 1e-4, 1e-3, 0.99, 5e-3
+# K4 against its plain version: the same render agreement, and ray counts
+# within COUNT_REL (paths may branch apart after a one-ulp difference of
+# sin/cos).
+COUNT_REL = 5e-3
 # Kernel tolerances: K1 and K2 winners may differ only on exact ties
 # between triangles that share an edge (at most MAX_MISMATCH_FRAC of the
 # rays), with t within T_REL there; where the winners agree, t is equal
@@ -391,6 +423,85 @@ def phase_k1(dev):
     return st, ms, plain_ms
 
 
+def phase_k4(dev):
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.ops import fused
+    from physically_based_renderer_tpu_torch.utils import config
+
+    out = {"frames_compared": 0, "pixels_compared": 0, "pixels_differ": 0,
+           "max_abs_err": 0.0, "max_mean_rel": 0.0, "max_count_rel": 0.0}
+    frames = {}
+    for label, name, over in (("cornell", "cornell", {}),
+                              ("cornell_ggx", "cornell_ggx", {}),
+                              ("triangle", "triangle", {}),
+                              ("cornell ragged", "cornell",
+                               dict(width=24, height=20))):
+        bc = config.get(name)
+        scene, cam = config.build_scene(bc.scene, dev)
+        cfg = dataclasses.replace(bc.render, **over)
+        frame = fused.fused_frame(scene, cam, rng_mod.key(0, dev), cfg)
+        hdr, count = fused.fused_kernel(frame)
+        plain, count_p = fused.fused_plain(frame)
+        torch.cuda.synchronize()
+        img = (hdr / cfg.spp).cpu().numpy()
+        ref = (plain / cfg.spp).cpu().numpy()
+        if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(
+                img).all():
+            raise AssertionError(f"K4 {label}: shape {img.shape}, finite "
+                                 f"{bool(np.isfinite(img).all())}")
+        frac, n_bad = render_agreement(img, ref)
+        mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+        count_rel = abs(int(count) / int(count_p) - 1.0)
+        err = float(np.abs(img - ref).max())
+        print(f"K4 {label} {cfg.width}x{cfg.height} x {cfg.spp} spp x "
+              f"{cfg.max_bounces} bounces: {frac:.4%} pixels agree "
+              f"({n_bad} differ), max |kernel - plain| {err:.3g}, mean rel "
+              f"diff {mean_rel:.3g}, ray queries {int(count)} vs "
+              f"{int(count_p)}")
+        if frac < PIXEL_FRAC or mean_rel > MEAN_REL or count_rel > COUNT_REL:
+            raise AssertionError(f"K4 {label}: kernel disagrees with its "
+                                 "plain version")
+        out["frames_compared"] += 1
+        out["pixels_compared"] += cfg.width * cfg.height
+        out["pixels_differ"] += n_bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_mean_rel"] = max(out["max_mean_rel"], mean_rel)
+        out["max_count_rel"] = max(out["max_count_rel"], count_rel)
+        frames[label] = frame
+
+    # Time at the main path's shape: the whole cornell frame.
+    ms = time_ms(lambda: fused.fused_kernel(frames["cornell"]), 20)
+    plain_ms = time_ms(lambda: fused.fused_plain(frames["cornell"]), 3,
+                       warmup=1)
+    return out, ms, plain_ms
+
+
+def render_direct(name, dev, tracer, **over):
+    """render_with_stats on a named config with the given tracer: (mean HDR
+    image as numpy, {"seconds", "rays", "rays_per_s"})."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.utils import config
+
+    bc = config.get(name)
+    scene, cam = config.build_scene(bc.scene, dev)
+    cfg = dataclasses.replace(bc.render, tracer=tracer, **over)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film, count = path.render_with_stats(scene, cam, rng_mod.key(0, dev), cfg)
+    hdr = film.mean()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rays = int(count)
+    return hdr.cpu().numpy(), {"seconds": dt, "rays": rays,
+                               "rays_per_s": rays / dt}
+
+
 def run_cli(argv):
     """Run the render CLI; return its --stats JSON (echoing its stderr)."""
     from physically_based_renderer_tpu_torch.apps import render
@@ -418,8 +529,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from physically_based_renderer_tpu_torch.ops import (cuda_lib, resident,
-                                                         tonemap,
+    from physically_based_renderer_tpu_torch.ops import (cuda_lib, fused,
+                                                         resident, tonemap,
                                                          trace_blocks)
 
     card = card_line()
@@ -446,61 +557,84 @@ def main() -> int:
     print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms, "
           f"plain {k1_plain_ms:.4f} ms")
 
-    counters = {"resident": resident, "trace_blocks": trace_blocks,
-                "tonemap": tonemap}
+    # 5. K4 against its plain version
+    k4, k4_ms, k4_plain_ms = phase_k4(dev)
+    print(f"K4 cornell frame 512x512 x 4 spp x 4 bounces: kernel "
+          f"{k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
+
+    counters = {"fused": fused, "resident": resident,
+                "trace_blocks": trace_blocks, "tonemap": tonemap}
     launches = {name: {} for name in counters}
     runs, goldens = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, golden, (size, spp, bounces) in (
-                ("cornell", GOLDEN, (64, 2, 2)),
-                ("helmet_proc", HELMET_GOLDEN, (32, 1, 2))):
-            # 5, 7. the main path at full size, counts reset just before
-            png, hdr_path = Path(tmp) / f"{name}.png", Path(tmp) / f"{name}.npy"
-            for mod in counters.values():
-                mod.LAUNCHES = 0
-            stats = run_cli([name, "-o", str(png), "--hdr-output",
-                             str(hdr_path), "--stats", "--device", "cuda"])
-            got = {k: mod.LAUNCHES for k, mod in counters.items()}
-            hdr = np.load(hdr_path)
-            if hdr.shape != (512, 512, 3) or not np.isfinite(hdr).all():
-                raise AssertionError(f"{name} film: shape {hdr.shape}, finite "
-                                     f"{bool(np.isfinite(hdr).all())}")
-            mean = float(hdr.mean())
-            lo, hi = FILM_MEAN_BAND[name]
-            if not lo <= mean <= hi:
-                raise AssertionError(f"{name} film mean {mean} outside "
-                                     f"({lo}, {hi})")
-            if got != EXPECTED_LAUNCHES[name]:
-                raise AssertionError(f"{name} main-path launches {got}, "
-                                     f"expected {EXPECTED_LAUNCHES[name]}")
+
+    def drive(label, name, how, tmp, **over):
+        """One run of a path with the counts reset just before it: (mean
+        HDR image, its stats, the launches it made)."""
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        if how == "cli":
+            png = Path(tmp) / f"{label}.png"
+            hdr_path = Path(tmp) / f"{label}.npy"
+            argv = [name, "-o", str(png), "--hdr-output", str(hdr_path),
+                    "--stats", "--device", "cuda"]
+            for flag, key in (("--width", "width"), ("--height", "height"),
+                              ("--spp", "spp"), ("--bounces", "max_bounces")):
+                if key in over:
+                    argv += [flag, str(over[key])]
+            stats = run_cli(argv)
             if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError("render CLI wrote no PNG")
+            img = np.load(hdr_path)
+        else:
+            img, stats = render_direct(name, dev, how, **over)
+        return img, stats, {k: mod.LAUNCHES for k, mod in counters.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 6. the main paths at full size
+        for label, name, how in MAIN_PATHS:
+            hdr, stats, got = drive(label, name, how, tmp)
+            if hdr.shape != (512, 512, 3) or not np.isfinite(hdr).all():
+                raise AssertionError(f"{label} film: shape {hdr.shape}, "
+                                     f"finite {bool(np.isfinite(hdr).all())}")
+            mean = float(hdr.mean())
+            lo, hi = FILM_MEAN_BAND[label]
+            if not lo <= mean <= hi:
+                raise AssertionError(f"{label} film mean {mean} outside "
+                                     f"({lo}, {hi})")
+            if got != EXPECTED_LAUNCHES[label]:
+                raise AssertionError(f"{label} main-path launches {got}, "
+                                     f"expected {EXPECTED_LAUNCHES[label]}")
             for k in launches:
-                launches[k][name] = got[k]
-            runs[name] = {"seconds": stats["seconds"], "rays": stats["rays"],
-                          "rays_per_s": stats["rays_per_s"],
-                          "film_mean": mean, "launches": got}
-            print(f"{name} 512x512: {stats['seconds']:.3f} s, "
+                launches[k][label] = got[k]
+            runs[label] = {"seconds": stats["seconds"], "rays": stats["rays"],
+                           "rays_per_s": stats["rays_per_s"],
+                           "film_mean": mean, "launches": got}
+            print(f"{label} 512x512: {stats['seconds']:.3f} s, "
                   f"{stats['rays']} ray queries, "
                   f"{stats['rays_per_s']:.4g} rays/s, film mean {mean:.5f}, "
                   f"launches {got}")
 
-            # 6, 8. golden from the reference package
-            g_npy = Path(tmp) / f"{name}_golden.npy"
-            run_cli([name, "-o", str(Path(tmp) / "g.png"), "--hdr-output",
-                     str(g_npy), "--width", str(size), "--height", str(size),
-                     "--spp", str(spp), "--bounces", str(bounces), "--seed",
-                     "0", "--stats", "--device", "cuda"])
-            img, ref = np.load(g_npy), np.load(golden)
+        # 7. goldens from the reference package
+        for label, name, golden, (size, spp, bounces), how in GOLDENS:
+            img, _, got = drive(f"{label}_golden", name, how, tmp,
+                                width=size, height=size, spp=spp,
+                                max_bounces=bounces)
+            want_k4 = int(label == "cornell_ggx_fused")
+            if got["fused"] != want_k4:
+                raise AssertionError(f"{label} golden render made "
+                                     f"{got['fused']} K4 launches, expected "
+                                     f"{want_k4}")
+            ref = np.load(golden)
             frac, n_bad = render_agreement(img, ref)
             mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
-            print(f"{name} golden {size}x{size}: {frac:.4%} pixels agree "
+            print(f"{label} golden {size}x{size}: {frac:.4%} pixels agree "
                   f"({n_bad} differ), mean rel diff {mean_rel:.3g}")
             if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
-                raise AssertionError(f"{name} {size}x{size} render disagrees "
-                                     "with the golden")
-            goldens[name] = {"size": size, "pixel_frac": frac,
-                             "pixels_differ": n_bad, "mean_rel": mean_rel}
+                raise AssertionError(f"{label} {size}x{size} render "
+                                     "disagrees with the golden")
+            goldens[label] = {"size": size, "pixel_frac": frac,
+                              "pixels_differ": n_bad, "mean_rel": mean_rel,
+                              "launches": got}
 
     print(json.dumps({"kernels": [
         {"name": "resident", "route": "cuda",
@@ -524,6 +658,13 @@ def main() -> int:
          "launches_by_path": launches["trace_blocks"],
          "max_abs_err": k1.max_abs_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "fused", "route": "cuda",
+         "source": "physically_based_renderer_tpu_torch/csrc/fused.cu",
+         "replaces": "physically_based_renderer_tpu/ops/fused.py:402",
+         "launches": sum(launches["fused"].values()),
+         "launches_by_path": launches["fused"],
+         "max_abs_err": k4["max_abs_err"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,
@@ -536,6 +677,8 @@ def main() -> int:
                "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,
                "plain_ms": k1_plain_ms,
                "shape": "262144 helmet_proc camera rays x 1024 clusters"},
+        "k4": {**k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
+               "shape": "cornell frame 512x512 x 4 spp x 4 bounces"},
         "main_paths": runs, "goldens": goldens,
         "seconds": time.perf_counter() - T0,
     }))

@@ -3,8 +3,10 @@
     python -m physically_based_renderer_tpu_torch.apps.render cornell \
         -o out.png --stats --device cuda
 
-Renders a named config with `render_with_stats`, tonemaps with K3
-(`ops/tonemap.py`) and writes a PNG.  `--stats` prints one JSON line to
+Renders a named config with `render_with_stats` (on a CUDA device, one
+launch of the fused kernel K4 for the configs it takes: `triangle`,
+`cornell`, `cornell_ggx`), tonemaps with K3 (`ops/tonemap.py`) and writes
+a PNG.  `--stats` prints one JSON line to
 stderr: ray queries, seconds (host clock around the render, synchronized),
 rays/s, and the device it ran on.  glTF paths, `--tiles`, `--blinn-phong`
 and `--debug-checks` are not ported yet and raise.

@@ -8,9 +8,14 @@ the reference, so the estimator's gradients can follow it in a later port.
 
 Ported tracers: `resident` (K2, ops/resident.py), `pallas` (the block
 tracer: phase A in torch + K1, ops/blocktrace.py; the reference's route
-name, on the card the CUDA kernel) and `brute` (the oracle).  The XLA
-block tracer (`block`), the BVH tracer, the fused whole-frame kernel,
-batched spp and the ring ray exchange are not ported yet and raise.
+name, on the card the CUDA kernel) and `brute` (the oracle).  As in the
+reference, `render_with_stats` on a CUDA scene that `fused_applicable`
+accepts (tracer `auto` or `fused`) renders the whole frame with the fused
+kernel K4 (ops/fused.py) instead; on the CPU it stays dense, and the dense
+path takes the name `fused` as the reference's dispatch does, as brute
+force.  `render()` never takes K4.  The XLA block tracer (`block`), the
+BVH tracer, batched spp and the ring ray exchange are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..core.morton import morton_pixel_ids
 from ..models import lights as lights_mod
 from ..models.bsdf import eval_bsdf, sample_bsdf
 from ..ops import resident
+from ..ops import fused as fused_mod
 from ..ops.blocktrace import intersect_blocks_pallas
 from ..ops.intersect import BIG, Hit, intersect_brute, occluded_brute
 from ..ops.texture import build_pyramid
@@ -47,7 +53,7 @@ class RenderConfig:
     rr_start: int = 100           # bounce index where Russian roulette starts
     ray_eps: float = 1e-3         # shadow/secondary ray offset
     tri_chunk: int = 2048         # brute-force intersection chunk size
-    tracer: str = "auto"          # auto|brute|resident|pallas (ported)
+    tracer: str = "auto"          # auto|brute|resident|pallas|fused (ported)
     block_size: int = 256         # ray block of the block tracers
     max_u: int = 48               # candidate clusters per block
     chunk: int = 4                # clusters per kernel loop iteration
@@ -81,6 +87,10 @@ def _auto_tracer(scene: Scene) -> str:
 
 def _tracer(scene: Scene, cfg: RenderConfig) -> str:
     tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
+    if tracer == "fused":
+        # The dense path has no fused tracer: the reference's dispatch
+        # sends a name it does not route to brute force.
+        return "brute"
     if tracer not in ("resident", "brute", "pallas"):
         raise NotImplementedError(f"tracer {tracer!r} is not ported yet "
                                   "(ported: resident, pallas, brute)")
@@ -331,9 +341,6 @@ def _check_config(cfg: RenderConfig) -> None:
     if cfg.exchange_axis is not None:
         raise NotImplementedError("the ring ray exchange is not ported yet "
                                   "(ROADMAP.md, module queue: parallel/)")
-    if cfg.tracer == "fused":
-        raise NotImplementedError("the fused whole-frame kernel (K4) is not "
-                                  "ported yet (ROADMAP.md, kernel K4)")
 
 
 def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
@@ -377,11 +384,35 @@ def render(scene: Scene, camera: Camera, key: torch.Tensor,
     return _render_with_stats_dense(scene, camera, key, cfg)[0]
 
 
+def _use_fused(scene: Scene, cfg: RenderConfig) -> bool:
+    """Dispatch to the whole-frame kernel K4 (ops/fused.py): a CUDA scene
+    the kernel takes.  Primal-only paths (render_with_stats, render_fast);
+    gradient paths keep the dense integrator."""
+    return (cfg.tracer in ("auto", "fused")
+            and scene.device.type == "cuda"
+            and fused_mod.fused_applicable(scene, cfg))
+
+
+def render_fast(scene: Scene, camera: Camera, key: torch.Tensor,
+                cfg: RenderConfig) -> Film:
+    """Fastest primal render: K4 when it applies, else the dense
+    integrator.  NOT differentiable: use render() for gradients."""
+    film, _ = render_with_stats(scene, camera, key, cfg)
+    return film
+
+
 @torch.no_grad()
 def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
                       cfg: RenderConfig):
-    """Primal render + exact int64 ray-query count (rays/s benchmarks)."""
+    """Primal render + exact int64 ray-query count (rays/s benchmarks).
+
+    On a CUDA scene that K4 takes, one K4 launch renders the frame: the
+    same estimator with the fused kernel's murmur3 stream, so its image
+    agrees with the dense one statistically, not pixel by pixel."""
     _check_config(cfg)
+    if _use_fused(scene, cfg):
+        hdr, count = fused_mod.render_fused_stats(scene, camera, key, cfg)
+        return Film(hdr=hdr, spp=float(cfg.spp)), count
     return _render_with_stats_dense(scene, camera, key, cfg)
 
 

@@ -30,7 +30,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu")
+SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -38,6 +38,7 @@ LIB_NAME = "libpbr_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # o, d, t_max, soup, n_rays, n_tris, t_min, t_out, tri_out, stream
     "pbr_resident_closest": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
@@ -52,6 +53,11 @@ _SIGNATURES = {
     # ... t_min, occ_out, stream
     "pbr_trace_blocks_any": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P, _P],
+    # cam, tri, n_tris, em, n_em, mtex, n_mats, quads, n_rows, width,
+    # height, spp, max_bounces, eps, inv_w, inv_h, seed0, seed1, has_em,
+    # has_dir, textured, hdr_out, count_out, stream
+    "pbr_fused_render": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _U, _U, _I, _I, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -15,11 +15,12 @@ import torch
 
 from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.integrator import path
-from physically_based_renderer_tpu_torch.ops import (blocktrace, resident,
-                                                     tonemap, trace_blocks)
+from physically_based_renderer_tpu_torch.ops import (blocktrace, fused,
+                                                     resident, tonemap,
+                                                     trace_blocks)
 from physically_based_renderer_tpu_torch.utils import config
-from torch_parity import (MEAN_REL, PIXEL_FRAC, cuda_device,  # noqa: F401
-                          golden_module, render_agreement)
+from torch_parity import (COUNT_REL, MEAN_REL, PIXEL_FRAC,  # noqa: F401
+                          cuda_device, golden_module, render_agreement)
 
 
 def _hdr(seed, shape):
@@ -121,9 +122,10 @@ def test_main_path_matches_golden(cuda_device):
     golden = golden_module()
     bc = config.get("cornell")
     scene, cam = config.build_scene(bc.scene, cuda_device)
+    # The dense path: under "auto" a CUDA cornell scene takes K4.
     cfg = dataclasses.replace(bc.render, width=golden.SIZE,
                               height=golden.SIZE, spp=golden.SPP,
-                              max_bounces=golden.BOUNCES)
+                              max_bounces=golden.BOUNCES, tracer="resident")
     before = resident.LAUNCHES
     film, _ = path.render_with_stats(scene, cam,
                                      rng.key(golden.SEED, cuda_device), cfg)
@@ -152,6 +154,61 @@ def test_helmet_proc_path_matches_golden(cuda_device, helmet_proc):
             resident.LAUNCHES - before[1]) == (h["spp"] * (2 * h["bounces"]
                                                            + 1), 0)
     img, ref = film.mean().cpu().numpy(), np.load(h["path"])
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+
+
+# (config, render settings) of the K4 tests: each config K4 takes, small,
+# and a pixel count that fills no whole block.
+K4_CASES = {
+    "triangle": ("triangle", dict(width=64, height=64, spp=2,
+                                  max_bounces=1)),
+    "cornell": ("cornell", dict(width=64, height=64, spp=2, max_bounces=3)),
+    "cornell_ggx": ("cornell_ggx", dict(width=64, height=64, spp=2,
+                                        max_bounces=2)),
+    "cornell_ragged": ("cornell", dict(width=24, height=20, spp=2,
+                                       max_bounces=2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_kernel_matches_plain(cuda_device, case):
+    name, kw = K4_CASES[case]
+    bc = config.get(name)
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    frame = fused.fused_frame(scene, cam, rng.key(0, cuda_device),
+                              dataclasses.replace(bc.render, **kw))
+    before = fused.LAUNCHES
+    hdr, count = fused.fused_kernel(frame)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    plain, count_p = fused.fused_plain(frame)
+    assert hdr.shape == plain.shape == (kw["height"], kw["width"], 3)
+    assert bool(torch.isfinite(hdr).all())
+    img, ref = hdr.cpu().numpy(), plain.cpu().numpy()
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+    assert abs(int(count) / int(count_p) - 1.0) <= COUNT_REL
+
+
+@pytest.mark.cuda
+def test_fused_path_matches_golden(cuda_device):
+    f = golden_module().FUSED
+    bc = config.get(f["config"])
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    cfg = dataclasses.replace(bc.render, width=f["size"], height=f["size"],
+                              spp=f["spp"], max_bounces=f["bounces"])
+    counters = (fused, resident, trace_blocks)
+    before = [m.LAUNCHES for m in counters]
+    film, _ = path.render_with_stats(scene, cam,
+                                     rng.key(f["seed"], cuda_device), cfg)
+    torch.cuda.synchronize()
+    # one K4 launch renders the frame; no tracer kernel runs
+    assert [m.LAUNCHES - b for m, b in zip(counters, before)] == [1, 0, 0]
+    img, ref = film.mean().cpu().numpy(), np.load(f["path"])
     frac, _ = render_agreement(img, ref)
     assert frac >= PIXEL_FRAC
     assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL

@@ -170,7 +170,7 @@ def test_render_is_differentiable_and_equals_stats_render():
 
 @pytest.mark.parametrize("change", [dict(batch_spp=True),
                                     dict(exchange_axis="tiles"),
-                                    dict(tracer="fused"),
+                                    dict(tracer="bvh"),
                                     dict(tracer="block")])
 def test_unported_options_raise(change):
     _, _, port, cam = _both("cornell")
