@@ -34,12 +34,37 @@ of which raises on failure (an uncaught exception exits non-zero):
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
      cornell_ggx through K4 (tests/data/cornell_ggx_fused_64_golden.npy,
-     the reference's fused kernel in interpret mode).
+     the reference's fused kernel in interpret mode);
+  8. K5a (row gather) and K5b (its backward scatter-add) against their
+     plain versions: tables T in {2, 32, 2048, 100352} x W in {1, 20, 86}
+     plus the texture-quad and env-quad tables of helmet_proc, N = 262,144
+     and a ragged 1,000,003, indices -1 and T among them, int32 and int64,
+     and skewed cases where every ray picks one row; forward bit-equal,
+     backward within K5B_REL * max|plain|; kernel, plain and library
+     (index_select, index_add_) times at cornell's shape (262,144 rays x 86
+     columns from 32 rows);
+  9. the gradient path: (a) render() + pixel_loss gradients against the
+     reference's (tests/data/cornell_grad_64_golden.npz) with exact K5a/K5b
+     counts; (b) the inverse CLI at the cornell config's full size (512x512,
+     4 spp, 4 bounces, four material fields, 3 steps), seconds per warm
+     step, peak memory and exact K2/K5a/K5b launches per step; (c) the CLI
+     at its defaults (64x64, 2 spp, 2 bounces, base colour + emission): 20
+     steps with a checkpoint at step 20, then a --resume run from step 20 to
+     40 that must lower every field's error (of the clamped values the
+     scene renders); (d) one full-size gradient
+     step under torch.profiler: device busy time, idle share and launches.
 
 Prints, before the last line, the card, one JSON line with the kernels
 ({"kernels": [...]}: `launches` is the sum over the main-path runs,
-`launches_by_path` the count of each run) and one JSON line with the
-measurements; the last line is {"ok": true, "device": {...}}.
+`launches_by_path` the count of each run, `ms` the kernel's own device
+time per launch (torch.profiler), `wrapper_ms` the time per call of its
+Python wrapper back to back (CUDA events: host dispatch, checks and
+allocation included), `plain_ms` and `library_ms` the time per call of the
+plain version and of one PyTorch call computing the same function where
+there is one (CUDA events), `bound_ms` the least time the card could take
+for the timed call, from the bytes it must move at 3.35 TB/s and the float
+operations these inputs need at 33.5e12 per second) and one JSON line with
+the measurements; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +84,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "cornell_64_golden.npy"
 HELMET_GOLDEN = ROOT / "tests" / "data" / "helmet_proc_32_golden.npy"
 FUSED_GOLDEN = ROOT / "tests" / "data" / "cornell_ggx_fused_64_golden.npy"
+GRAD_GOLDEN = ROOT / "tests" / "data" / "cornell_grad_64_golden.npz"
 
 # Full-size film means: the CPU port renders cornell at 0.1577-0.1596 on
 # the dense path and 0.15309 / 0.15847 through K4's plain version (64x64 /
@@ -78,14 +104,18 @@ MAIN_PATHS = (("cornell", "cornell", "cli"),
 # tonemap (it does not go through the CLI).  helmet_proc: no area emitter
 # and no directional light, so 4 spp x (4 closest + 3 env shadow) K1
 # queries; one K3 for each CLI run.
+# K5a (gather_fwd): cornell_dense 4 spp x (5 tri_attrs rows + 4 emitter
+# rows); helmet_proc 4 spp x 4 bounces x (1 tri_attrs + 2 texture slots x 2
+# trilinear levels + 1 env lookup) = 96.  No K5b on a forward path.
 EXPECTED_LAUNCHES = {
-    "cornell": {"fused": 1, "resident": 0, "trace_blocks": 0, "tonemap": 1},
+    "cornell": {"fused": 1, "resident": 0, "trace_blocks": 0, "tonemap": 1,
+                "gather_fwd": 0, "gather_bwd": 0},
     "cornell_ggx": {"fused": 1, "resident": 0, "trace_blocks": 0,
-                    "tonemap": 1},
+                    "tonemap": 1, "gather_fwd": 0, "gather_bwd": 0},
     "cornell_dense": {"fused": 0, "resident": 36, "trace_blocks": 0,
-                      "tonemap": 0},
+                      "tonemap": 0, "gather_fwd": 36, "gather_bwd": 0},
     "helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 28,
-                    "tonemap": 1},
+                    "tonemap": 1, "gather_fwd": 96, "gather_bwd": 0},
 }
 # The goldens: (label, config, file, (size, spp, bounces), how it is
 # driven, as in MAIN_PATHS).
@@ -106,6 +136,46 @@ COUNT_REL = 5e-3
 # (both kernels are built with -fmad=false); K3 within K3_ATOL.
 MAX_MISMATCH_FRAC, T_REL, K3_ATOL = 1e-4, 1e-5, 1e-5
 BIG = 1e30
+# K5b against its plain version: both sum cotangent rows with atomics in an
+# order that changes from run to run, so the last bits differ; held to
+# K5B_REL * max|plain| (the dyadic cotangents of the coverage cases sum
+# exactly in any order, so there they agree exactly).
+K5B_REL = 1e-5
+GATHER_TABLES = tuple((t, w) for t in (2, 32, 2048, 100_352)
+                      for w in (1, 20, 86)) + ((174_762, 16), (8192, 12))
+GATHER_NS = (262_144, 1_000_003)
+# Gradients on the card against the reference's (the golden): per case the
+# trained fields, the element-wise tolerance relative to max|g_ref|, and the
+# K5a/K5b launches of one 64x64 x 2 spp x 2 bounce render and its backward.
+# cornell: 2 spp x (3 tri_attrs + 2 emitter) rows, all of them trained;
+# cornell_ggx (texels only): 2 spp x 3 shades x 2 texture slots more, and
+# only the texture gathers of the 2 bounces that sample the BSDF reach the
+# loss (the last shade uses only the untextured emission), so 2 x 2 x 2
+# K5b.  Both are held to 1e-3 of max|g_ref| on the card (cornell_ggx's
+# texel gradient is ill-conditioned, make_torch_golden.py; measured 5.3e-5
+# here, 7.3e-4 for the CPU port, whose test allows 2e-3).
+GRAD_SIZE, GRAD_SPP, GRAD_BOUNCES = 64, 2, 2
+GRAD_CASES = {
+    "cornell": (dict(base_color=True, roughness=True, metallic=True,
+                     emissive=True), 1e-3, (10, 10)),
+    "cornell_ggx": (dict(textures=True), 1e-3, (22, 8)),
+}
+# The full-size inverse CLI (phase 9b): the cornell config's size, the four
+# material fields; launches per render = spp x (bounces + 1 closest hits +
+# bounces shadow rays) for K2 and K5a alike, and per step as many K5b (every
+# gathered table is trained).
+GRAD_CLI = dict(size=512, spp=4, bounces=4, target_spp=16, steps=3)
+# The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and float32
+# instructions/s outside the tensor cores.  The data sheet's 67 TFLOP/s
+# counts a fused multiply-add as two operations; the kernels are built with
+# -fmad=false, so every add and multiply is an instruction of its own, at
+# half that rate (132 SMs x 128 lanes x 1.98 GHz = 33.5e12 per second).
+PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 33.5e12
+# Float adds, multiplies and divides of one Moller-Trumbore ray-triangle
+# test as the kernels write it (p = d x e2: 9, det: 5, 1/det: 1, s = o - v0:
+# 3, u: 6, q = s x e1: 9, v: 6, t: 6, u + v: 1); compares and the
+# reciprocal's refinement are not counted, so the bound stays low.
+MT_FLOPS = 46
 
 
 def card_line() -> str:
@@ -114,6 +184,14 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, n_flops: float):
+    """(bound_ms, bound_by): the larger of moving n_bytes at the card's HBM
+    rate and doing n_flops single float operations at its float32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -131,11 +209,102 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3):
+    """Device time of fn under torch.profiler: (ms per launch of the
+    kernels whose name holds `kernel`, ms per call of every other kernel
+    the call ran).  With kernel None, every kernel counts as the call's own
+    and the first number is ms per call.  The warm-up calls run in the
+    profiler's warm-up step, so tracing is already on when the measured
+    step starts; should the tracer still drop an event, the time is
+    averaged over the launches it saw (at least 90% of the calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    # The events of the measured step, read when it ends (the profiler
+    # clears them at the end of its cycle).
+    steps = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: steps.append(p.key_averages())
+                 ) as prof:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    if len(steps) != 1:
+        raise AssertionError(f"profiler gave {len(steps)} measured steps")
+    own_us = other_us = 0.0
+    n_own = 0
+    for e in steps[0]:
+        # The step's own annotation also has a device-side span over all
+        # of its kernels: it is no kernel.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith("ProfilerStep")):
+            continue
+        if kernel is None or kernel in e.key:
+            own_us += e.self_device_time_total
+            n_own += e.count
+        else:
+            other_us += e.self_device_time_total
+    if own_us <= 0.0:
+        raise AssertionError(f"profiler saw no device time for {kernel}")
+    if kernel is None:
+        return own_us / 1e3 / iters, 0.0
+    if not 0.9 * iters <= n_own <= iters:
+        raise AssertionError(f"profiler saw {n_own} launches of {kernel} in "
+                             f"{iters} calls")
+    return own_us / 1e3 / n_own, other_us / 1e3 / iters
+
+
+def k1_work(args, best_t, best_flat, chunk: int, tri_id):
+    """The work one closest-hit K1 call needs on these inputs: (ray-triangle
+    tests, distinct clusters read).  The block's early exit is replayed from
+    the call's own t and winners: a block cannot stop before the chunk of
+    its last winner, and from that chunk on its state is final, so it stops
+    at the first chunk j at or after it whose next entry distance is at
+    least max over live lanes of min(t, t_max).  Only live lanes (t_max > 0)
+    test, and only real triangles of the clusters in the chunks a block
+    visits count (padding and the sentinel are left out)."""
+    import torch
+    u_idx, _, _, tm, soup, n_valid, entry = args
+    dev = tm.device
+    n_u, k = u_idx.shape[1], soup.shape[-1]
+    ch = min(chunk, n_u)
+    w, nct = ch * k, n_u // ch
+    live = tm > 0.0
+    win_chunk = torch.where(live & (best_flat >= 0), best_flat // w,
+                            -1).amax(dim=1)
+    worst = torch.where(live, torch.minimum(best_t, tm), 0.0).amax(dim=1)
+    j = torch.arange(nct, device=dev)
+    nxt = torch.where((j[None] + 1) * ch < n_valid[:, None],
+                      entry[:, torch.clamp_max(j + 1, nct - 1) * ch], BIG)
+    stop = (j[None] >= win_chunk[:, None]) & (worst[:, None] <= nxt)
+    first = torch.where(stop, j[None], nct).amin(dim=1)
+    visited = torch.minimum(first + 1, (n_valid.long() + ch - 1) // ch)
+    if bool((visited <= win_chunk).any()):
+        raise AssertionError("K1 replay: a block stops before its winner")
+    run = torch.arange(n_u, device=dev)[None] < visited[:, None] * ch
+    n_clusters = tri_id.shape[0]
+    real = torch.cat([(tri_id >= 0).sum(dim=1),
+                      torch.zeros(1, dtype=torch.int64, device=dev)])
+    tris = torch.where(run, real[u_idx.long()], 0).sum(dim=1)
+    tests = int((tris * live.sum(dim=1)).sum())
+    read = u_idx[run & (u_idx < n_clusters)]
+    return tests, int(torch.unique(read).numel())
+
+
 class TraceStats:
-    """Agreement of a tracer kernel with its plain version."""
+    """Agreement of a tracer kernel with its plain version, and its bound
+    at the timed shape."""
 
     def __init__(self, kernel: str):
         self.kernel = kernel
+        self.bound = None
+        self.wrapper_ms = None
+        self.work = None
         self.rays = 0
         self.mismatch = 0
         self.max_abs_err = 0.0
@@ -274,10 +443,16 @@ def phase_k2(dev):
 
     # Time at the main path's shape: 262,144 camera rays x 32 triangles.
     big = torch.full((w * h,), BIG, device=dev)
-    ms = time_ms(lambda: resident.trace(soup, o_cam, d_cam, big, 0.0, False),
-                 50)
+    call = lambda: resident.trace(soup, o_cam, d_cam, big, 0.0, False)
+    ms, _ = device_ms(call, 50, "resident_kernel")
+    st.wrapper_ms = time_ms(call, 50)
     plain_ms = time_ms(
         lambda: resident.trace_plain(soup, o_cam, d_cam, big, 0.0, False), 10)
+    # Every ray tests every triangle (no early exit for the closest hit):
+    # o, d, t_max in and t, tri out per ray, the soup once.
+    n, n_tris = w * h, soup.shape[0]
+    st.bound = bound(n * (12 + 12 + 4 + 4 + 4) + soup.numel() * 4,
+                     n * n_tris * MT_FLOPS)
     return st, ms, plain_ms
 
 
@@ -316,8 +491,12 @@ def phase_k3(dev):
         print(f"K3 {h}x{w}: max |kernel - plain| {err:.3g}")
     hdr = torch.from_numpy(
         rng.lognormal(-1.0, 2.0, (512, 512, 3)).astype(np.float32)).to(dev)
-    ms = time_ms(lambda: tonemap.tonemap(hdr), 200)
+    ms, _ = device_ms(lambda: tonemap.tonemap(hdr), 200, "tonemap_kernel")
+    out["wrapper_ms"] = time_ms(lambda: tonemap.tonemap(hdr), 200)
     plain_ms = time_ms(lambda: tonemap.tonemap_plain(hdr), 50)
+    # 12 bytes in and 12 out per pixel; ~63 float operations (two 3x3 mixes
+    # 30, three rational fits 24, three log/multiply/exp 9).
+    out["bound"] = bound(hdr.numel() * 4 * 2, hdr.numel() // 3 * 63)
     return out, ms, plain_ms
 
 
@@ -416,10 +595,29 @@ def phase_k1(dev):
             rand_tm, True, True)
 
     # Time at the main path's shape: 262,144 morton camera rays.
-    ms = time_ms(lambda: tb.trace_blocks(*cam_args, t_min=0.0,
-                                         any_hit=False), 50)
+    call = lambda: tb.trace_blocks(*cam_args, t_min=0.0, any_hit=False,
+                                   chunk=cfg.chunk)
+    ms, _ = device_ms(call, 50, "trace_blocks_kernel")
+    st.wrapper_ms = time_ms(call, 50)
     plain_ms = time_ms(lambda: tb.trace_blocks_plain(
-        *cam_args, t_min=0.0, any_hit=False), 5, warmup=1)
+        *cam_args, t_min=0.0, any_hit=False, chunk=cfg.chunk), 5, warmup=1)
+    # The work these inputs need (k1_work): the tests of live lanes against
+    # the real triangles of the chunks each block visits before its early
+    # exit.  Bytes: o, d, t_max in and t, flat out per lane, the candidate
+    # lists and entries, the soup of the distinct clusters read, once.
+    best_t, best_flat = call()
+    tests, n_clusters = k1_work(cam_args, best_t, best_flat, cfg.chunk,
+                                grid.tri_id.to(dev))
+    u_idx, o_b, _, _, soup_b, n_valid, _ = cam_args
+    nb, blk = o_b.shape[0], o_b.shape[1]
+    st.work = {"tests": tests, "tests_if_no_exit": int(n_valid.sum()) * blk
+               * soup_b.shape[-1], "clusters_read": n_clusters}
+    print(f"K1 camera closest work: {tests} ray-triangle tests needed "
+          f"({st.work['tests_if_no_exit']} if every lane tested every "
+          f"candidate), {n_clusters} clusters read")
+    st.bound = bound(nb * blk * (12 + 12 + 4 + 4 + 4) + u_idx.numel() * 8
+                     + nb * 4 + n_clusters * soup_b[0].numel() * 4,
+                     tests * MT_FLOPS)
     return st, ms, plain_ms
 
 
@@ -473,10 +671,323 @@ def phase_k4(dev):
         frames[label] = frame
 
     # Time at the main path's shape: the whole cornell frame.
-    ms = time_ms(lambda: fused.fused_kernel(frames["cornell"]), 20)
-    plain_ms = time_ms(lambda: fused.fused_plain(frames["cornell"]), 3,
-                       warmup=1)
+    frame = frames["cornell"]
+    ms, _ = device_ms(lambda: fused.fused_kernel(frame), 20, "fused_kernel")
+    out["wrapper_ms"] = time_ms(lambda: fused.fused_kernel(frame), 20)
+    plain_ms = time_ms(lambda: fused.fused_plain(frame), 3, warmup=1)
+    # The work is a lower bound from this run's query count: of `count`
+    # queries at most one in 1 + n_shadow is a closest hit (each shadow
+    # query follows one), and a closest hit tests every triangle; shadow
+    # queries (which may be skipped or stop at the first occluder) and the
+    # shading arithmetic are left out.  Bytes: the HDR sum out (the tables
+    # are kilobytes).
+    _, count = fused.fused_kernel(frame)
+    n_shadow = int(frame.has_em) + int(frame.has_dir)
+    closest = -(-int(count) // (1 + n_shadow))
+    n_tris = frame.tri.shape[0]
+    out["closest_queries_at_least"] = closest
+    out["bound"] = bound(512 * 512 * 3 * 4, closest * n_tris * MT_FLOPS)
     return out, ms, plain_ms
+
+
+def phase_k5(dev):
+    """K5a/K5b against their plain versions over GATHER_TABLES x GATHER_NS
+    and skewed index sets; times at cornell's shape."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import gather
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {"cases": 0, "rows_compared": 0, "fwd_max_abs_err": 0.0,
+           "bwd_max_rel_err": 0.0}
+
+    def dyadic(n, w):
+        # Multiples of 2^-10 below 8 in magnitude: every partial sum of up
+        # to ~10^6 of them is exact in float32, whatever the order.
+        x = torch.randn((n, w), device=dev, generator=gen).clamp(-7.9, 7.9)
+        return torch.round(x * 1024.0) / 1024.0
+
+    def check(label, table, idx, ct):
+        t = table.shape[0]
+        k = gather.gather_fwd(table, idx)
+        p = gather.take_rows_plain(table, idx)
+        dk = gather.gather_bwd(idx, ct, t)
+        dp = gather.take_rows_bwd_plain(idx, ct, t)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"K5a {label}: rows differ (max "
+                                 f"{(k - p).abs().max().item():.3g})")
+        scale = dp.abs().max().item()
+        err = (dk - dp).abs().max().item()
+        if err > K5B_REL * scale:
+            raise AssertionError(f"K5b {label}: max |kernel - plain| {err:.3g}"
+                                 f" > {K5B_REL} x {scale:.3g}")
+        out["cases"] += 1
+        out["rows_compared"] += idx.shape[0]
+        out["bwd_max_rel_err"] = max(out["bwd_max_rel_err"],
+                                     err / max(scale, 1e-30))
+        return err
+
+    for t, w in GATHER_TABLES:
+        table = torch.randn((t, w), device=dev, generator=gen) * 1e3
+        for n in GATHER_NS:
+            idx = torch.randint(-1, t + 1, (n,), device=dev, generator=gen,
+                                dtype=torch.int32)
+            idx[:2] = torch.tensor([-1, t], dtype=torch.int32)
+            check(f"T={t} W={w} N={n}", table, idx, dyadic(n, w))
+        print(f"K5 T={t} W={w}: rows bit-equal, cotangent sums equal")
+    # int64 indices; every ray on one row (the atomics' worst case), with a
+    # table in shared memory and one in global memory; real-valued
+    # cotangents at cornell's shape.
+    for t, w, n, same in ((32, 86, 262_144, False), (32, 86, 1_000_003, True),
+                          (100_352, 86, 262_144, True)):
+        table = torch.randn((t, w), device=dev, generator=gen)
+        idx = (torch.full((n,), 7, device=dev, dtype=torch.int64) if same
+               else torch.randint(-1, t + 1, (n,), device=dev,
+                                  generator=gen))
+        check(f"int64 T={t} W={w} N={n} one row {same}", table, idx,
+              dyadic(n, w))
+    table = torch.randn((32, 86), device=dev, generator=gen)
+    idx = torch.randint(0, 32, (262_144,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    ct = torch.randn((262_144, 86), device=dev, generator=gen)
+    err = check("float cotangents T=32 W=86 N=262144", table, idx, ct)
+    out["bwd_max_abs_err_float"] = err
+    print(f"K5 {out['cases']} cases, {out['rows_compared']} rows: forward "
+          f"bit-equal, backward max rel err {out['bwd_max_rel_err']:.3g} "
+          f"(float cotangents at cornell's shape: max |err| {err:.3g})")
+
+    # Times at cornell's shape (tri_attrs: 262,144 rays x 86 columns of 32
+    # rows).  The library calls are the yardsticks the port never calls.
+    # `*_ms` is the kernel's own device time (torch.profiler), `*_wrapper_ms`
+    # the wrapper called back to back (CUDA events; host dispatch, checks,
+    # the output's allocation and K5b's zero fill included),
+    # `bwd_fill_ms` the device time of K5b's zero fill of d_table.
+    acc = torch.zeros((32, 86), device=dev)
+    n, w, t = 262_144, 86, 32
+    fwd = lambda: gather.gather_fwd(table, idx)
+    bwd = lambda: gather.gather_bwd(idx, ct, t)
+    index_select = lambda: torch.index_select(table, 0, idx)
+    index_add = lambda: acc.index_add_(0, idx, ct)
+    times = {}
+    times["fwd_ms"], _ = device_ms(fwd, 200, "gather_fwd_kernel")
+    times["bwd_ms"], times["bwd_fill_ms"] = device_ms(bwd, 200, "gather_bwd_")
+    times["fwd_library_device_ms"], _ = device_ms(index_select, 200, None)
+    times["bwd_library_device_ms"], _ = device_ms(index_add, 200, None)
+    times["fwd_wrapper_ms"] = time_ms(fwd, 200)
+    times["bwd_wrapper_ms"] = time_ms(bwd, 200)
+    times["fwd_plain_ms"] = time_ms(
+        lambda: gather.take_rows_plain(table, idx), 50)
+    times["bwd_plain_ms"] = time_ms(
+        lambda: gather.take_rows_bwd_plain(idx, ct, t), 50)
+    times["fwd_library_ms"] = time_ms(index_select, 200)
+    times["bwd_library_ms"] = time_ms(index_add, 200)
+    one_row = torch.zeros_like(idx)
+    times["bwd_one_row_ms"], _ = device_ms(
+        lambda: gather.gather_bwd(one_row, ct, t), 50, "gather_bwd_")
+    # Each input read once, each output written once: idx, the table and
+    # the rows (forward) or the cotangent rows and d_table (backward); the
+    # backward adds N*W floats.
+    n_bytes = n * w * 4 + n * 4 + t * w * 4
+    out["fwd_bound"] = bound(n_bytes, 0)
+    out["bwd_bound"] = bound(n_bytes, n * w)
+    out.update(times)
+    print("K5 262144 x 86 from 32 rows: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    return out
+
+
+def phase_grad_golden(dev):
+    """render() + pixel_loss gradients on the card against the reference's
+    (the gradient golden), with exact K5a/K5b counts."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.grad import inverse
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.ops import fused, gather
+    from physically_based_renderer_tpu_torch.utils import config
+
+    gold = np.load(GRAD_GOLDEN)
+    out = {}
+    for case, (select, rel, (want_fwd, want_bwd)) in GRAD_CASES.items():
+        bc = config.get(case)
+        scene, cam = config.build_scene(bc.scene, dev)
+        cfg = dataclasses.replace(bc.render, width=GRAD_SIZE,
+                                  height=GRAD_SIZE, spp=GRAD_SPP,
+                                  max_bounces=GRAD_BOUNCES, tracer="resident")
+        params = inverse.trainable_copy(
+            inverse.TrainableParams.from_scene(scene, **select))
+        gather.LAUNCHES_FWD = gather.LAUNCHES_BWD = fused.LAUNCHES = 0
+        img = path.render(inverse.apply_params(scene, params), cam,
+                          rng_mod.key(int(gold["key"]), dev), cfg).mean()
+        loss = inverse.pixel_loss(img, torch.from_numpy(
+            gold[f"{case}/target"]).to(dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        got = (gather.LAUNCHES_FWD, gather.LAUNCHES_BWD, fused.LAUNCHES)
+        if got != (want_fwd, want_bwd, 0):
+            raise AssertionError(f"gradient {case}: K5a/K5b/K4 launches {got},"
+                                 f" expected {(want_fwd, want_bwd, 0)}")
+        worst = 0.0
+        for field, leaf in params.items():
+            want = gold[f"{case}/grad/{field}"]
+            g = leaf.grad.cpu().numpy()
+            scale = float(np.abs(want).max())
+            err = float(np.abs(g - want).max()) / scale
+            if not np.isfinite(g).all() or err > rel:
+                raise AssertionError(f"gradient {case} {field}: max err "
+                                     f"{err:.3g} x max|g_ref| > {rel}")
+            worst = max(worst, err)
+        loss_rel = abs(float(loss.detach()) / float(gold[f"{case}/loss"])
+                       - 1.0)
+        print(f"gradient golden {case} {GRAD_SIZE}x{GRAD_SIZE}: max err "
+              f"{worst:.3g} x max|g_ref| (allowed {rel}), loss rel diff "
+              f"{loss_rel:.3g}, K5a {got[0]}, K5b {got[1]}")
+        out[case] = {"max_rel_err": worst, "allowed": rel,
+                     "loss_rel_diff": loss_rel, "gather_fwd": got[0],
+                     "gather_bwd": got[1]}
+    return out
+
+
+def run_inverse_cli(argv, tmp, label):
+    """Run the inverse CLI in this process; return its report (JSON file)."""
+    from physically_based_renderer_tpu_torch.apps import inverse
+    report = Path(tmp) / f"{label}.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = inverse.main(argv + ["--report", str(report), "--device",
+                                  "cuda"])
+    if rc != 0:
+        raise AssertionError(f"inverse CLI exited {rc}")
+    return json.loads(report.read_text())
+
+
+def phase_grad_step(counters, tmp):
+    """The inverse CLI at the cornell config's full size: seconds per warm
+    step, peak memory and exact launches per step."""
+    import numpy as np
+    import torch
+
+    c = GRAD_CLI
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    rep = run_inverse_cli(
+        ["--scene", "cornell", "--params",
+         "base_color,roughness,metallic,emissive", "--size", str(c["size"]),
+         "--spp", str(c["spp"]), "--bounces", str(c["bounces"]),
+         "--target-spp", str(c["target_spp"]), "--steps", str(c["steps"])],
+        tmp, "grad_step")
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    per_render = 2 * c["bounces"] + 1
+    want = {k: 0 for k in got}
+    want["resident"] = want["gather_fwd"] = (
+        (c["target_spp"] + c["steps"] * c["spp"]) * per_render)
+    want["gather_bwd"] = c["steps"] * c["spp"] * per_render
+    if got != want:
+        raise AssertionError(f"gradient step launches {got}, expected {want}")
+    if not np.isfinite(list(rep["final_error"].values())
+                       + [rep["final_loss"]]).all():
+        raise AssertionError(f"gradient step report {rep}")
+    per_step = {k: (v - (c["target_spp"] * per_render
+                         if k in ("resident", "gather_fwd") else 0))
+                // c["steps"] for k, v in got.items()}
+    print(f"gradient step cornell {c['size']}x{c['size']} x {c['spp']} spp "
+          f"x {c['bounces']} bounces: {rep['seconds_per_step']:.4f} s per "
+          f"warm step, peak memory {peak / 2**30:.3f} GiB, launches per step "
+          f"{per_step}")
+    return {"seconds_per_step": rep["seconds_per_step"],
+            "step_seconds": rep["step_seconds"], "peak_bytes": peak,
+            "launches_per_step": per_step, "launches": got,
+            "final_loss": rep["final_loss"]}, got
+
+
+def phase_fit(counters, tmp):
+    """The CLI at its defaults: 20 steps with a checkpoint at step 20, then
+    a --resume run to step 40 that lowers every field's error."""
+    ckpt = str(Path(tmp) / "ckpt")
+    common = ["--checkpoint-dir", ckpt, "--checkpoint-every", "20"]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    first = run_inverse_cli(common + ["--steps", "20"], tmp, "fit_first")
+    resumed = run_inverse_cli(common + ["--steps", "40", "--resume"], tmp,
+                              "fit_resumed")
+    got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    if first["start_step"] != 0 or resumed["start_step"] != 20:
+        raise AssertionError(f"resume started at {resumed['start_step']}, "
+                             "expected 20")
+    # The error of the values the scene renders (after apply_params'
+    # clamps) must fall for every field.  The raw parameters' error need
+    # not: at these defaults Adam carries parameters past their clamps,
+    # where the loss no longer sees them, and the raw base colour error
+    # rises in the reference's own CLI too (0.274 -> 0.397 after 40 steps
+    # on the CPU, the port's equal to 6 digits).
+    for field, err0 in resumed["initial_error_applied"].items():
+        err1 = resumed["final_error_applied"][field]
+        if not err1 < err0:
+            raise AssertionError(f"fit did not lower {field}'s error: "
+                                 f"{err0} -> {err1}")
+    print(f"fit 64x64 x 2 spp, 20 + 20 steps (resumed at 20): error of the "
+          f"rendered values {resumed['initial_error_applied']} -> "
+          f"{resumed['final_error_applied']}, of the raw parameters "
+          f"{resumed['initial_error']} -> {resumed['final_error']}, "
+          f"{resumed['seconds_per_step']:.4f} s per warm step")
+    return {key: resumed[key] for key in (
+        "initial_error", "final_error", "initial_error_applied",
+        "final_error_applied", "seconds_per_step")} | {
+        "error_applied_at_20": first["final_error_applied"],
+        "losses": first["losses"] + resumed["losses"]}, got
+
+
+def phase_profile(dev):
+    """One full-size gradient step (GRAD_CLI's) under torch.profiler: the
+    device's busy time, idle share and kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.grad import inverse
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.utils import config
+
+    c = GRAD_CLI
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, dev)
+    cfg = path.RenderConfig(width=c["size"], height=c["size"], spp=c["spp"],
+                            max_bounces=c["bounces"])
+    with torch.no_grad():
+        target = path.render(scene, cam, rng_mod.key(9999, dev), cfg).mean()
+    params = inverse.trainable_copy(inverse.TrainableParams.from_scene(
+        scene, base_color=True, roughness=True, metallic=True,
+        emissive=True))
+    step = inverse.make_train_step(
+        scene, cam, cfg, torch.optim.Adam(params.leaves(), lr=5e-2))
+    state = None
+    params, state, _ = step(params, state, rng_mod.key(1, dev), target)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, rng_mod.key(2, dev), target)
+        float(loss)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+           "idle_share": (1.0 - busy_us / 1e6 / wall) if busy_us else None,
+           "launches": launches,
+           "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3,
+                            e.count) for e in top]}
+    print(f"profiled gradient step: wall {wall:.4f} s, device busy "
+          f"{busy_us / 1e6:.4f} s, idle share {out['idle_share']}, "
+          f"{launches} kernel launches")
+    return out
 
 
 def render_direct(name, dev, tracer, **over):
@@ -530,7 +1041,8 @@ def main() -> int:
     import numpy as np
 
     from physically_based_renderer_tpu_torch.ops import (cuda_lib, fused,
-                                                         resident, tonemap,
+                                                         gather, resident,
+                                                         tonemap,
                                                          trace_blocks)
 
     card = card_line()
@@ -548,30 +1060,41 @@ def main() -> int:
     # 2-3. kernels against their plain versions
     k2, k2_ms, k2_plain_ms = phase_k2(dev)
     k3, k3_ms, k3_plain_ms = phase_k3(dev)
-    print(f"K2 262144 rays x 32 tris: kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms")
-    print(f"K3 512x512: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    print(f"K2 262144 rays x 32 tris: kernel {k2_ms:.4f} ms (wrapper "
+          f"{k2.wrapper_ms:.4f}), plain {k2_plain_ms:.4f} ms")
+    print(f"K3 512x512: kernel {k3_ms:.4f} ms (wrapper "
+          f"{k3['wrapper_ms']:.4f}), plain {k3_plain_ms:.4f} ms")
 
     # 4. K1 against its plain version
     k1, k1_ms, k1_plain_ms = phase_k1(dev)
-    print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms, "
+    print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms "
+          f"(wrapper {k1.wrapper_ms:.4f}), "
           f"plain {k1_plain_ms:.4f} ms")
 
     # 5. K4 against its plain version
     k4, k4_ms, k4_plain_ms = phase_k4(dev)
     print(f"K4 cornell frame 512x512 x 4 spp x 4 bounces: kernel "
-          f"{k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
+          f"{k4_ms:.4f} ms (wrapper {k4['wrapper_ms']:.4f}), plain "
+          f"{k4_plain_ms:.4f} ms")
 
-    counters = {"fused": fused, "resident": resident,
-                "trace_blocks": trace_blocks, "tonemap": tonemap}
+    # 8. K5a and K5b against their plain versions
+    k5 = phase_k5(dev)
+
+    # Each kernel's launch count: (module, attribute).
+    counters = {"fused": (fused, "LAUNCHES"),
+                "resident": (resident, "LAUNCHES"),
+                "trace_blocks": (trace_blocks, "LAUNCHES"),
+                "tonemap": (tonemap, "LAUNCHES"),
+                "gather_fwd": (gather, "LAUNCHES_FWD"),
+                "gather_bwd": (gather, "LAUNCHES_BWD")}
     launches = {name: {} for name in counters}
     runs, goldens = {}, {}
 
     def drive(label, name, how, tmp, **over):
         """One run of a path with the counts reset just before it: (mean
         HDR image, its stats, the launches it made)."""
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         if how == "cli":
             png = Path(tmp) / f"{label}.png"
             hdr_path = Path(tmp) / f"{label}.npy"
@@ -587,7 +1110,8 @@ def main() -> int:
             img = np.load(hdr_path)
         else:
             img, stats = render_direct(name, dev, how, **over)
-        return img, stats, {k: mod.LAUNCHES for k, mod in counters.items()}
+        return img, stats, {k: getattr(mod, attr)
+                            for k, (mod, attr) in counters.items()}
 
     with tempfile.TemporaryDirectory() as tmp:
         # 6. the main paths at full size
@@ -636,50 +1160,68 @@ def main() -> int:
                               "pixels_differ": n_bad, "mean_rel": mean_rel,
                               "launches": got}
 
+        # 9. the gradient path
+        grad_golden = phase_grad_golden(dev)
+        grad_step, got = phase_grad_step(counters, tmp)
+        for k in launches:
+            launches[k]["gradient_step"] = got[k]
+        fit, got = phase_fit(counters, tmp)
+        for k in launches:
+            launches[k]["gradient_fit"] = got[k]
+        if got["fused"] or not (got["gather_fwd"] and got["gather_bwd"]
+                                and got["resident"]):
+            raise AssertionError(f"fit launches {got}")
+        profiled = phase_profile(dev)
+
+    def entry(name, src, replaces, err, ms, wrapper_ms, plain_ms, bnd,
+              library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"physically_based_renderer_tpu_torch/csrc/{src}",
+                "replaces": f"physically_based_renderer_tpu/{replaces}",
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name], "max_abs_err": err,
+                "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "resident", "route": "cuda",
-         "source": "physically_based_renderer_tpu_torch/csrc/resident.cu",
-         "replaces": "physically_based_renderer_tpu/ops/resident.py:54",
-         "launches": sum(launches["resident"].values()),
-         "launches_by_path": launches["resident"],
-         "max_abs_err": k2.max_abs_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "tonemap", "route": "cuda",
-         "source": "physically_based_renderer_tpu_torch/csrc/tonemap.cu",
-         "replaces": "physically_based_renderer_tpu/ops/tonemap.py:52",
-         "launches": sum(launches["tonemap"].values()),
-         "launches_by_path": launches["tonemap"],
-         "max_abs_err": k3["max_abs_err"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "trace_blocks", "route": "cuda",
-         "source": "physically_based_renderer_tpu_torch/csrc/trace_blocks.cu",
-         "replaces": "physically_based_renderer_tpu/ops/pallas_trace.py:54",
-         "launches": sum(launches["trace_blocks"].values()),
-         "launches_by_path": launches["trace_blocks"],
-         "max_abs_err": k1.max_abs_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fused", "route": "cuda",
-         "source": "physically_based_renderer_tpu_torch/csrc/fused.cu",
-         "replaces": "physically_based_renderer_tpu/ops/fused.py:402",
-         "launches": sum(launches["fused"].values()),
-         "launches_by_path": launches["fused"],
-         "max_abs_err": k4["max_abs_err"],
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        entry("resident", "resident.cu", "ops/resident.py:54",
+              k2.max_abs_err, k2_ms, k2.wrapper_ms, k2_plain_ms, k2.bound,
+              None),
+        entry("tonemap", "tonemap.cu", "ops/tonemap.py:52",
+              k3["max_abs_err"], k3_ms, k3["wrapper_ms"], k3_plain_ms,
+              k3["bound"], None),
+        entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
+              k1.max_abs_err, k1_ms, k1.wrapper_ms, k1_plain_ms, k1.bound,
+              None),
+        entry("fused", "fused.cu", "ops/fused.py:402", k4["max_abs_err"],
+              k4_ms, k4["wrapper_ms"], k4_plain_ms, k4["bound"], None),
+        entry("gather_fwd", "gather.cu", "ops/gather.py:47",
+              k5["fwd_max_abs_err"], k5["fwd_ms"], k5["fwd_wrapper_ms"],
+              k5["fwd_plain_ms"], k5["fwd_bound"], k5["fwd_library_ms"]),
+        entry("gather_bwd", "gather.cu", "ops/gather.py:60",
+              k5["bwd_max_abs_err_float"], k5["bwd_ms"],
+              k5["bwd_wrapper_ms"], k5["bwd_plain_ms"], k5["bwd_bound"],
+              k5["bwd_library_ms"]),
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,
         "k2": {"rays_compared": k2.rays, "winner_mismatches": k2.mismatch,
                "max_abs_err_t": k2.max_abs_err, "ms": k2_ms,
-               "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
+               "wrapper_ms": k2.wrapper_ms, "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
         "k1": {"rays_compared": k1.rays, "winner_mismatches": k1.mismatch,
                "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,
-               "plain_ms": k1_plain_ms,
+               "wrapper_ms": k1.wrapper_ms, "plain_ms": k1_plain_ms,
+               "work": k1.work,
                "shape": "262144 helmet_proc camera rays x 1024 clusters"},
         "k4": {**k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
                "shape": "cornell frame 512x512 x 4 spp x 4 bounces"},
+        "k5": {**k5, "shape": "262144 rows x 86 columns from 32 rows"},
         "main_paths": runs, "goldens": goldens,
+        "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
+                     "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,
     }))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 The reference package beside this one (same name without `_torch`) is the
 reference; every module here mirrors the reference module of the same name
-(`core/`, `scene/`, `ops/`, `models/`, `integrator/`, `utils/`, `apps/`), so
-each function's counterpart is easy to find.  This package imports torch and
-numpy only.
+(`core/`, `scene/`, `ops/`, `models/`, `integrator/`, `grad/`, `utils/`,
+`apps/`), so each function's counterpart is easy to find.  This package
+imports torch and numpy only.
 
 Conventions:
     * plain functions on tensors, frozen dataclasses for records;
@@ -21,6 +21,8 @@ __version__ = "0.1.0"
 
 from .core.camera import Camera  # noqa: F401
 from .core.film import Film  # noqa: F401
+from .grad.inverse import (TrainableParams, fit,  # noqa: F401
+                           make_train_step)
 from .integrator.path import (RenderConfig, render,  # noqa: F401
                               render_with_stats)
 from .scene.types import Scene, make_scene, upload_scene  # noqa: F401

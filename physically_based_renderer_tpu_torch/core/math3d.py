@@ -3,7 +3,8 @@
 Only the vector part of the reference module is on the main path: dot,
 cross, normalize, the Duff et al. orthonormal basis and the local/world
 frame changes.  Everything broadcasts over leading dims, f32, and is
-differentiable.
+differentiable.  `maximum`, `minimum` and `clip` bound a value that
+carries gradient with the reference's tie rule.
 """
 
 from __future__ import annotations
@@ -11,6 +12,24 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-8
+
+
+def maximum(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """max(x, bound) with the reference's tie rule: where x == bound, x gets
+    half the gradient, as JAX's `maximum` and `clip` give it
+    (`torch.clamp_min` passes all of it).  The bound is a 0-dim CPU
+    tensor, which torch accepts beside a tensor on any device."""
+    return torch.maximum(x, torch.tensor(bound, dtype=x.dtype))
+
+
+def minimum(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """min(x, bound) with the reference's tie rule (see `maximum`)."""
+    return torch.minimum(x, torch.tensor(bound, dtype=x.dtype))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """JAX's clip(x, lo, hi) = min(max(x, lo), hi), ties split in half."""
+    return minimum(maximum(x, lo), hi)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = True) -> torch.Tensor:

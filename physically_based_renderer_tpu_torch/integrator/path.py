@@ -4,7 +4,8 @@ Per bounce, all rays advance in lockstep with masks: closest hit, shade,
 emitter MIS, one shadow trace per light family (NEE), BSDF sampling.
 Radiometric quantities stay attached; sampling decisions (directions,
 pdfs, MIS weights, Russian roulette) are detached, at the same points as
-the reference, so the estimator's gradients can follow it in a later port.
+the reference, so `render()`'s gradients are the reference's interior
+estimator (grad/inverse.py; held to the reference's jax.grad in the tests).
 
 Ported tracers: `resident` (K2, ops/resident.py), `pallas` (the block
 tracer: phase A in torch + K1, ops/blocktrace.py; the reference's route
@@ -319,7 +320,7 @@ def _nee_prepare(sp, wo, ls, throughput, active, mis: bool,
     wi_w = ls.wi.detach()
     wi = math3d.to_local(wi_w, sp.tang, sp.bitang, sp.ns)
     f, pdf_b = eval_bsdf(sp.bsdf, wo, wi)
-    cos_i = torch.clamp_min(wi[..., 2], 0.0)
+    cos_i = math3d.maximum(wi[..., 2], 0.0)      # attached: the tie rule
     ls_pdf = ls.pdf.detach()
     cand = active & ls.valid & (cos_i.detach() > 1e-7) & (ls_pdf > 0.0)
     t_max = torch.where(cand, ls.dist.detach() * (1.0 - 1e-3), 0.0)
@@ -379,7 +380,8 @@ def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
 
 def render(scene: Scene, camera: Camera, key: torch.Tensor,
            cfg: RenderConfig) -> Film:
-    """Render cfg.spp samples (differentiable in the scene tensors)."""
+    """Render cfg.spp samples, differentiable in the scene tensors: the
+    dense estimator on any device (never K4, as in the reference)."""
     _check_config(cfg)
     return _render_with_stats_dense(scene, camera, key, cfg)[0]
 

@@ -8,7 +8,9 @@
 Trowbridge-Reitz D, height-correlated Smith visibility, Fresnel-Schlick;
 sampling mixes cosine-hemisphere (diffuse) with Heitz's visible-normal GGX
 (specular).  Directions are in the LOCAL shading frame (+z = normal), wo
-points toward the viewer.  Differentiable in the material parameters.
+points toward the viewer.  Differentiable in the material parameters;
+bounds on values that carry gradient split a tie's gradient in half, as
+the reference's do (`core.math3d.maximum`/`clip`).
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ class BsdfParams:
 
     @property
     def alpha(self) -> torch.Tensor:
-        r = torch.clamp(self.roughness, MIN_ROUGHNESS, 1.0)
-        return torch.clamp_min(r * r, MIN_ALPHA)
+        r = math3d.clip(self.roughness, MIN_ROUGHNESS, 1.0)
+        return math3d.maximum(r * r, MIN_ALPHA)
 
     @property
     def f0(self) -> torch.Tensor:
@@ -63,22 +65,22 @@ def cos_theta(w: torch.Tensor) -> torch.Tensor:
 def d_ggx(alpha: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Trowbridge-Reitz NDF, local frame."""
     a2 = alpha * alpha
-    nh = torch.clamp_min(cos_theta(h), 0.0)
+    nh = math3d.maximum(cos_theta(h), 0.0)
     d = nh * nh * (a2 - 1.0) + 1.0
-    return a2 * INV_PI / torch.clamp_min(d * d, 1e-12)
+    return a2 * INV_PI / math3d.maximum(d * d, 1e-12)
 
 
 def smith_lambda(alpha: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Smith's lambda for GGX: (sqrt(1 + a^2 tan^2) - 1) / 2."""
-    c = torch.clamp(cos_theta(w).abs(), 1e-6, 1.0)
-    tan2 = torch.clamp_min(1.0 - c * c, 0.0) / (c * c)
+    c = math3d.clip(cos_theta(w).abs(), 1e-6, 1.0)
+    tan2 = math3d.maximum(1.0 - c * c, 0.0) / (c * c)
     return 0.5 * (torch.sqrt(1.0 + alpha * alpha * tan2) - 1.0)
 
 
 def vis_smith_hc(alpha, wo, wi) -> torch.Tensor:
     """Height-correlated Smith visibility V = G2 / (4 |NL| |NV|)."""
-    no = torch.clamp_min(cos_theta(wo).abs(), 1e-6)
-    ni = torch.clamp_min(cos_theta(wi).abs(), 1e-6)
+    no = math3d.maximum(cos_theta(wo).abs(), 1e-6)
+    ni = math3d.maximum(cos_theta(wi).abs(), 1e-6)
     lam = smith_lambda(alpha, wo) + smith_lambda(alpha, wi)
     return 1.0 / (4.0 * no * ni * (1.0 + lam))
 
@@ -88,7 +90,7 @@ def g1_smith(alpha, w) -> torch.Tensor:
 
 
 def fresnel_schlick(f0: torch.Tensor, voh: torch.Tensor) -> torch.Tensor:
-    m = torch.clamp(1.0 - voh, 0.0, 1.0)
+    m = math3d.clip(1.0 - voh, 0.0, 1.0)
     return f0 + (1.0 - f0) * (m ** 5)[..., None]
 
 
@@ -97,7 +99,7 @@ def eval_bsdf(params: BsdfParams, wo: torch.Tensor, wi: torch.Tensor):
     either direction is below the hemisphere."""
     valid = (cos_theta(wo) > 1e-6) & (cos_theta(wi) > 1e-6)
     h = _safe_normalize(wo + wi)
-    voh = torch.clamp_min(torch.sum(wo * h, dim=-1), 0.0)
+    voh = math3d.maximum(torch.sum(wo * h, dim=-1), 0.0)
     alpha = params.alpha
     f = fresnel_schlick(params.f0, voh)
     spec = (d_ggx(alpha, h) * vis_smith_hc(alpha, wo, wi))[..., None] * f
@@ -109,20 +111,20 @@ def eval_bsdf(params: BsdfParams, wo: torch.Tensor, wi: torch.Tensor):
 
 def _spec_select_prob(params: BsdfParams) -> torch.Tensor:
     """Probability of sampling the specular lobe: energy-based heuristic."""
-    ls = torch.clamp_min(math3d.luminance(params.f0), 1e-4)
-    ld = torch.clamp_min(math3d.luminance(params.diffuse_color), 0.0)
-    return torch.clamp(ls / (ls + ld), 0.05, 0.99)
+    ls = math3d.maximum(math3d.luminance(params.f0), 1e-4)
+    ld = math3d.maximum(math3d.luminance(params.diffuse_color), 0.0)
+    return math3d.clip(ls / (ls + ld), 0.05, 0.99)
 
 
 def _pdf_vndf(alpha, wo, h) -> torch.Tensor:
     """pdf of wi when h is drawn from the visible normals: G1 D / (4 |NV|)."""
-    no = torch.clamp_min(cos_theta(wo).abs(), 1e-6)
+    no = math3d.maximum(cos_theta(wo).abs(), 1e-6)
     return g1_smith(alpha, wo) * d_ggx(alpha, h) / (4.0 * no)
 
 
 def _pdf(params: BsdfParams, wo, wi, h) -> torch.Tensor:
     ps = _spec_select_prob(params)
-    pdf_d = torch.clamp_min(cos_theta(wi), 0.0) * INV_PI
+    pdf_d = math3d.maximum(cos_theta(wi), 0.0) * INV_PI
     pdf_s = _pdf_vndf(params.alpha, wo, h)
     return ps * pdf_s + (1.0 - ps) * pdf_d
 
@@ -148,7 +150,7 @@ def sample_vndf_ggx(alpha: torch.Tensor, wo: torch.Tensor,
     vh = _safe_normalize(torch.stack(
         [alpha * wo[..., 0], alpha * wo[..., 1], wo[..., 2]], dim=-1))
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
-    inv = 1.0 / torch.sqrt(torch.clamp_min(lensq, 1e-12))
+    inv = 1.0 / torch.sqrt(math3d.maximum(lensq, 1e-12))
     t1 = torch.where(
         lensq[..., None] > 1e-9,
         torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
@@ -161,10 +163,10 @@ def sample_vndf_ggx(alpha: torch.Tensor, wo: torch.Tensor,
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2])
     p2 = (1.0 - s) * torch.sqrt(torch.clamp_min(1.0 - p1 * p1, 0.0)) + s * p2
-    p3 = torch.sqrt(torch.clamp_min(1.0 - p1 * p1 - p2 * p2, 0.0))
+    p3 = torch.sqrt(math3d.maximum(1.0 - p1 * p1 - p2 * p2, 0.0))
     nh = p1[..., None] * t1 + p2[..., None] * t2 + p3[..., None] * vh
     h = torch.stack([alpha * nh[..., 0], alpha * nh[..., 1],
-                     torch.clamp_min(nh[..., 2], 1e-6)], dim=-1)
+                     math3d.maximum(nh[..., 2], 1e-6)], dim=-1)
     return _safe_normalize(h)
 
 

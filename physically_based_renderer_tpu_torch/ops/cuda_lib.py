@@ -30,7 +30,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu")
+SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu",
+           "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -39,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # o, d, t_max, soup, n_rays, n_tris, t_min, t_out, tri_out, stream
     "pbr_resident_closest": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P],
@@ -58,6 +60,12 @@ _SIGNATURES = {
     # has_dir, textured, hdr_out, count_out, stream
     "pbr_fused_render": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _U, _U, _I, _I, _I, _P, _P, _P],
+    # table, idx, n_rows, n_table_rows, width, out, stream
+    "pbr_gather_fwd_i32": [_P, _P, _L, _I, _I, _P, _P],
+    "pbr_gather_fwd_i64": [_P, _P, _L, _I, _I, _P, _P],
+    # idx, ct, n_rows, n_table_rows, width, d_table, stream
+    "pbr_gather_bwd_i32": [_P, _P, _L, _I, _I, _P, _P],
+    "pbr_gather_bwd_i64": [_P, _P, _L, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import math3d
 from ..scene.types import (FILTER_NEAREST, MIP_LINEAR, MIP_NONE,
                            TextureStack, WRAP_CLAMP, WRAP_MIRROR,
                            WRAP_REPEAT)
@@ -128,11 +129,12 @@ def _fetch_level(quads, meta, u, v, level):
         off = off + torch.where(j < level, hj * wj, 0.0)
     x = u * wl - 0.5
     y = v * hl - 0.5
-    # clamp wraps the continuous coordinate (exact, incl. the border lerp)
-    x = torch.where(ws == WRAP_CLAMP, torch.minimum(torch.clamp_min(x, 0.0),
-                                                     wl - 1.0), x)
-    y = torch.where(wt == WRAP_CLAMP, torch.minimum(torch.clamp_min(y, 0.0),
-                                                     hl - 1.0), y)
+    # clamp wraps the continuous coordinate (exact, incl. the border lerp);
+    # x and y carry gradient to the uvs, so the bound splits ties (math3d)
+    x = torch.where(ws == WRAP_CLAMP,
+                    torch.minimum(math3d.maximum(x, 0.0), wl - 1.0), x)
+    y = torch.where(wt == WRAP_CLAMP,
+                    torch.minimum(math3d.maximum(y, 0.0), hl - 1.0), y)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0

@@ -15,9 +15,10 @@ import torch
 
 from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.integrator import path
+from physically_based_renderer_tpu_torch.grad import inverse
 from physically_based_renderer_tpu_torch.ops import (blocktrace, fused,
-                                                     resident, tonemap,
-                                                     trace_blocks)
+                                                     gather, resident,
+                                                     tonemap, trace_blocks)
 from physically_based_renderer_tpu_torch.utils import config
 from torch_parity import (COUNT_REL, MEAN_REL, PIXEL_FRAC,  # noqa: F401
                           cuda_device, golden_module, render_agreement)
@@ -212,3 +213,73 @@ def test_fused_path_matches_golden(cuda_device):
     frac, _ = render_agreement(img, ref)
     assert frac >= PIXEL_FRAC
     assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,w,n,dtype", [(32, 86, 262_144, torch.int32),
+                                         (2, 20, 1_000_003, torch.int64),
+                                         (100_352, 86, 262_144, torch.int32),
+                                         (174_762, 16, 4_097, torch.int64)])
+def test_k5_kernels_match_plain(cuda_device, t, w, n, dtype):
+    """K5a bit-equal to its plain version; K5b within 1e-5 * max|plain|
+    (atomics sum in a varying order; the cotangents are multiples of 2^-10,
+    whose sums are exact in any order, so that a row that takes 500,000
+    of them does not turn float rounding into a failure); indices -1 and T
+    included."""
+    g = torch.Generator(device=cuda_device).manual_seed(t + w)
+    table = torch.randn((t, w), device=cuda_device, generator=g)
+    idx = torch.randint(-1, t + 1, (n,), device=cuda_device, generator=g,
+                        dtype=dtype)
+    idx[:2] = torch.tensor([-1, t])
+    ct = torch.round(torch.randn((n, w), device=cuda_device, generator=g)
+                     .clamp(-7.9, 7.9) * 1024.0) / 1024.0
+    before = (gather.LAUNCHES_FWD, gather.LAUNCHES_BWD)
+    tab = table.clone().requires_grad_(True)
+    out = gather.take_rows(tab, idx)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert (gather.LAUNCHES_FWD, gather.LAUNCHES_BWD) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert torch.equal(out.detach(), gather.take_rows_plain(table, idx))
+    plain = gather.take_rows_bwd_plain(idx, ct, t)
+    assert (tab.grad - plain).abs().max() <= 1e-5 * plain.abs().max()
+
+
+@pytest.mark.cuda
+def test_k5_rejects_what_it_does_not_take(cuda_device):
+    table = torch.ones((4, 3), device=cuda_device)
+    idx = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gather.take_rows(table.double(), idx)
+    with pytest.raises(TypeError):
+        gather.take_rows(table, idx.short())
+    with pytest.raises(ValueError):
+        gather.take_rows(table.t(), idx)
+    assert torch.equal(gather.take_rows(table, idx),
+                       gather.take_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_gradient_step_on_card_equals_cpu(cuda_device):
+    """One render() + pixel_loss gradient on cornell at 32x32: the card's
+    (K2, K5a, K5b) against the CPU's plain versions, within 1e-4 *
+    max|g|."""
+    bc = config.get("cornell")
+    cfg = dataclasses.replace(bc.render, width=32, height=32, spp=2,
+                              max_bounces=2)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        scene, cam = config.build_scene(bc.scene, dev)
+        params = inverse.trainable_copy(inverse.TrainableParams.from_scene(
+            scene, base_color=True, roughness=True, metallic=True,
+            emissive=True))
+        before = gather.LAUNCHES_BWD
+        img = path.render(inverse.apply_params(scene, params), cam,
+                          rng.key(0, dev), cfg).mean()
+        inverse.pixel_loss(img, torch.full_like(img, 0.2)).backward()
+        assert (gather.LAUNCHES_BWD > before) == (dev != "cpu")
+        grads.append({k: v.grad.cpu().numpy() for k, v in params.items()})
+    for k, want in grads[0].items():
+        scale = np.abs(want).max()
+        assert scale > 0
+        assert np.abs(grads[1][k] - want).max() <= 1e-4 * scale, k

@@ -234,17 +234,20 @@ def test_package_imports_without_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                   'orbax'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import physically_based_renderer_tpu_torch as p\n"
-        "from physically_based_renderer_tpu_torch.apps import render\n"
+        "from physically_based_renderer_tpu_torch.apps import inverse, render\n"
+        "from physically_based_renderer_tpu_torch.grad import edge\n"
+        "from physically_based_renderer_tpu_torch.utils import checkpoint\n"
         "from physically_based_renderer_tpu_torch.utils import config\n"
         "s, c = config.build_scene(config.get('triangle').scene, 'cpu')\n"
         "cfg = p.RenderConfig(width=4, height=4, spp=1)\n"
         "f, n = p.render_with_stats(s, c, p.core.rng.key(0), cfg)\n"
         "assert int(n) > 0\n"
-        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax',\n"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',\n"
         "    'physically_based_renderer_tpu') for m in sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -254,7 +257,7 @@ def test_package_imports_without_jax():
 
 
 def test_package_names_no_reference_framework():
-    forbidden = {"jax", "jaxlib", "flax", "optax",
+    forbidden = {"jax", "jaxlib", "flax", "optax", "orbax",
                  "physically_based_renderer_tpu"}
     for py in sorted(PKG.rglob("*.py")):
         for node in ast.walk(ast.parse(py.read_text())):

@@ -47,6 +47,42 @@ def np_(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def params_numpy(params) -> dict:
+    """The trained fields of a TrainableParams of either package (or a
+    reference gradient of one) as numpy arrays; None fields dropped."""
+    return {f.name: np_(getattr(params, f.name))
+            for f in dataclasses.fields(params)
+            if getattr(params, f.name) is not None}
+
+
+def params_to_port(params, requires_grad: bool = True):
+    """A reference TrainableParams (or a params_numpy dict) as the port's,
+    each field a fresh f32 leaf tensor: the weights carry-over for
+    gradients, beside `scene_from_numpy`."""
+    from physically_based_renderer_tpu_torch.grad.inverse import \
+        TrainableParams
+    arrays = params if isinstance(params, dict) else params_numpy(params)
+    return TrainableParams(**{
+        k: torch.from_numpy(np.array(v, np.float32)).requires_grad_(
+            requires_grad) for k, v in arrays.items()})
+
+
+def port_grads(params) -> dict:
+    """The .grad of each trained leaf of a port TrainableParams, as numpy."""
+    return {k: np_(v.grad) for k, v in params.items()}
+
+
+def assert_grads_close(got: dict, want: dict, rel: float):
+    """Element-wise |got - want| <= rel * max|want|, field by field."""
+    assert sorted(got) == sorted(want)
+    for k in want:
+        scale = float(np.abs(want[k]).max())
+        assert scale > 0.0, f"{k}: reference gradient is zero"
+        err = float(np.abs(got[k] - want[k]).max())
+        print(f"{k}: max|g| {scale:.4g}, max err / max|g| {err / scale:.3g}")
+        assert err <= rel * scale, (k, err / scale)
+
+
 def assert_records_equal(port, ref):
     """Every field of a port record equals the reference record's."""
     for f in dataclasses.fields(ref):
