@@ -15,11 +15,14 @@ of which raises on failure (an uncaught exception exits non-zero):
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
   4. K1 (block-stream tracer) against its plain-torch version on
-     `helmet_proc` (100,352 triangles, 1,024 clusters): 512x512 morton
-     camera rays, direction-sorted surface bounce rays, env shadow rays
-     (any hit, root-culled t_max) and a ragged ray count, through phase A
+     `helmet_proc` (100,352 triangles, 1,024 clusters, ray blocks of 256)
+     and on `helmet` (the 99,400-triangle .glb, ray blocks of 512): 512x512
+     morton camera rays, direction-sorted surface bounce rays, env shadow
+     rays (any hit, root-culled t_max), on `helmet` also shadow rays toward
+     its 15,600 emissive triangles, and a ragged ray count, through phase A
      as the integrator calls it; kernel and plain times at 262,144 camera
-     rays;
+     rays; on `helmet`, K5a on the emitter table (15,600 x 20) against its
+     plain version, and the time to author, write and ingest the asset;
   5. K4 (fused whole-frame kernel) against its plain-torch version on the
      same packed tables: `cornell` and `cornell_ggx` at their full configs
      (512x512, 4 spp, 4 bounces), `triangle` at its full config (256x256,
@@ -29,12 +32,16 @@ of which raises on failure (an uncaught exception exits non-zero):
      the render CLI on `cornell` and on `cornell_ggx`, which K4 renders
      (1 K4, 1 K3, no tracer kernel); the dense cornell path,
      `render_with_stats` with tracer="resident" (36 K2); the render CLI on
-     `helmet_proc` (28 K1, 1 K3);
+     `helmet_proc` (28 K1, 1 K3) and on `helmet` (40 K1, 184 K5a, 1 K3);
+     then a small .glb (the helmet at scale_tris=0.02) rendered by path
+     through the CLI and held against brute force on the same file, a
+     truncated copy that must return 2, and `apps/report helmet --render`;
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
      cornell_ggx through K4 (tests/data/cornell_ggx_fused_64_golden.npy,
-     the reference's fused kernel in interpret mode);
+     the reference's fused kernel in interpret mode), 32x32 helmet
+     (tests/data/helmet_32_golden.npy);
   8. K5a (row gather) and K5b (its backward scatter-add) against their
      plain versions: tables T in {2, 32, 2048, 100352} x W in {1, 20, 86}
      plus the texture-quad and env-quad tables of helmet_proc, N = 262,144
@@ -52,7 +59,14 @@ of which raises on failure (an uncaught exception exits non-zero):
      steps with a checkpoint at step 20, then a --resume run from step 20 to
      40 that must lower every field's error (of the clamped values the
      scene renders); (d) one full-size gradient
-     step under torch.profiler: device busy time, idle share and launches.
+     step under torch.profiler: device busy time, idle share and launches;
+ 10. the probes P1-P4 (`ops/probes.py`, `csrc/probes.cu`) against their
+     plain versions at every shape of the probe tool (exact), with device,
+     wrapper, plain and library times and bounds; then the probe tool
+     itself (`tools/probe2.py all`), whose launches the kernels line
+     reports;
+ 11. one `helmet` frame and one `helmet_proc` frame under torch.profiler:
+     launches, device idle share and K1's share of the device time.
 
 Prints, before the last line, the card, one JSON line with the kernels
 ({"kernels": [...]}: `launches` is the sum over the main-path runs,
@@ -83,6 +97,7 @@ T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "cornell_64_golden.npy"
 HELMET_GOLDEN = ROOT / "tests" / "data" / "helmet_proc_32_golden.npy"
+HELMET_GLB_GOLDEN = ROOT / "tests" / "data" / "helmet_32_golden.npy"
 FUSED_GOLDEN = ROOT / "tests" / "data" / "cornell_ggx_fused_64_golden.npy"
 GRAD_GOLDEN = ROOT / "tests" / "data" / "cornell_grad_64_golden.npz"
 
@@ -90,15 +105,22 @@ GRAD_GOLDEN = ROOT / "tests" / "data" / "cornell_grad_64_golden.npz"
 # the dense path and 0.15309 / 0.15847 through K4's plain version (64x64 /
 # 128x128, 4 spp, 4 bounces), cornell_ggx at 0.13906 / 0.14392 through K4's
 # plain version, and helmet_proc at 0.63066 / 0.63147 (4 spp, 3 bounces),
-# so a 512x512 frame lies well inside these bands.
+# so a 512x512 frame lies well inside these bands.  helmet: its mean falls
+# with the image size on the CPU port, as the ray cones narrow and the
+# texture fetches move to sharper mip levels of the normal and roughness maps
+# (0.7037 at 16x16 x 1 spp, 0.6885 at 32x32 x 2 spp, where the reference
+# gives the same image; at 4 spp 0.6242 at 64x64, 0.5800 at 96x96, 0.5676 at
+# 128x128, 0.5641 at 192x192), so the band is wide.
 FILM_MEAN_BAND = {"cornell": (0.14, 0.18), "cornell_ggx": (0.12, 0.17),
-                  "cornell_dense": (0.14, 0.18), "helmet_proc": (0.60, 0.66)}
+                  "cornell_dense": (0.14, 0.18), "helmet_proc": (0.60, 0.66),
+                  "helmet": (0.50, 0.62)}
 # The main paths: (label, config, how it is driven: the render CLI, or
 # render_with_stats with the named tracer).
 MAIN_PATHS = (("cornell", "cornell", "cli"),
               ("cornell_ggx", "cornell_ggx", "cli"),
               ("cornell_dense", "cornell", "resident"),
-              ("helmet_proc", "helmet_proc", "cli"))
+              ("helmet_proc", "helmet_proc", "cli"),
+              ("helmet", "helmet", "cli"))
 # Launches per frame.  cornell and cornell_ggx: one K4 launch renders the
 # frame.  cornell_dense: 4 spp x (5 closest + 4 shadow) K2 queries and no
 # tonemap (it does not go through the CLI).  helmet_proc: no area emitter
@@ -107,6 +129,11 @@ MAIN_PATHS = (("cornell", "cornell", "cli"),
 # K5a (gather_fwd): cornell_dense 4 spp x (5 tri_attrs rows + 4 emitter
 # rows); helmet_proc 4 spp x 4 bounces x (1 tri_attrs + 2 texture slots x 2
 # trilinear levels + 1 env lookup) = 96.  No K5b on a forward path.
+# helmet: area emitters and a sky, so one shadow trace per light family:
+# 4 spp x (4 closest + 3 bounces x 2 shadow) = 40 K1 at ray blocks of 512;
+# K5a 4 spp x (4 shades x (1 tri_attrs + 4 texture slots x 2 trilinear
+# levels + 1 env lookup) + 3 NEE passes x (1 emitter row + 1 emissive
+# texel fetch at level 0)) = 184; K4 refuses its normal and emissive maps.
 EXPECTED_LAUNCHES = {
     "cornell": {"fused": 1, "resident": 0, "trace_blocks": 0, "tonemap": 1,
                 "gather_fwd": 0, "gather_bwd": 0},
@@ -116,13 +143,16 @@ EXPECTED_LAUNCHES = {
                       "tonemap": 0, "gather_fwd": 36, "gather_bwd": 0},
     "helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 28,
                     "tonemap": 1, "gather_fwd": 96, "gather_bwd": 0},
+    "helmet": {"fused": 0, "resident": 0, "trace_blocks": 40,
+               "tonemap": 1, "gather_fwd": 184, "gather_bwd": 0},
 }
 # The goldens: (label, config, file, (size, spp, bounces), how it is
 # driven, as in MAIN_PATHS).
 GOLDENS = (("cornell", "cornell", GOLDEN, (64, 2, 2), "resident"),
            ("helmet_proc", "helmet_proc", HELMET_GOLDEN, (32, 1, 2), "cli"),
            ("cornell_ggx_fused", "cornell_ggx", FUSED_GOLDEN, (64, 2, 2),
-            "cli"))
+            "cli"),
+           ("helmet", "helmet", HELMET_GLB_GOLDEN, (32, 2, 3), "cli"))
 # Render agreement (same as tests/test_torch_render.py): a pixel agrees
 # within atol + rtol*|ref|; at least PIXEL_FRAC of pixels must agree.
 ATOL, RTOL, PIXEL_FRAC, MEAN_REL = 1e-4, 1e-3, 0.99, 5e-3
@@ -142,7 +172,8 @@ BIG = 1e30
 # exactly in any order, so there they agree exactly).
 K5B_REL = 1e-5
 GATHER_TABLES = tuple((t, w) for t in (2, 32, 2048, 100_352)
-                      for w in (1, 20, 86)) + ((174_762, 16), (8192, 12))
+                      for w in (1, 20, 86)) + ((174_762, 16), (8192, 12),
+                                               (15_600, 20))
 GATHER_NS = (262_144, 1_000_003)
 # Gradients on the card against the reference's (the golden): per case the
 # trained fields, the element-wise tolerance relative to max|g_ref|, and the
@@ -176,6 +207,15 @@ PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 33.5e12
 # 3, u: 6, q = s x e1: 9, v: 6, t: 6, u + v: 1); compares and the
 # reciprocal's refinement are not counted, so the bound stays low.
 MT_FLOPS = 46
+# P1 is a chain of dependent shared-memory loads (the stack top, then the
+# node's box), which neither peak describes: beside the contract's bound it
+# gets a latency bound of one shared-memory load per visited node, taken as
+# 30 cycles at the card's 1.98 GHz boost clock (15.2 ns).
+SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
+# The small .glb of the by-path run: the helmet at this tessellation scale
+# (1,880 triangles), at the CLI's default RenderConfig (256x256, 4 spp, 1
+# bounce).
+SMALL_GLB_SCALE = 0.02
 
 
 def card_line() -> str:
@@ -500,7 +540,10 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
-def phase_k1(dev):
+def phase_k1(dev, name="helmet_proc"):
+    """K1 against its plain version on the rays of config `name`, at that
+    config's block size; on a scene with area emitters also shadow rays
+    toward them and K5a on the emitter table."""
     import numpy as np
     import torch
 
@@ -512,13 +555,13 @@ def phase_k1(dev):
     from physically_based_renderer_tpu_torch.integrator.shading import (
         shade_surface)
     from physically_based_renderer_tpu_torch.models import lights
-    from physically_based_renderer_tpu_torch.ops import blocktrace
+    from physically_based_renderer_tpu_torch.ops import blocktrace, gather
     from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
     from physically_based_renderer_tpu_torch.utils import config
 
-    st = TraceStats("K1")
+    st = TraceStats(f"K1 {name}")
     rng = np.random.default_rng(2)
-    bc = config.get("helmet_proc")
+    bc = config.get(name)
     cfg = bc.render
     scene, cam = config.build_scene(bc.scene, dev)
     grid = scene.clusters
@@ -549,8 +592,11 @@ def phase_k1(dev):
         args, _ = blocktrace.block_inputs(grid, o, d, t_min, t_max,
                                           sort=sort, **kw)
         nv = args[5].float()
-        print(f"K1 {label}: candidates per block mean {nv.mean().item():.2f}"
-              f", max {int(nv.max())}")
+        if args[1].shape[1] != cfg.block_size:
+            raise AssertionError(f"ray blocks of {args[1].shape[1]}, expected "
+                                 f"{cfg.block_size}")
+        print(f"K1 {name} B={cfg.block_size} {label}: candidates per block "
+              f"mean {nv.mean().item():.2f}, max {int(nv.max())}")
         (st.any_hit if any_hit else st.closest)(
             label, *both(args, o.shape[0], t_min, any_hit))
         return args
@@ -585,6 +631,37 @@ def phase_k1(dev):
             True, True)
     compare("env shadow any-hit unsorted", o_b, es.wi, cfg.ray_eps, t_sh,
             False, True)
+    st.emitter_rows = 0
+    if scene.has_emitters:
+        # Shadow rays toward the emissive triangles (alias pick, emissive
+        # texture), as the integrator's NEE makes them.
+        u3 = torch.from_numpy(rng.random((n, 3)).astype(np.float32)).to(dev)
+        attrs = lights.pack_emitter_attrs(scene)
+        ls = lights.sample_area_emitters(scene, sp.pos, u3[:, 0], u3[:, 1:],
+                                         emitter_attrs=attrs)
+        t_em = torch.where(active & ls.valid, ls.dist * (1.0 - 1e-3), 0.0)
+        compare("emitter shadow any-hit sorted", o_b, ls.wi, cfg.ray_eps,
+                t_em, True, True)
+        # K5a on the emitter table at the frame's shape.
+        e_idx = torch.from_numpy(rng.integers(
+            0, attrs.shape[0], n).astype(np.int32)).to(dev)
+        rows_k = gather.gather_fwd(attrs, e_idx)
+        rows_p = gather.take_rows_plain(attrs, e_idx)
+        torch.cuda.synchronize()
+        if not torch.equal(rows_k, rows_p):
+            raise AssertionError(f"K5a on the {tuple(attrs.shape)} emitter "
+                                 "table differs from its plain version")
+        st.emitter_rows = attrs.shape[0]
+        st.k5a_emitter_ms, _ = device_ms(
+            lambda: gather.gather_fwd(attrs, e_idx), 100, "gather_fwd_kernel")
+        st.k5a_emitter_library_ms, _ = device_ms(
+            lambda: torch.index_select(attrs, 0, e_idx), 100, None)
+        st.k5a_emitter_bound = bound(n * attrs.shape[1] * 4 + n * 4
+                                     + attrs.numel() * 4, 0)
+        print(f"K5a {name} emitter table {tuple(attrs.shape)} x {n} rows: "
+              f"bit-equal, kernel {st.k5a_emitter_ms:.4f} ms (bound "
+              f"{st.k5a_emitter_bound[0]:.4f}, index_select "
+              f"{st.k5a_emitter_library_ms:.4f})")
     # Ragged ray count (not a multiple of the block size).
     nr = n - 77
     compare("ragged closest", o_cam[:nr], d_cam[:nr], 0.0, 1e30, False,
@@ -612,7 +689,7 @@ def phase_k1(dev):
     nb, blk = o_b.shape[0], o_b.shape[1]
     st.work = {"tests": tests, "tests_if_no_exit": int(n_valid.sum()) * blk
                * soup_b.shape[-1], "clusters_read": n_clusters}
-    print(f"K1 camera closest work: {tests} ray-triangle tests needed "
+    print(f"K1 {name} camera closest work: {tests} ray-triangle tests needed "
           f"({st.work['tests_if_no_exit']} if every lane tested every "
           f"candidate), {n_clusters} clusters read")
     st.bound = bound(nb * blk * (12 + 12 + 4 + 4 + 4) + u_idx.numel() * 8
@@ -990,6 +1067,346 @@ def phase_profile(dev):
     return out
 
 
+def phase_helmet_asset(dev):
+    """Author, write and ingest the helmet .glb (into a temporary directory,
+    so that nothing is cached), timed apart from the frame."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.scene import gltf, helmet_asset
+    from physically_based_renderer_tpu_torch.scene.types import (
+        upload_scene, with_clusters)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        glb = helmet_asset.cached_helmet_glb(tmp)
+        out["author_write_s"] = time.perf_counter() - t0
+        out["glb_bytes"] = glb.stat().st_size
+        t0 = time.perf_counter()
+        scene, _, _ = gltf.load(glb)
+        out["ingest_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = with_clusters(scene)
+    out["clusters_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = upload_scene(scene, dev)
+    torch.cuda.synchronize()
+    out["upload_s"] = time.perf_counter() - t0
+    out.update(triangles=scene.geometry.num_tris,
+               emitters=scene.emitters.num_emitters,
+               clusters=scene.clusters.num_clusters)
+    if (out["triangles"], out["emitters"], scene.tex_slots) != (
+            99_400, 15_600, (True,) * 4):
+        raise AssertionError(f"helmet asset: {out}, slots {scene.tex_slots}")
+    print(f"helmet asset: author + write {out['author_write_s']:.2f} s "
+          f"({out['glb_bytes']} bytes), ingest {out['ingest_s']:.2f} s, "
+          f"cluster grid {out['clusters_s']:.2f} s, upload "
+          f"{out['upload_s']:.2f} s; {out['triangles']} triangles, "
+          f"{out['emitters']} emitters, {out['clusters']} clusters")
+    return out
+
+
+def phase_glb_path(dev, tmp, counters):
+    """A small .glb rendered by path through the CLI (its camera, the
+    default RenderConfig, K1 + K5a + K3) against brute force on the same
+    file; a truncated copy must return 2."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.apps import render
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.scene import helmet_asset
+    from physically_based_renderer_tpu_torch.utils import config
+
+    glb = helmet_asset.cached_helmet_glb(Path(tmp) / "assets",
+                                         SMALL_GLB_SCALE)
+    png, hdr_path = Path(tmp) / "by_path.png", Path(tmp) / "by_path.npy"
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    stats = run_cli([str(glb), "-o", str(png), "--hdr-output", str(hdr_path),
+                     "--stats", "--device", "cuda"])
+    got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    # default RenderConfig: 4 spp x (2 closest + 1 emitter shadow) K1 queries
+    if (got["trace_blocks"], got["tonemap"], got["fused"]) != (12, 1, 0):
+        raise AssertionError(f".glb by path launches {got}")
+    img = np.load(hdr_path)
+    cfg = path.RenderConfig()
+    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
+        raise AssertionError(f".glb by path: film {img.shape}")
+    scene, cam = config.build_scene(
+        config.SceneSpec(builder="gltf", extra={"path": glb}), dev)
+    film, count = path.render_with_stats(
+        scene, cam, rng_mod.key(0, dev),
+        dataclasses.replace(cfg, tracer="brute"))
+    ref = film.mean().cpu().numpy()
+    lit = (ref > 0).any(-1) | (img > 0).any(-1)
+    frac, n_bad = render_agreement(img, ref)
+    frac_lit, n_bad_lit = render_agreement(img[lit], ref[lit])
+    print(f".glb by path ({glb.name}, {scene.geometry.num_tris} triangles) "
+          f"{cfg.width}x{cfg.height}: {stats['seconds']:.3f} s, "
+          f"{stats['rays']} ray queries (brute force: {int(count)}), "
+          f"{frac:.4%} of pixels and {frac_lit:.4%} of the {int(lit.sum())} "
+          f"lit ones agree with brute force")
+    # The file holds no sky: only the visor's thin emissive strips light it.
+    if (frac < PIXEL_FRAC or frac_lit < PIXEL_FRAC or not lit.any()
+            or abs(stats["rays"] / int(count) - 1.0) > COUNT_REL):
+        raise AssertionError(".glb by path disagrees with brute force")
+    bad = Path(tmp) / "truncated.glb"
+    bad.write_bytes(glb.read_bytes()[:glb.stat().st_size // 2])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = render.main([str(bad), "-o", str(Path(tmp) / "bad.png"),
+                          "--device", "cuda"])
+    if rc != 2 or not err.getvalue().startswith("error: "):
+        raise AssertionError(f"truncated .glb: exit {rc}, {err.getvalue()!r}")
+    print(f"truncated .glb: exit 2, {err.getvalue().strip()}")
+    return {"seconds": stats["seconds"], "rays": stats["rays"],
+            "pixel_frac": frac, "lit_pixels": int(lit.sum()),
+            "lit_pixel_frac": frac_lit, "truncated_exit": rc,
+            "launches": got}
+
+
+def phase_report(tmp):
+    """`apps/report helmet --render` on the card, its JSON parsed."""
+    from physically_based_renderer_tpu_torch.apps import report
+    out = Path(tmp) / "report.json"
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = report.main(["helmet", "--render", "--device", "cuda", "--json",
+                          str(out)])
+    rep = json.loads(out.read_text())
+    perf, stats = rep.get("perf", {}), rep["stats"]
+    if (rc != 0 or stats["triangles"] != 99_400 or stats["emitters"] != 15_600
+            or stats["textures"] != 4 or not perf.get("frame_ms", 0) > 0
+            or "ms/frame" not in text.getvalue()):
+        raise AssertionError(f"report helmet --render: exit {rc}, {rep}")
+    print(f"report helmet --render: {perf['frame_ms']:.1f} ms per warm frame, "
+          f"{perf['rays_per_s']:.4g} rays/s on {perf['backend']}")
+    return {"stats": stats, "perf": perf}
+
+
+def relayout_sass():
+    """Shared-memory stores, loads and barriers in the SASS of P2's two
+    instantiations, from cuobjdump on the built library: the compiler kept
+    the eleven moves of the exchanging kernel and the other has none.  None
+    where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    from physically_based_renderer_tpu_torch.ops import cuda_lib
+    tool = shutil.which("cuobjdump") or str(
+        Path(cuda_lib._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        print("P2 relayout SASS: not measured (no cuobjdump)")
+        return None
+    sass = subprocess.run(
+        [tool, "-sass", str(cuda_lib.build_dir() / cuda_lib.LIB_NAME)],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    counts = {}
+    for part in sass.split("Function :")[1:]:
+        name = part.split("\n")[0]
+        if "probe_relayout_kernel" in name:
+            exchange = "ILb1E" in name
+            counts["exchange" if exchange else "no_exchange"] = {
+                op: len(re.findall(rf"\b{op}\b", part))
+                for op in ("STS", "LDS", "BAR")}
+    print(f"P2 relayout SASS: {counts}")
+    ex, no = counts["exchange"], counts["no_exchange"]
+    if ex["STS"] < 11 or ex["LDS"] < 11 or any(no.values()):
+        raise AssertionError(f"P2 relayout SASS: {counts}")
+    return counts
+
+
+def phase_probes(dev):
+    """P1-P4 against their plain versions at every shape of the probe tool
+    (exact), and their times; then the tool itself, for the launch counts."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import probes
+    from physically_based_renderer_tpu_torch.tools import probe2
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    out = {}
+
+    def same(label, kern, plain):
+        torch.cuda.synchronize()
+        for k, p in zip(kern, plain):
+            if not torch.equal(k, p.to(k.device)):
+                raise AssertionError(f"{label}: kernel and plain version "
+                                     "differ")
+        print(f"{label}: equal to its plain version")
+
+    # P1: the three data sets; timed on the one where every box passes.
+    for data in probe2.STACK_DATA:
+        boxes = t(probe2.scalar_stack_boxes(data))
+        kern = probes.scalar_stack(boxes)
+        same(f"P1 scalar_stack[{data}] visited={int(kern[0][0])} "
+             f"leaves={int(kern[0][1])}", kern,
+             probes.scalar_stack_plain(boxes))
+    boxes = t(probe2.scalar_stack_boxes("all"))
+    visited = int(probes.scalar_stack(boxes)[0][0])
+    call = lambda: probes.scalar_stack(boxes)
+    ms, _ = device_ms(call, 100, "probe_scalar_stack_kernel")
+    out["probe_scalar_stack"] = {
+        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        "plain_ms": time_ms(lambda: probes.scalar_stack_plain(boxes), 3,
+                            warmup=1),
+        "bound": bound(boxes.numel() * 4 + 8 + probes.leaf_capacity(
+            probe2.N_NODES) * 4, 0),
+        "latency_bound_ms": visited * SMEM_LOAD_CYCLES / SM_CLOCK_HZ * 1e3,
+        "library_ms": None, "visited": visited,
+        "ns_per_node": ms * 1e6 / visited,
+        "shape": "2,047 boxes, every box passes"}
+
+    # P2
+    x = t(probe2.relayout_input())
+    same("P2 relayout", (probes.relayout(x), probes.relayout(x, False)),
+         (probes.relayout_plain(x),) * 2)
+    if not np.array_equal(probes.relayout(x).cpu().numpy(),
+                          probe2.relayout_expected()):
+        raise AssertionError("P2 relayout: not the probe's expectation")
+    call = lambda: probes.relayout(x)
+    ms, _ = device_ms(call, 200, "probe_relayout_kernel")
+    local_ms, _ = device_ms(lambda: probes.relayout(x, False), 200,
+                            "probe_relayout_kernel")
+    out["probe_relayout"] = {
+        "ms": ms, "no_exchange_ms": local_ms,
+        "wrapper_ms": time_ms(call, 200),
+        "plain_ms": time_ms(lambda: probes.relayout_plain(x), 50),
+        # the tile in and out; ten adds of i and ten of the accumulator
+        "bound": bound(2 * x.numel() * 4, 20 * x.numel()),
+        "library_ms": None, "shape": "f32[8,128], 11 moves"}
+    if not ms > local_ms:
+        raise AssertionError(f"P2: the kernel with the moves ({ms} ms) is no "
+                             f"slower than without them ({local_ms} ms)")
+    out["probe_relayout"]["sass"] = relayout_sass()
+
+    # P3
+    lane_np, rows_np = probe2.onehot_inputs()
+    lane, rows = t(lane_np), t(rows_np)
+    same("P3 onehot_mm [1024,512]x[32,512]", (probes.onehot_mm(lane, rows),),
+         (probes.onehot_mm_plain(lane, rows),))
+    if not np.array_equal(probes.onehot_mm(lane, rows).cpu().numpy(),
+                          rows_np.T[lane_np[:, 0]]):
+        raise AssertionError("P3 onehot_mm: not rows.T[lane] bit for bit")
+    call = lambda: probes.onehot_mm(lane, rows)
+    ms, _ = device_ms(call, 200, "probe_onehot_mm_kernel")
+    onehot = (torch.arange(rows.shape[1], device=dev)[None, :]
+              == lane).to(torch.float32)
+    rows_t = rows.t().contiguous()
+    flat_lane = lane[:, 0]
+    out["probe_onehot_mm"] = {
+        "ms": ms, "wrapper_ms": time_ms(call, 200),
+        "plain_ms": time_ms(lambda: probes.onehot_mm_plain(lane, rows), 20),
+        "bound": bound((lane.numel() + rows.numel() + 1024 * 32) * 4,
+                       1024 * 32 * 512 * 2),
+        # the same function as one library call each way: the product of
+        # the materialised one-hot, and a direct row gather
+        "library_ms": time_ms(lambda: torch.matmul(onehot, rows_t), 200),
+        "library_index_select_ms": time_ms(
+            lambda: torch.index_select(rows_t, 0, flat_lane), 200),
+        "shape": "i32[1024,1], f32[32,512]"}
+
+    # P4: every shape of the tool; timed at gather_tex and gather_state.
+    gathers = {}
+    for tag, (n_rows, lanes, axis) in probe2.GATHER_SHAPES.items():
+        x_np, idx_np = probe2.gather_inputs(n_rows, lanes, axis)
+        xg, idx = t(x_np), t(idx_np)
+        got = probes.gather(xg, idx, axis)
+        same(f"P4 {tag} [{n_rows},{lanes}] axis={axis}", (got,),
+             (probes.gather_plain(xg, idx, axis),))
+        if not np.array_equal(got.cpu().numpy(), np.take_along_axis(
+                x_np, idx_np, axis=axis)):
+            raise AssertionError(f"P4 {tag}: not take_along_axis")
+        call = lambda: probes.gather(xg, idx, axis)
+        idx64 = idx.long()
+        ms, _ = device_ms(call, 100, "probe_gather_kernel")
+        lib_ms, _ = device_ms(lambda: torch.gather(xg, axis, idx64), 100,
+                              None)
+        gathers[tag] = {
+            "ms": ms, "wrapper_ms": time_ms(call, 100),
+            "plain_ms": time_ms(lambda: probes.gather_plain(xg, idx, axis),
+                                20),
+            "bound": bound(3 * xg.numel() * 4, 0),
+            "library_ms": time_ms(lambda: torch.gather(xg, axis, idx64), 100),
+            "library_device_ms": lib_ms,
+            "shape": f"[{n_rows},{lanes}] axis {axis}"}
+    out["probe_gather"] = {**gathers["gather_tex"], "by_shape": gathers}
+    for name, e in out.items():
+        print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
+              f"{e['wrapper_ms'] * 1e3:.2f} us, plain "
+              f"{e['plain_ms'] * 1e3:.2f} us, bound "
+              f"{e['bound'][0] * 1e3:.3f} us ({e['bound'][1]}), library "
+              f"{e['library_ms']}")
+
+    # The tool's own run: every probe through its entry point; its launches
+    # are the ones the kernels line reports.
+    probes.reset_launches()
+    tool = probe2.run("all", dev, iters=50)
+    flat = [r for res in tool.values()
+            for r in (res.values() if "ok" not in res else (res,))]
+    if not all(r["ok"] for r in flat):
+        raise AssertionError(f"probe tool: {tool}")
+    counts = dict(probes.LAUNCHES)
+    if not all(counts.values()):
+        raise AssertionError(f"probe tool launched {counts}")
+    return out, counts, tool
+
+
+def phase_profile_frame(dev, name):
+    """One warm frame of config `name` under torch.profiler: launches, the
+    device's busy and idle share, K1's share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.utils import config
+
+    bc = config.get(name)
+    scene, cam = config.build_scene(bc.scene, dev)
+    key = rng_mod.key(0, dev)
+
+    def frame():
+        t0 = time.perf_counter()
+        _, count = path.render_with_stats(scene, cam, key, bc.render)
+        rays = int(count)
+        return time.perf_counter() - t0, rays
+
+    frame()
+    warm = [frame()[0] for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, rays = frame()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    k1 = sum(e.self_device_time_total for e in kernels
+             if "trace_blocks_kernel" in e.key) / 1e6
+    k5 = sum(e.self_device_time_total for e in kernels
+             if "gather_fwd_kernel" in e.key) / 1e6
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"warm_frame_s": warm, "profiled_wall_s": wall, "rays": rays,
+           "device_busy_s": busy, "launches": launches,
+           "idle_share_profiled": 1.0 - busy / wall,
+           "idle_share_warm": 1.0 - busy / min(warm),
+           "k1_device_s": k1, "k1_share_of_device": k1 / busy,
+           "k1_share_of_warm_frame": k1 / min(warm),
+           "k5a_device_s": k5, "block_size": bc.render.block_size,
+           "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3,
+                            e.count) for e in top]}
+    print(f"profiled {name} frame (B={bc.render.block_size}): warm frames "
+          f"{', '.join(f'{w:.3f}' for w in warm)} s, profiled wall "
+          f"{wall:.3f} s, {launches} launches, device busy {busy:.4f} s "
+          f"(idle {out['idle_share_warm']:.1%} of the fastest warm frame), "
+          f"K1 {k1 * 1e3:.2f} ms = {out['k1_share_of_device']:.1%} of the "
+          f"device time, {out['k1_share_of_warm_frame']:.2%} of the frame; "
+          f"K5a {k5 * 1e3:.2f} ms")
+    return out
+
+
 def render_direct(name, dev, tracer, **over):
     """render_with_stats on a named config with the given tracer: (mean HDR
     image as numpy, {"seconds", "rays", "rays_per_s"})."""
@@ -1070,6 +1487,11 @@ def main() -> int:
     print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms "
           f"(wrapper {k1.wrapper_ms:.4f}), "
           f"plain {k1_plain_ms:.4f} ms")
+    asset = phase_helmet_asset(dev)
+    k1h, k1h_ms, k1h_plain_ms = phase_k1(dev, "helmet")
+    print(f"K1 262144 helmet camera rays at B=512: kernel {k1h_ms:.4f} ms "
+          f"(wrapper {k1h.wrapper_ms:.4f}, bound {k1h.bound[0]:.4f}), "
+          f"plain {k1h_plain_ms:.4f} ms")
 
     # 5. K4 against its plain version
     k4, k4_ms, k4_plain_ms = phase_k4(dev)
@@ -1160,6 +1582,10 @@ def main() -> int:
                               "pixels_differ": n_bad, "mean_rel": mean_rel,
                               "launches": got}
 
+        # 6b. a .glb by path, a truncated one, the report CLI
+        by_path = phase_glb_path(dev, tmp, counters)
+        report = phase_report(tmp)
+
         # 9. the gradient path
         grad_golden = phase_grad_golden(dev)
         grad_step, got = phase_grad_step(counters, tmp)
@@ -1173,11 +1599,21 @@ def main() -> int:
             raise AssertionError(f"fit launches {got}")
         profiled = phase_profile(dev)
 
+    # 10. the probes, and the probe tool's run
+    probe_times, probe_counts, probe_tool = phase_probes(dev)
+    for kernel, count in probe_counts.items():
+        launches[f"probe_{kernel}"] = {"probe_tool": count}
+
+    # 11. where a helmet frame's time goes, beside helmet_proc's
+    frames = {name: phase_profile_frame(dev, name)
+              for name in ("helmet", "helmet_proc")}
+
     def entry(name, src, replaces, err, ms, wrapper_ms, plain_ms, bnd,
               library_ms):
         return {"name": name, "route": "cuda",
                 "source": f"physically_based_renderer_tpu_torch/csrc/{src}",
-                "replaces": f"physically_based_renderer_tpu/{replaces}",
+                "replaces": (replaces if replaces.startswith("tools/")
+                             else f"physically_based_renderer_tpu/{replaces}"),
                 "launches": sum(launches[name].values()),
                 "launches_by_path": launches[name], "max_abs_err": err,
                 "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
@@ -1203,6 +1639,15 @@ def main() -> int:
               k5["bwd_max_abs_err_float"], k5["bwd_ms"],
               k5["bwd_wrapper_ms"], k5["bwd_plain_ms"], k5["bwd_bound"],
               k5["bwd_library_ms"]),
+    ] + [
+        # exact agreement with the plain version was checked at every shape
+        entry(name, "probes.cu", replaces, 0.0, e["ms"], e["wrapper_ms"],
+              e["plain_ms"], e["bound"], e["library_ms"])
+        for name, replaces in (("probe_scalar_stack", "tools/probe2.py:36"),
+                               ("probe_relayout", "tools/probe2.py:103"),
+                               ("probe_onehot_mm", "tools/probe2.py:133"),
+                               ("probe_gather", "tools/probe2.py:166"))
+        for e in (probe_times[name],)
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,
@@ -1219,6 +1664,19 @@ def main() -> int:
         "k4": {**k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
                "shape": "cornell frame 512x512 x 4 spp x 4 bounces"},
         "k5": {**k5, "shape": "262144 rows x 86 columns from 32 rows"},
+        "k1_helmet_b512": {
+            "rays_compared": k1h.rays, "winner_mismatches": k1h.mismatch,
+            "max_abs_err_t": k1h.max_abs_err, "ms": k1h_ms,
+            "wrapper_ms": k1h.wrapper_ms, "plain_ms": k1h_plain_ms,
+            "bound_ms": k1h.bound[0], "work": k1h.work,
+            "k5a_emitter_rows": k1h.emitter_rows,
+            "k5a_emitter_ms": k1h.k5a_emitter_ms,
+            "k5a_emitter_bound_ms": k1h.k5a_emitter_bound[0],
+            "k5a_emitter_library_ms": k1h.k5a_emitter_library_ms,
+            "shape": "262144 helmet camera rays x 1024 clusters, B=512"},
+        "helmet_asset": asset, "glb_by_path": by_path, "report": report,
+        "probes": probe_times, "probe_tool": probe_tool,
+        "profiled_frames": frames,
         "main_paths": runs, "goldens": goldens,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},

@@ -11,8 +11,10 @@ periodic checkpoints:
 Prints a JSON report: the reference's keys plus `seconds_per_step` (host
 clock per step after the first, each step ending in a device sync when
 its loss is read), `start_step`, and `initial_error_applied` /
-`final_error_applied`, the errors of the clamped values the scene renders.  `--tiles` (sharded steps) and `.glb`
-scenes are not ported yet and raise.
+`final_error_applied`, the errors of the clamped values the scene renders.
+`--scene` also takes a path to a .gltf/.glb file (read by scene/gltf.py,
+rendered from the file's camera, no cluster grid, as in the reference).
+`--tiles` (sharded steps) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -99,15 +101,18 @@ def main(argv=None) -> int:
     from ..utils import checkpoint as ckpt_mod
     from ..utils import config as config_mod
 
-    if args.scene not in config_mod.CONFIGS:
-        raise NotImplementedError(
-            f"{args.scene!r} is not a builtin config; glTF ingest is not "
-            "ported yet (ROADMAP.md section 1, item 4: asset ingest)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
-    scene, camera = config_mod.build_scene(
-        config_mod.get(args.scene).scene, device)
+    if args.scene in config_mod.CONFIGS:
+        scene, camera = config_mod.build_scene(
+            config_mod.get(args.scene).scene, device)
+    else:
+        from ..scene import gltf as gltf_mod
+        from ..scene.types import upload_scene
+        scene, _, camera = gltf_mod.load(args.scene)
+        scene = upload_scene(scene, device)
+        camera = upload_scene(camera, device)
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
                        max_bounces=args.bounces)
 

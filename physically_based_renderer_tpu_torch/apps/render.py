@@ -1,15 +1,19 @@
 """CLI renderer (port of `apps/render.py`).
 
-    python -m physically_based_renderer_tpu_torch.apps.render cornell \
+    python -m physically_based_renderer_tpu_torch.apps.render SCENE \
         -o out.png --stats --device cuda
 
-Renders a named config with `render_with_stats` (on a CUDA device, one
-launch of the fused kernel K4 for the configs it takes: `triangle`,
-`cornell`, `cornell_ggx`), tonemaps with K3 (`ops/tonemap.py`) and writes
-a PNG.  `--stats` prints one JSON line to
-stderr: ray queries, seconds (host clock around the render, synchronized),
-rays/s, and the device it ran on.  glTF paths, `--tiles`, `--blinn-phong`
-and `--debug-checks` are not ported yet and raise.
+SCENE is a named config (triangle, cornell, cornell_ggx, cornell_tex256,
+helmet, helmet_proc) or a path to a .gltf/.glb file, which is read by
+scene/gltf.py, gets the cluster grid and renders with the default
+`RenderConfig` from the file's camera; a file that cannot be read prints
+`error: ...` and returns 2.  The frame is rendered with
+`render_with_stats` (on a CUDA device, one launch of the fused kernel K4
+for the scenes it takes: `triangle`, `cornell`, `cornell_ggx`), tonemapped
+with K3 (`ops/tonemap.py`) and written as a PNG.  `--stats` prints one JSON
+line to stderr: ray queries, seconds (host clock around the render,
+synchronized), rays/s, and the device it ran on.  `--tiles`,
+`--blinn-phong` and `--debug-checks` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pbr-render-torch",
         description="PyTorch/CUDA path tracer (headless renderer)")
-    p.add_argument("scene", help="builtin config name")
+    p.add_argument("scene", help=".gltf/.glb path or builtin config name")
     p.add_argument("-o", "--output", default="out.png", help="output PNG")
     p.add_argument("--hdr-output", default=None,
                    help="also dump linear HDR radiance as .npy")
@@ -61,19 +65,27 @@ def main(argv=None) -> int:
 
     from ..core import film as film_mod
     from ..core import rng
-    from ..integrator.path import render_with_stats
+    from ..integrator.path import RenderConfig, render_with_stats
     from ..ops.tonemap import tonemap
     from ..utils import config as config_mod
 
-    if args.scene not in config_mod.CONFIGS:
-        raise NotImplementedError(
-            f"{args.scene!r} is not a builtin config; glTF ingest is not "
-            "ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
-    bc = config_mod.get(args.scene)
-    scene, camera = config_mod.build_scene(bc.scene, device)
+    if args.scene in config_mod.CONFIGS:
+        bc = config_mod.get(args.scene)
+        scene, camera = config_mod.build_scene(bc.scene, device)
+        rcfg = bc.render
+    else:
+        from ..scene.gltf import GltfError
+        spec = config_mod.SceneSpec(builder="gltf",
+                                    extra={"path": args.scene})
+        try:
+            scene, camera = config_mod.build_scene(spec, device)
+        except GltfError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        rcfg = RenderConfig()
 
     overrides = {}
     if args.width:
@@ -88,7 +100,7 @@ def main(argv=None) -> int:
         overrides["nee"] = False
     if args.no_mis:
         overrides["mis"] = False
-    rcfg = dataclasses.replace(bc.render, **overrides)
+    rcfg = dataclasses.replace(rcfg, **overrides)
 
     def sync():
         if device.type == "cuda":

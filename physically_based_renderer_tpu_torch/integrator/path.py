@@ -260,7 +260,8 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
             if has_emitters:
                 ls = lights_mod.sample_area_emitters(
                     scene, sp.pos.detach(), u[:, 0], u[:, 1:3],
-                    emitter_attrs=tables.emitter_attrs)
+                    emitter_attrs=tables.emitter_attrs,
+                    pyramid=tables.pyramid)
                 pending.append(_nee_prepare(sp, wo, ls, throughput, active,
                                             mis=cfg.mis))
             if has_env:

@@ -3,8 +3,9 @@
 Area emitters (emissive triangles), the directional light and the
 equirect environment map.  Samplers return solid-angle pdfs so the
 integrator can MIS them against BSDF sampling; the caller supplies the
-uniforms (core/rng.py keying).  Emissive textures on area emitters are
-not ported yet: NEE on such a scene raises.
+uniforms (core/rng.py keying).  On a scene with emissive textures the
+area-light sample carries factor x texture at the sampled point, as the
+emitter-hit path sees it.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from ..core import math3d
 from ..ops.gather import take_rows
 from ..ops.intersect import BIG
-from ..ops.texture import sample_env_bilinear
+from ..ops.texture import (build_pyramid, sample_env_bilinear, sample_slot,
+                           texture_meta)
 from ..scene.types import Scene
 
 
@@ -68,17 +70,17 @@ def pack_emitter_attrs(scene: Scene) -> torch.Tensor:
 def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
                          u2: torch.Tensor,
                          emitter_attrs: torch.Tensor | None = None,
-                         ) -> LightSample:
+                         pyramid: torch.Tensor | None = None) -> LightSample:
     """Sample a point on the emissive triangles from shading points p[N, 3].
 
     u1[N] picks the emitter (dense CDF compare up to 64 emitters, Walker
     alias table above), u2[N, 2] the point (uniform barycentric).  Emission
-    is one-sided: only into the hemisphere of the geometric normal.
+    is one-sided: only into the hemisphere of the geometric normal.  When
+    the scene has emissive textures (tex_slots[3]) the radiance includes
+    the texture at the light point (level-0 fetch: NEE has no ray cone),
+    matching the emitter-hit path's factor x texture; pass the frame's
+    `pyramid` (ops.texture.build_pyramid) to amortize its build.
     """
-    if scene.tex_slots[3]:
-        raise NotImplementedError(
-            "emissive textures in area-light NEE are not ported yet "
-            "(ROADMAP.md, module queue: asset ingest)")
     em = scene.emitters
     if emitter_attrs is None:
         emitter_attrs = pack_emitter_attrs(scene)
@@ -108,6 +110,18 @@ def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
     b2 = u2[:, 1] * su
     lp = v0 + b1[:, None] * e1 + b2[:, None] * e2
 
+    if scene.tex_slots[3]:
+        if pyramid is None:
+            pyramid = build_pyramid(scene.textures)
+        uv_l = (rows[:, 13:15] + b1[:, None] * rows[:, 15:17]
+                + b2[:, None] * rows[:, 17:19])
+        meta_tab = torch.from_numpy(texture_meta(scene.textures)).to(
+            rows.device)
+        tex_id = rows[:, 19].to(torch.int32)
+        meta = torch.where((tex_id >= 0)[:, None],
+                           meta_tab[torch.clamp_min(tex_id, 0)], -1.0)
+        tex = sample_slot(pyramid, meta, uv_l, None)
+        radiance = radiance * tex[:, :3]
     ng = math3d.cross(e1, e2)
     ng2 = torch.clamp_min(torch.sum(ng * ng, dim=-1, keepdim=True), 1e-20)
     ng = ng * torch.rsqrt(ng2)

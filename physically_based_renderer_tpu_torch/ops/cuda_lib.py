@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu",
-           "gather.cu")
+           "gather.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -66,6 +66,14 @@ _SIGNATURES = {
     # idx, ct, n_rows, n_table_rows, width, d_table, stream
     "pbr_gather_bwd_i32": [_P, _P, _L, _I, _I, _P, _P],
     "pbr_gather_bwd_i64": [_P, _P, _L, _I, _I, _P, _P],
+    # boxes, n_nodes, leaf capacity, out, leaves_out, stream
+    "pbr_probe_scalar_stack": [_P, _I, _I, _P, _P, _P],
+    # x, out, exchange, stream
+    "pbr_probe_relayout": [_P, _P, _I, _P],
+    # win, rows, n, r, l, out, stream
+    "pbr_probe_onehot_mm": [_P, _P, _I, _I, _I, _P, _P],
+    # x, idx, rows, lanes, axis, out, stream
+    "pbr_probe_gather": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -60,6 +60,10 @@ class Geometry:
     def num_tris(self) -> int:
         return self.indices.shape[0]
 
+    @property
+    def num_vertices(self) -> int:
+        return self.positions.shape[0]
+
     def tri_vertices(self):
         """Per-triangle corner positions -> (v0, v1, v2) each f32[T, 3]."""
         p, i = self.positions, self.indices
@@ -80,6 +84,10 @@ class Materials:
     metallic_roughness_tex: torch.Tensor  # i32[M]
     normal_tex: torch.Tensor              # i32[M]
     emissive_tex: torch.Tensor            # i32[M]
+
+    @property
+    def num_materials(self) -> int:
+        return self.base_color_factor.shape[0]
 
     @classmethod
     def default(cls, n: int = 1) -> "Materials":
@@ -140,6 +148,10 @@ class TextureStack:
                    wrap=wrap, filt=filt)
 
     @property
+    def num_textures(self) -> int:
+        return len(self.shapes)
+
+    @property
     def offsets(self) -> tuple:
         """Static start row of each texture in `texels`."""
         offs, acc = [], 0
@@ -147,6 +159,12 @@ class TextureStack:
             offs.append(acc)
             acc += h * w
         return tuple(offs)
+
+    def image(self, i: int) -> np.ndarray:
+        """Host copy of texture i as f32[h, w, 4] (tests, export)."""
+        h, w = self.shapes[i]
+        off = self.offsets[i]
+        return _np(self.texels[off:off + h * w]).reshape(h, w, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,9 +395,10 @@ def with_clusters(scene: Scene) -> Scene:
     return dataclasses.replace(scene, clusters=_to_device(grid, scene.device))
 
 
-def upload_scene(scene: Scene, device) -> Scene:
-    """Move every tensor of the scene to `device`; the scene's device is
-    then the render device of everything derived from it."""
+def upload_scene(scene, device):
+    """Move every tensor of the scene (or of another record of tensors,
+    such as a Camera) to `device`; the scene's device is then the render
+    device of everything derived from it."""
     return _to_device(scene, torch.device(device))
 
 

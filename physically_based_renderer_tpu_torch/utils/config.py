@@ -1,10 +1,10 @@
 """Named render configs (port of `utils/config.py`).
 
 Same config names and `RenderConfig`s as the reference.  `build_scene`
-builds every procedural scene (triangle, cornell, cornell_ggx,
-cornell_tex256, helmet_proc) and attaches the cluster grid, as the
-reference does; the glTF builders (`helmet`, `gltf`) raise until asset
-ingest is ported.
+builds every scene and attaches the cluster grid, as the reference does:
+the procedural ones (triangle, cornell, cornell_ggx, cornell_tex256,
+helmet_proc), `helmet` (the authored .glb read back through scene/gltf.py)
+and `gltf` (a file named by `extra["path"]`, with the file's camera).
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def build_scene(spec: SceneSpec, device=None):
     """Materialize (scene, camera) for a SceneSpec on `device`."""
     from ..core.camera import Camera
     from ..scene import procedural
-    from ..scene.types import upload_scene, with_clusters
+    from ..scene.types import with_clusters
 
     b = spec.builder
     if b == "triangle":
@@ -115,21 +115,30 @@ def build_scene(spec: SceneSpec, device=None):
             tex_size=spec.extra.get("tex_size", 8))
     elif b == "helmet":
         scene = procedural.make_helmet_class_scene(**spec.extra)
-    elif b in ("helmet_glb", "gltf"):
-        raise NotImplementedError(
-            f"scene builder {b!r} needs glTF ingest, which is not ported yet "
-            "(ROADMAP.md, module queue: asset ingest)")
+    elif b == "helmet_glb":
+        # The binary-asset path: author (cached) -> export_glb -> the whole
+        # scene/gltf.py ingest -> env attach (scene/helmet_asset.py).
+        from ..scene.helmet_asset import load_helmet_scene
+        scene = load_helmet_scene(**spec.extra)
+    elif b == "gltf":
+        from ..scene import gltf as gltf_mod
+        scene, _, camera = gltf_mod.load(spec.extra["path"])
+        return _placed(with_clusters(scene), camera, device)
     else:
         raise ValueError(f"unknown scene builder {b!r}")
     # Always attach the cluster grid, as the reference does; scenes of at
     # most 512 triangles still take the resident tracer.
-    scene = with_clusters(scene)
-    if device is not None:
-        scene = upload_scene(scene, device)
     camera = Camera.make(position=spec.camera_position,
-                         target=spec.camera_target, fov_y=spec.fov_y,
-                         device=scene.device)
-    return scene, camera
+                         target=spec.camera_target, fov_y=spec.fov_y)
+    return _placed(with_clusters(scene), camera, device)
+
+
+def _placed(scene, camera, device):
+    """(scene, camera) moved to `device` (None: left on the CPU)."""
+    from ..scene.types import upload_scene
+    if device is None:
+        return scene, camera
+    return upload_scene(scene, device), upload_scene(camera, device)
 
 
 def get(name: str) -> BenchConfig:

@@ -1,7 +1,7 @@
 """Write the reference goldens that the PyTorch port is held against on the card.
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py \
-        [cornell|helmet_proc|cornell_ggx_fused|cornell_grad]
+        [cornell|helmet_proc|helmet|cornell_ggx_fused|cornell_grad]
 
 Renders with the JAX package on the CPU and saves the mean HDR image:
 
@@ -12,6 +12,12 @@ Renders with the JAX package on the CPU and saves the mean HDR image:
     triangles, its textures and sky) at 32x32, 1 spp, 2 bounces, seed 0
     (tracer="pallas", the block-stream kernel in interpret mode),
     f32[32, 32, 3] in tests/data/helmet_proc_32_golden.npy;
+  * helmet: the `helmet` config at full geometry (the ~99.4k-triangle .glb
+    authored by scene/helmet_asset.py and read back through scene/gltf.py,
+    normal and emissive maps, ~7.8k emissive triangles, the sky) at 32x32,
+    2 spp, 3 bounces, block_size=512, seed 0 (tracer="pallas"),
+    f32[32, 32, 3] in tests/data/helmet_32_golden.npy; the asset is authored
+    into a temporary directory;
   * cornell_ggx_fused: the `cornell_ggx` config (textures, GGX, two
     emitters) at 64x64, 2 spp, 2 bounces, seed 0, through the fused
     whole-frame kernel (`ops/fused.py::render_fused_stats`, interpret
@@ -26,7 +32,7 @@ Renders with the JAX package on the CPU and saves the mean HDR image:
     jax.grad of pixel_loss(render(apply_params(scene, p), key 0).mean(),
     target) (`key`).
 
-With no argument it writes all four.  `chip_smoke.py` compares the port's
+With no argument it writes all five.  `chip_smoke.py` compares the port's
 GPU renders and gradients with them using numpy alone;
 tests/test_torch_render.py checks that the committed image files still
 match fresh renders, tests/test_torch_grad.py holds the port's CPU
@@ -47,7 +53,9 @@ SIZE, SPP, BOUNCES, SEED = 64, 2, 2, 0
 # The helmet_proc golden: (config, size, spp, bounces, seed, tracer, path).
 HELMET = dict(config="helmet_proc", size=32, spp=1, bounces=2, seed=0,
               tracer="pallas", path=HERE / "helmet_proc_32_golden.npy")
-
+# The helmet golden: the .glb asset, as HELMET.
+HELMET_GLB = dict(config="helmet", size=32, spp=2, bounces=3, seed=0,
+                  tracer="pallas", path=HERE / "helmet_32_golden.npy")
 
 # The fused golden: (config, size, spp, bounces, seed, path).
 FUSED = dict(config="cornell_ggx", size=64, spp=2, bounces=2, seed=0,
@@ -98,6 +106,24 @@ def render_helmet_golden() -> np.ndarray:
     h = HELMET
     return _render(h["config"], h["size"], h["spp"], h["bounces"], h["seed"],
                    h["tracer"])
+
+
+def render_helmet_glb_golden() -> np.ndarray:
+    import os
+    import tempfile
+
+    h = HELMET_GLB
+    with tempfile.TemporaryDirectory() as cache:
+        old = os.environ.get("PBR_ASSET_CACHE")
+        os.environ["PBR_ASSET_CACHE"] = cache
+        try:
+            return _render(h["config"], h["size"], h["spp"], h["bounces"],
+                           h["seed"], h["tracer"])
+        finally:
+            if old is None:
+                del os.environ["PBR_ASSET_CACHE"]
+            else:
+                os.environ["PBR_ASSET_CACHE"] = old
 
 
 def render_fused_golden() -> np.ndarray:
@@ -157,8 +183,8 @@ def grad_golden() -> dict:
 
 def main(argv) -> int:
     sys.path.insert(0, str(HERE.parent.parent))
-    which = argv[1:] or ["cornell", "helmet_proc", "cornell_ggx_fused",
-                         "cornell_grad"]
+    which = argv[1:] or ["cornell", "helmet_proc", "helmet",
+                         "cornell_ggx_fused", "cornell_grad"]
     for name in which:
         if name == "cornell_grad":
             arrays = grad_golden()
@@ -168,6 +194,8 @@ def main(argv) -> int:
         render, path = {"cornell": (render_golden, GOLDEN),
                         "helmet_proc": (render_helmet_golden,
                                         HELMET["path"]),
+                        "helmet": (render_helmet_glb_golden,
+                                   HELMET_GLB["path"]),
                         "cornell_ggx_fused": (render_fused_golden,
                                               FUSED["path"])}[name]
         img = render()

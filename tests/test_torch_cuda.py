@@ -17,8 +17,9 @@ from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.integrator import path
 from physically_based_renderer_tpu_torch.grad import inverse
 from physically_based_renderer_tpu_torch.ops import (blocktrace, fused,
-                                                     gather, resident,
+                                                     gather, probes, resident,
                                                      tonemap, trace_blocks)
+from physically_based_renderer_tpu_torch.tools import probe2
 from physically_based_renderer_tpu_torch.utils import config
 from torch_parity import (COUNT_REL, MEAN_REL, PIXEL_FRAC,  # noqa: F401
                           cuda_device, golden_module, render_agreement)
@@ -283,3 +284,117 @@ def test_gradient_step_on_card_equals_cpu(cuda_device):
         scale = np.abs(want).max()
         assert scale > 0
         assert np.abs(grads[1][k] - want).max() <= 1e-4 * scale, k
+
+
+@pytest.fixture(scope="module")
+def helmet():
+    bc = config.get("helmet")
+    return bc, config.build_scene(bc.scene, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
+def test_k1_kernel_matches_plain_at_block_512(cuda_device, helmet, sort):
+    """K1 at the helmet config's block size (512 rays a CTA, 16 warps in
+    the early-exit reduction) on the .glb helmet's clusters."""
+    bc, (scene, _) = helmet
+    assert bc.render.block_size == 512
+    grid = scene.clusters
+    grid = type(grid)(**{f: getattr(grid, f).to(cuda_device)
+                         for f in grid.__dataclass_fields__})
+    o, d, tm = _sphere_rays(100_003, 13, cuda_device)
+    for t_min in (0.0, 1e-3):
+        for any_hit, t_max in ((False, 1e30), (True, tm)):
+            args, _ = blocktrace.block_inputs(
+                grid, o, d, t_min, t_max, sort=sort,
+                block=bc.render.block_size, max_u=bc.render.max_u,
+                chunk=bc.render.chunk)
+            assert args[1].shape[1] == 512
+            k = trace_blocks.trace_blocks(*args, t_min=t_min, any_hit=any_hit,
+                                          chunk=bc.render.chunk)
+            torch.cuda.synchronize()
+            p = trace_blocks.trace_blocks_plain(*args, t_min=t_min,
+                                                any_hit=any_hit,
+                                                chunk=bc.render.chunk)
+            if any_hit:
+                assert torch.equal(k, p)
+            else:
+                assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+
+
+@pytest.mark.cuda
+def test_helmet_path_matches_golden(cuda_device, helmet):
+    h = golden_module().HELMET_GLB
+    bc, _ = helmet
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
+                              spp=h["spp"], max_bounces=h["bounces"])
+    before = (trace_blocks.LAUNCHES, fused.LAUNCHES)
+    film, _ = path.render_with_stats(scene, cam,
+                                     rng.key(h["seed"], cuda_device), cfg)
+    torch.cuda.synchronize()
+    # per sample: (bounces + 1) closest queries + bounces x (emitter + env)
+    # shadow queries
+    assert (trace_blocks.LAUNCHES - before[0], fused.LAUNCHES - before[1]) == (
+        h["spp"] * (3 * h["bounces"] + 1), 0)
+    img, ref = film.mean().cpu().numpy(), np.load(h["path"])
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", sorted(probe2.STACK_DATA))
+def test_p1_kernel_matches_plain(cuda_device, data):
+    boxes = torch.from_numpy(probe2.scalar_stack_boxes(data))
+    before = probes.LAUNCHES["scalar_stack"]
+    out, leaves = probes.scalar_stack(boxes.to(cuda_device))
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["scalar_stack"] == before + 1
+    want_out, want_leaves = probes.scalar_stack_plain(boxes)
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(leaves.cpu(), want_leaves)
+
+
+@pytest.mark.cuda
+def test_p2_kernel_matches_plain(cuda_device):
+    for seed in range(3):
+        x = torch.from_numpy(np.random.default_rng(seed).integers(
+            -500, 500, (8, 128)).astype(np.float32)).to(cuda_device)
+        before = probes.LAUNCHES["relayout"]
+        got, local = probes.relayout(x), probes.relayout(x, exchange=False)
+        torch.cuda.synchronize()
+        assert probes.LAUNCHES["relayout"] == before + 2
+        assert torch.equal(got, probes.relayout_plain(x))
+        assert torch.equal(local, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,l", [(1024, 32, 512), (100, 7, 64),
+                                   (33, 32, 1500)])
+def test_p3_kernel_matches_plain(cuda_device, n, r, l):
+    g = np.random.default_rng(n)
+    win = torch.from_numpy(g.integers(0, l, (n, 1)).astype(np.int32)).to(
+        cuda_device)
+    rows = torch.from_numpy(g.normal(size=(r, l)).astype(np.float32)).to(
+        cuda_device)
+    before = probes.LAUNCHES["onehot_mm"]
+    got = probes.onehot_mm(win, rows)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["onehot_mm"] == before + 1
+    assert torch.equal(got, probes.onehot_mm_plain(win, rows))
+    assert torch.equal(got, rows.t()[win[:, 0].long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", sorted(probe2.GATHER_SHAPES))
+def test_p4_kernel_matches_plain(cuda_device, tag):
+    rows, lanes, axis = probe2.GATHER_SHAPES[tag]
+    x, idx = (torch.from_numpy(a).to(cuda_device)
+              for a in probe2.gather_inputs(rows, lanes, axis, seed=1))
+    idx[0, :3] = torch.tensor([-1, rows + lanes, 0])     # clamped
+    before = probes.LAUNCHES["gather"]
+    got = probes.gather(x, idx, axis)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["gather"] == before + 1
+    assert torch.equal(got, probes.gather_plain(x, idx, axis))

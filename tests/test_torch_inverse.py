@@ -319,7 +319,12 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--tiles", "2"], ["--scene", "x.glb"]])
 def test_cli_unported_paths_raise(argv):
-    with pytest.raises(NotImplementedError):
+    """--tiles is not ported; a scene that is no config name is a glTF path
+    now, and a missing file is the loader's GltfError, as in the
+    reference."""
+    from physically_based_renderer_tpu_torch.scene.gltf import GltfError
+    error = NotImplementedError if "--tiles" in argv else GltfError
+    with pytest.raises(error):
         inverse_app.main(argv + ["--device", "cpu", "--steps", "1"])
 
 

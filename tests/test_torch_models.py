@@ -177,8 +177,9 @@ def test_shade_surface_matches_reference(name):
 
 
 def test_shade_surface_raises_on_textures():
-    """Textured shading is ported (tests/test_torch_texture.py); what still
-    raises is an emissive texture in area-light NEE."""
+    """Textured shading is ported (tests/test_torch_texture.py), and so is
+    an emissive texture in area-light NEE: nothing raises, and the sample
+    carries the reference's factor x texture radiance."""
     ref = jproc.make_cornell_box(textured=True)
     port = scene_from_numpy(scene_arrays(ref))
     assert port.has_textures
@@ -193,6 +194,13 @@ def test_shade_surface_raises_on_textures():
         textures=ref.textures)
     port_em = scene_from_numpy(scene_arrays(ref_em))
     assert port_em.tex_slots[3] and port_em.has_emitters
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lights.sample_area_emitters(port_em, torch.zeros(2, 3),
-                                    torch.zeros(2), torch.zeros(2, 2))
+    u = np.random.default_rng(0).random((64, 3)).astype(np.float32)
+    p = np.zeros((64, 3), np.float32) + np.float32([0.0, 1.0, 0.0])
+    ls = lights.sample_area_emitters(port_em, torch.from_numpy(p),
+                                     torch.from_numpy(u[:, 0]),
+                                     torch.from_numpy(u[:, 1:]))
+    jls = jlights.sample_area_emitters(ref_em, p, u[:, 0], u[:, 1:])
+    assert bool(ls.valid.any())
+    np.testing.assert_array_equal(np_(ls.valid), np.asarray(jls.valid))
+    np.testing.assert_allclose(np_(ls.radiance), np.asarray(jls.radiance),
+                               rtol=0, atol=1e-6)

@@ -147,6 +147,21 @@ def test_port_matches_helmet_golden_on_cpu():
     _assert_render_agrees(film.mean().numpy(), np.load(h["path"]))
 
 
+def test_port_matches_helmet_glb_golden_on_cpu():
+    """The full `helmet` config (the .glb asset at block 512) against the
+    reference's golden; tests/test_torch_helmet.py checks the file against
+    a fresh reference render."""
+    h = golden_module().HELMET_GLB
+    bc = config.get(h["config"])
+    scene, cam = config.build_scene(bc.scene, "cpu")
+    assert scene.geometry.num_tris == 99_400 and scene.tex_slots == (True,) * 4
+    cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
+                              spp=h["spp"], max_bounces=h["bounces"])
+    assert cfg.block_size == 512 and path._tracer(scene, cfg) == "pallas"
+    film, _ = path.render_with_stats(scene, cam, rng.key(h["seed"]), cfg)
+    _assert_render_agrees(film.mean().numpy(), np.load(h["path"]))
+
+
 def test_brute_tracer_render_matches_resident():
     _, _, port, cam = _both("cornell")
     imgs = [path.render_with_stats(
@@ -213,8 +228,9 @@ def test_cli_renders_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["cornell", "--tiles", "2"],
                                   ["cornell", "--blinn-phong"],
                                   ["cornell", "--debug-checks"],
-                                  ["scene.glb"],
-                                  ["helmet", "--device", "cpu"]])
+                                  ["scene.glb", "--tiles", "2"],
+                                  ["helmet", "--blinn-phong", "--device",
+                                   "cpu"]])
 def test_cli_unported_paths_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         render_app.main(argv + ["-o", str(tmp_path / "x.png")])
@@ -240,6 +256,9 @@ def test_package_imports_without_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import physically_based_renderer_tpu_torch as p\n"
         "from physically_based_renderer_tpu_torch.apps import inverse, render\n"
+        "from physically_based_renderer_tpu_torch.apps import report\n"
+        "from physically_based_renderer_tpu_torch.tools import probe2\n"
+        "from physically_based_renderer_tpu_torch.scene import helmet_asset\n"
         "from physically_based_renderer_tpu_torch.grad import edge\n"
         "from physically_based_renderer_tpu_torch.utils import checkpoint\n"
         "from physically_based_renderer_tpu_torch.utils import config\n"
@@ -259,7 +278,7 @@ def test_package_imports_without_jax():
 def test_package_names_no_reference_framework():
     forbidden = {"jax", "jaxlib", "flax", "optax", "orbax",
                  "physically_based_renderer_tpu"}
-    for py in sorted(PKG.rglob("*.py")):
+    for py in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(py.read_text())):
             names = []
             if isinstance(node, ast.Import):

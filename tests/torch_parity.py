@@ -130,3 +130,61 @@ def many_emitters_reference(n=80, seed=0):
         specular_factor=np.zeros((n,), np.float32))
     return types.make_scene(
         g.replace(tri_material=np.arange(n, dtype=np.int32)), m)
+
+
+def assert_scene_matches(port, ref, atol: float = 1e-7):
+    """Every array of a port Scene against a reference Scene: integer and
+    boolean arrays and static tuples exact, floats within `atol`; the static
+    flags equal."""
+    for rec in RECORDS + ("env",):
+        a, b = getattr(port, rec), getattr(ref, rec)
+        assert (a is None) == (b is None), rec
+        if b is None:
+            continue
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(y, tuple):
+                assert x == y, (rec, f.name)
+                continue
+            x, y = np_(x), np.asarray(y)
+            assert x.shape == y.shape, (rec, f.name, x.shape, y.shape)
+            if y.dtype.kind == "f":
+                np.testing.assert_allclose(x, y, rtol=0, atol=atol,
+                                           err_msg=f"{rec}.{f.name}")
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=f"{rec}.{f.name}")
+    for k in FLAG_FIELDS:
+        assert getattr(port, k) == getattr(ref, k), k
+
+
+def assert_graphs_equal(port, ref):
+    """Two scene graphs (either package's): names, tree shape, transforms,
+    cameras and every primitive's arrays equal."""
+    assert port.name == ref.name
+    a, b = list(port.dfs()), list(ref.dfs())
+    assert [n.name for n in a] == [n.name for n in b]
+    for x, y in zip(a, b):
+        assert [c.name for c in x.children] == [c.name for c in y.children]
+        assert x.mesh == y.mesh
+        for f in ("translation", "rotation", "scale"):
+            np.testing.assert_array_equal(getattr(x.transform, f),
+                                          getattr(y.transform, f), err_msg=f)
+        assert (x.camera is None) == (y.camera is None)
+        if y.camera is not None:
+            assert dataclasses.asdict(x.camera) == dataclasses.asdict(y.camera)
+    assert [m.name for m in port.meshes] == [m.name for m in ref.meshes]
+    for m, r in zip(port.meshes, ref.meshes):
+        assert len(m.primitives) == len(r.primitives)
+        for p, q in zip(m.primitives, r.primitives):
+            assert p.material == q.material
+            for f in ("positions", "normals", "tangents", "uvs", "indices"):
+                x, y = getattr(p, f), getattr(q, f)
+                assert x.dtype == y.dtype, f
+                np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+def assert_cameras_equal(port, ref):
+    for f in dataclasses.fields(ref):
+        np.testing.assert_array_equal(np_(getattr(port, f.name)),
+                                      np.asarray(getattr(ref, f.name),
+                                                 np.float32), err_msg=f.name)
