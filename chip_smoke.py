@@ -23,6 +23,9 @@ of which raises on failure (an uncaught exception exits non-zero):
      as the integrator calls it; kernel and plain times at 262,144 camera
      rays; on `helmet`, K5a on the emitter table (15,600 x 20) against its
      plain version, and the time to author, write and ingest the asset;
+     K1 once more on `helmet_proc` at chunk=16 (72 KB of shared memory a
+     block, the opt-in branch), held to the chunk=4 run's bound (the same
+     rays need no more work), with the tests its coarser exit adds;
   5. K4 (fused whole-frame kernel) against its plain-torch version on the
      same packed tables: `cornell` and `cornell_ggx` at their full configs
      (512x512, 4 spp, 4 bounces), `triangle` at its full config (256x256,
@@ -66,7 +69,30 @@ of which raises on failure (an uncaught exception exits non-zero):
      itself (`tools/probe2.py all`), whose launches the kernels line
      reports;
  11. one `helmet` frame and one `helmet_proc` frame under torch.profiler:
-     launches, device idle share and K1's share of the device time.
+     launches, device idle share and K1's share of the device time;
+ 12. the probes P5-P8 (`ops/probes.py`, `csrc/mosaic.cu`) against their
+     plain versions at every shape of their tools (P5-P7 exact, P8 within
+     1e-6 relative and the reference's own check), with device, wrapper
+     and plain times and bounds; then the tools themselves
+     (`tools/probe_mosaic.py`, `tools/exp_subtile_dma.py`), whose launches
+     the kernels line reports;
+ 13. parallel/ on a world of one NCCL rank (a FileStore in a temporary
+     directory): `render_sharded` of `helmet` (512x512, 4 spp, 3 bounces;
+     its launches counted as a main path), `render_sharded_2d` on a 1x1
+     mesh, the ring render (one sample) and, without the direction sort,
+     four row bands of 128 rows equal to render() bit for bit (with the
+     sort, the pixels that differ are counted and the film mean held to
+     0.5%: a block's candidate list depends on its rays); the NCCL broadcast,
+     all-gather and all-reduces run over the one rank, the ring's send and
+     receive do not (the shift is the identity at one rank);
+     plain and sharded frames in turns (the sharded program's cost; one
+     card, so scaling over GPUs is not measured); the sharded cornell step
+     (512x512, 4 spp, 4 bounces, four fields) against the plain one: loss
+     bit-equal, gradients within K5B_REL of max|g| (K5b's atomics), its
+     launches counted; `--tiles 1` through the render CLI (equal to
+     render() bit for bit) and the inverse CLI; the group is destroyed at
+     the end.  Last, so that NCCL's threads start after the profiled
+     phases.
 
 Prints, before the last line, the card, one JSON line with the kernels
 ({"kernels": [...]}: `launches` is the sum over the main-path runs,
@@ -85,6 +111,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import subprocess
@@ -218,6 +245,7 @@ SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
 SMALL_GLB_SCALE = 0.02
 
 
+@functools.lru_cache(maxsize=None)
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -247,56 +275,6 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3):
-    """Device time of fn under torch.profiler: (ms per launch of the
-    kernels whose name holds `kernel`, ms per call of every other kernel
-    the call ran).  With kernel None, every kernel counts as the call's own
-    and the first number is ms per call.  The warm-up calls run in the
-    profiler's warm-up step, so tracing is already on when the measured
-    step starts; should the tracer still drop an event, the time is
-    averaged over the launches it saw (at least 90% of the calls)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    # The events of the measured step, read when it ends (the profiler
-    # clears them at the end of its cycle).
-    steps = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: steps.append(p.key_averages())
-                 ) as prof:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-    if len(steps) != 1:
-        raise AssertionError(f"profiler gave {len(steps)} measured steps")
-    own_us = other_us = 0.0
-    n_own = 0
-    for e in steps[0]:
-        # The step's own annotation also has a device-side span over all
-        # of its kernels: it is no kernel.
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("ProfilerStep")):
-            continue
-        if kernel is None or kernel in e.key:
-            own_us += e.self_device_time_total
-            n_own += e.count
-        else:
-            other_us += e.self_device_time_total
-    if own_us <= 0.0:
-        raise AssertionError(f"profiler saw no device time for {kernel}")
-    if kernel is None:
-        return own_us / 1e3 / iters, 0.0
-    if not 0.9 * iters <= n_own <= iters:
-        raise AssertionError(f"profiler saw {n_own} launches of {kernel} in "
-                             f"{iters} calls")
-    return own_us / 1e3 / n_own, other_us / 1e3 / iters
 
 
 def k1_work(args, best_t, best_flat, chunk: int, tri_id):
@@ -420,6 +398,7 @@ def phase_k2(dev):
     from physically_based_renderer_tpu_torch.scene.procedural import (
         make_cornell_box)
     from physically_based_renderer_tpu_torch.scene.types import upload_scene
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
 
     st = TraceStats("K2")
     rng = np.random.default_rng(0)
@@ -502,6 +481,7 @@ def phase_k3(dev):
 
     from physically_based_renderer_tpu_torch.core.tonemap import aces_gamma
     from physically_based_renderer_tpu_torch.ops import tonemap
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
 
     rng = np.random.default_rng(1)
     out = {"max_abs_err": 0.0, "max_abs_err_vs_aces_gamma": 0.0,
@@ -540,10 +520,11 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
-def phase_k1(dev, name="helmet_proc"):
+def phase_k1(dev, name="helmet_proc", chunk=None):
     """K1 against its plain version on the rays of config `name`, at that
-    config's block size; on a scene with area emitters also shadow rays
-    toward them and K5a on the emitter table."""
+    config's block size (and `chunk` clusters a step where given); on a
+    scene with area emitters also shadow rays toward them and K5a on the
+    emitter table."""
     import numpy as np
     import torch
 
@@ -557,12 +538,14 @@ def phase_k1(dev, name="helmet_proc"):
     from physically_based_renderer_tpu_torch.models import lights
     from physically_based_renderer_tpu_torch.ops import blocktrace, gather
     from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
     from physically_based_renderer_tpu_torch.utils import config
 
-    st = TraceStats(f"K1 {name}")
+    st = TraceStats(f"K1 {name}" + (f" chunk={chunk}" if chunk else ""))
     rng = np.random.default_rng(2)
     bc = config.get(name)
-    cfg = bc.render
+    cfg = (bc.render if chunk is None
+           else dataclasses.replace(bc.render, chunk=chunk))
     scene, cam = config.build_scene(bc.scene, dev)
     grid = scene.clusters
     kw = dict(block=cfg.block_size, max_u=cfg.max_u, chunk=cfg.chunk)
@@ -704,6 +687,7 @@ def phase_k4(dev):
 
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
     from physically_based_renderer_tpu_torch.ops import fused
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
     from physically_based_renderer_tpu_torch.utils import config
 
     out = {"frames_compared": 0, "pixels_compared": 0, "pixels_differ": 0,
@@ -773,6 +757,7 @@ def phase_k5(dev):
     import torch
 
     from physically_based_renderer_tpu_torch.ops import gather
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
 
     gen = torch.Generator(device=dev).manual_seed(8)
     out = {"cases": 0, "rows_compared": 0, "fwd_max_abs_err": 0.0,
@@ -1224,13 +1209,18 @@ def phase_probes(dev):
 
     from physically_based_renderer_tpu_torch.ops import probes
     from physically_based_renderer_tpu_torch.tools import probe2
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
 
     t = lambda a: torch.from_numpy(a).to(dev)
     out = {}
+    errs = dict.fromkeys(("probe_scalar_stack", "probe_relayout",
+                          "probe_onehot_mm", "probe_gather"), 0.0)
 
-    def same(label, kern, plain):
+    def same(label, kern, plain, name):
         torch.cuda.synchronize()
         for k, p in zip(kern, plain):
+            errs[name] = max(errs[name], float(
+                (k.double() - p.to(k.device).double()).abs().max()))
             if not torch.equal(k, p.to(k.device)):
                 raise AssertionError(f"{label}: kernel and plain version "
                                      "differ")
@@ -1242,7 +1232,7 @@ def phase_probes(dev):
         kern = probes.scalar_stack(boxes)
         same(f"P1 scalar_stack[{data}] visited={int(kern[0][0])} "
              f"leaves={int(kern[0][1])}", kern,
-             probes.scalar_stack_plain(boxes))
+             probes.scalar_stack_plain(boxes), "probe_scalar_stack")
     boxes = t(probe2.scalar_stack_boxes("all"))
     visited = int(probes.scalar_stack(boxes)[0][0])
     call = lambda: probes.scalar_stack(boxes)
@@ -1261,7 +1251,7 @@ def phase_probes(dev):
     # P2
     x = t(probe2.relayout_input())
     same("P2 relayout", (probes.relayout(x), probes.relayout(x, False)),
-         (probes.relayout_plain(x),) * 2)
+         (probes.relayout_plain(x),) * 2, "probe_relayout")
     if not np.array_equal(probes.relayout(x).cpu().numpy(),
                           probe2.relayout_expected()):
         raise AssertionError("P2 relayout: not the probe's expectation")
@@ -1285,7 +1275,7 @@ def phase_probes(dev):
     lane_np, rows_np = probe2.onehot_inputs()
     lane, rows = t(lane_np), t(rows_np)
     same("P3 onehot_mm [1024,512]x[32,512]", (probes.onehot_mm(lane, rows),),
-         (probes.onehot_mm_plain(lane, rows),))
+         (probes.onehot_mm_plain(lane, rows),), "probe_onehot_mm")
     if not np.array_equal(probes.onehot_mm(lane, rows).cpu().numpy(),
                           rows_np.T[lane_np[:, 0]]):
         raise AssertionError("P3 onehot_mm: not rows.T[lane] bit for bit")
@@ -1314,7 +1304,7 @@ def phase_probes(dev):
         xg, idx = t(x_np), t(idx_np)
         got = probes.gather(xg, idx, axis)
         same(f"P4 {tag} [{n_rows},{lanes}] axis={axis}", (got,),
-             (probes.gather_plain(xg, idx, axis),))
+             (probes.gather_plain(xg, idx, axis),), "probe_gather")
         if not np.array_equal(got.cpu().numpy(), np.take_along_axis(
                 x_np, idx_np, axis=axis)):
             raise AssertionError(f"P4 {tag}: not take_along_axis")
@@ -1333,6 +1323,7 @@ def phase_probes(dev):
             "shape": f"[{n_rows},{lanes}] axis {axis}"}
     out["probe_gather"] = {**gathers["gather_tex"], "by_shape": gathers}
     for name, e in out.items():
+        e["max_abs_err"] = errs[name]
         print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
               f"{e['wrapper_ms'] * 1e3:.2f} us, plain "
               f"{e['plain_ms'] * 1e3:.2f} us, bound "
@@ -1347,10 +1338,390 @@ def phase_probes(dev):
             for r in (res.values() if "ok" not in res else (res,))]
     if not all(r["ok"] for r in flat):
         raise AssertionError(f"probe tool: {tool}")
-    counts = dict(probes.LAUNCHES)
+    counts = {k: probes.LAUNCHES[k] for k in (
+        "scalar_stack", "relayout", "onehot_mm", "gather")}
     if not all(counts.values()):
         raise AssertionError(f"probe tool launched {counts}")
     return out, counts, tool
+
+
+def phase_mosaic(dev):
+    """P5-P8 against their plain versions at every shape of their tools
+    (P5, P6, P7 exact; P8 within P8_REL), their times and bounds; then the
+    two tools themselves, for the launch counts."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import probes
+    from physically_based_renderer_tpu_torch.tools import (exp_subtile_dma,
+                                                           probe2,
+                                                           probe_mosaic)
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    out = {}
+
+    # P5: every shape of the tool; the kernels line carries the largest
+    # table, [1024, 512] x 4 reps (2 MB, read through L1/L2).
+    shapes = {}
+    p5_err = 0.0
+    for rows, lanes, axis, reps, _ in probe_mosaic.GATHER_CASES:
+        x_np, idx_np = probe_mosaic.gather_inputs(rows, lanes, axis)
+        x, idx = t(x_np), t(idx_np)
+        got = probes.mosaic_gather(x, idx, axis, reps)
+        want = probes.mosaic_gather_plain(x, idx, axis, reps)
+        torch.cuda.synchronize()
+        p5_err = max(p5_err, float((got - want).abs().max()))
+        if not (torch.equal(got, want)
+                and np.array_equal(got.cpu().numpy(),
+                                   probe_mosaic.gather_expected(
+                                       x_np, idx_np, axis, reps))):
+            raise AssertionError(f"P5 [{rows},{lanes}] axis {axis}: kernel, "
+                                 "plain version and the probe's check differ")
+        call = lambda: probes.mosaic_gather(x, idx, axis, reps)
+        ms, _ = device_ms(call, 100, "mosaic_gather_kernel")
+        shapes[f"{rows}x{lanes}_axis{axis}_x{reps}"] = {
+            "ms": ms, "wrapper_ms": time_ms(call, 100),
+            "plain_ms": time_ms(lambda: probes.mosaic_gather_plain(
+                x, idx, axis, reps), 10),
+            # table, indices and output once; reps adds an element
+            "bound": bound(3 * x.numel() * 4, reps * x.numel()),
+            "library_ms": None, "staged": x.numel() * 4 <= 227 * 1024,
+            "shape": f"[{rows},{lanes}] axis {axis} x{reps}"}
+        print(f"P5 [{rows},{lanes}] axis={axis} x{reps}: equal to its plain "
+              f"version and the probe's check, device {ms * 1e3:.2f} us "
+              f"[{card_line()}]")
+    out["probe_mosaic_gather"] = {**shapes["1024x512_axis0_x4"],
+                                  "by_shape": shapes, "max_abs_err": p5_err}
+
+    # P6: the three data sets of P1; timed where every box passes.
+    walks = {}
+    p6_err = 0
+    for data in probe2.STACK_DATA:
+        boxes = t(probe2.scalar_stack_boxes(data))
+        got = probes.mosaic_scalar_stack(boxes)
+        want = probes.mosaic_scalar_stack_plain(boxes)
+        torch.cuda.synchronize()
+        p6_err = max(p6_err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"P6 [{data}]: kernel and plain differ")
+        walks[data] = int(got[0])
+        print(f"P6 scalar_stack[{data}]: visited {walks[data]}, equal to "
+              "its plain version")
+    boxes = t(probe2.scalar_stack_boxes("all"))
+    call = lambda: probes.mosaic_scalar_stack(boxes)
+    ms, _ = device_ms(call, 100, "mosaic_scalar_stack_kernel")
+    out["probe_mosaic_stack"] = {
+        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        "plain_ms": time_ms(lambda: probes.mosaic_scalar_stack_plain(boxes),
+                            3, warmup=1),
+        "bound": bound(boxes.numel() * 4 + 4, 0),
+        "latency_bound_ms": walks["all"] * SMEM_LOAD_CYCLES / SM_CLOCK_HZ
+        * 1e3, "library_ms": None, "visited": walks,
+        "ns_per_node": ms * 1e6 / walks["all"], "max_abs_err": p6_err,
+        "shape": "2,047 boxes, every box passes"}
+
+    # P7: the probe's data (all ones: every test masked) and random data
+    # where the mask passes; timed on the random data.
+    b, w, n_chunks = probe_mosaic.CHUNK
+    p7_err = 0.0
+    for data in probe_mosaic.CHUNK_DATA:
+        o_np, t_np = probe_mosaic.chunk_inputs(data)
+        o, tt = t(o_np), t(t_np)
+        got = probes.chunk(o, tt, n_chunks)
+        torch.cuda.synchronize()
+        want = probes.chunk_plain(o.cpu(), tt.cpu(), n_chunks)
+        p7_err = max(p7_err, float((got.cpu() - want).abs().max()))
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"P7 [{data}]: kernel and plain differ")
+        print(f"P7 chunk[{data}]: bit-equal to its plain version, "
+              f"{int((want < 1e30).sum())} of {b} rays hit")
+    call = lambda: probes.chunk(o, tt, n_chunks)
+    ms, _ = device_ms(call, 200, "mosaic_chunk_kernel")
+    out["probe_chunk"] = {
+        "ms": ms, "wrapper_ms": time_ms(call, 200),
+        "plain_ms": time_ms(lambda: probes.chunk_plain(o, tt, n_chunks), 10),
+        # per test 10 float operations (px 1, det 2, 1/det 1, u 1, v 2,
+        # t 2, u + v 1); per chunk and column 4 more for e0 and e1; reads
+        # o's row 0 and t's rows 0-1, writes b floats
+        "bound": bound((2 * b + 2 * w) * 4,
+                       n_chunks * (b * w * 10 + w * 4)),
+        "library_ms": None, "us_per_chunk": ms * 1e3 / n_chunks,
+        "max_abs_err": p7_err,
+        "shape": f"{b} rays x {w} columns x {n_chunks} chunks"}
+
+    # P8: the tool's shape; kernel against the plain version (rows summed
+    # in one order) and the reference's host check.
+    src_np, idx_np = exp_subtile_dma.inputs(0)
+    src, idx = t(src_np), t(idx_np)
+    ni, ch = exp_subtile_dma.NI, exp_subtile_dma.CH
+    got = probes.subtile_copy(src, idx, ni, ch)
+    plain = probes.subtile_copy_plain(src, idx, ni, ch)
+    torch.cuda.synchronize()
+    rel = float(((got - plain).abs() / plain.abs()).max())
+    ok_ref = np.allclose(got.cpu().numpy()[:, 0], exp_subtile_dma.expected(
+        src_np, idx_np, exp_subtile_dma.NB), rtol=exp_subtile_dma.REF_RTOL)
+    if rel > exp_subtile_dma.PLAIN_RTOL or not ok_ref:
+        raise AssertionError(f"P8: rel diff to plain {rel}, reference check "
+                             f"{ok_ref}")
+    print(f"P8 subtile copy: max rel diff to its plain version {rel:.3g}, "
+          "the reference's check holds")
+    call = lambda: probes.subtile_copy(src, idx, ni, ch)
+    ms, _ = device_ms(call, 100, "subtile_copy_kernel")
+    n_copies = idx.numel()
+    distinct = int(torch.unique(idx).numel())
+    small = idx.numel() * 4 + got.numel() * 4
+    out["subtile_dma"] = {
+        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        "plain_ms": time_ms(lambda: probes.subtile_copy_plain(
+            src, idx, ni, ch), 10),
+        # each distinct tile read once (the table's 8.4 MB fits in L2), the
+        # indices and the output; beside it every copy from device memory;
+        # 16 adds per output lane a step
+        "bound": bound(distinct * exp_subtile_dma.TILE_BYTES + small,
+                       n_copies * 32 * 16),
+        "bound_all_copies": bound(n_copies * exp_subtile_dma.TILE_BYTES
+                                  + small, n_copies * 32 * 16),
+        "distinct_tiles": distinct, "max_rel_plain": rel,
+        "gb_per_s": n_copies * exp_subtile_dma.TILE_BYTES / ms / 1e6,
+        "library_ms": None,
+        "shape": f"{exp_subtile_dma.NB} x {ni} x {ch} copies of 2 KB"}
+    out["subtile_dma"]["max_abs_err"] = float((got - plain).abs().max())
+    for name, e in out.items():
+        print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
+              f"{e['wrapper_ms'] * 1e3:.2f} us, plain "
+              f"{e['plain_ms'] * 1e3:.2f} us, bound "
+              f"{e['bound'][0] * 1e3:.3f} us ({e['bound'][1]}), library none "
+              f"[{card_line()}]")
+
+    # The tools' own runs: every shape through their entry points; their
+    # launches are the ones the kernels line reports.
+    probes.reset_launches()
+    if probe_mosaic.main(["--device", "cuda", "--iters", "20"]) != 0:
+        raise AssertionError("probe_mosaic tool failed")
+    if exp_subtile_dma.main(["--device", "cuda", "--iters", "20"]) != 0:
+        raise AssertionError("exp_subtile_dma tool failed")
+    counts = {k: probes.LAUNCHES[k] for k in (
+        "mosaic_gather", "mosaic_scalar_stack", "chunk", "subtile_copy")}
+    if not all(counts.values()):
+        raise AssertionError(f"the P5-P8 tools launched {counts}")
+    return out, counts
+
+
+def _grads(params):
+    return {k: v.grad.detach().clone() for k, v in params.items()}
+
+
+def phase_sharded(dev, tmp, counters):
+    """parallel/ on one card: a world of one NCCL rank (FileStore).  The
+    sharded helmet frame, the 1x1 2-D render, the ring render and four row
+    bands without the direction sort against render() bit for bit, four
+    with it against render()'s film mean; the sharded train step against the
+    plain one; --tiles 1 through both CLIs; what the sharded program costs
+    over the plain one.  At a world of one the NCCL broadcast, all-gather
+    and all-reduces run, each over one rank; the ring's send and receive
+    do not (the shift is the identity).  One card: scaling over several
+    GPUs is not measured."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from physically_based_renderer_tpu_torch.apps import render as render_app
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.grad import inverse as pinv
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.parallel import sharding
+    from physically_based_renderer_tpu_torch.utils import config
+
+    def counted(fn):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: getattr(mod, attr)
+                     for k, (mod, attr) in counters.items()}
+
+    out = {}
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(Path(tmp) / "nccl_store"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1)
+        mesh2 = sharding.make_mesh_2d(1, 1)
+        bc = config.get("helmet")
+        cfg = bc.render
+        scene, cam = config.build_scene(bc.scene, dev)
+        scene = sharding.replicate_scene(scene, mesh)
+        key = rng_mod.key(0, dev)
+
+        # The sharded helmet frame is a main path: its launches.
+        film, got = counted(lambda: sharding.render_sharded(
+            scene, cam, key, cfg, mesh))
+        want = dict(EXPECTED_LAUNCHES["helmet"], tonemap=0)
+        if got != want:
+            raise AssertionError(f"sharded helmet launches {got}, expected "
+                                 f"{want}")
+        sharded = film.mean()
+        plain = path.render(scene, cam, key, cfg).mean()
+        two_d = sharding.render_sharded_2d(scene, cam, key, cfg,
+                                           mesh2).mean()
+        k0 = rng_mod.split(key, cfg.spp)[0]
+        one = path.render_sample(scene, cam, k0, cfg)
+        ring = sharding.render_sample_sharded(scene, cam, k0, cfg, mesh,
+                                              exchange=True)
+        # Bands below full height on the card, as ranks of a larger world
+        # render them: four 128-row bands, stacked.  Without the direction
+        # sort a band of whole 16-row tile rows blocks its rays as the full
+        # frame does (whole morton tiles), so the bands equal the frame bit
+        # for bit.  With it (the
+        # config's `resort`) bounce and shadow rays are blocked by
+        # direction among the band's rays only, and which rays share a
+        # block decides K1's candidate list (the nearest `max_u` clusters
+        # of the block) and its exact-t ties: those pixels may differ, so
+        # they are counted and the film mean is held to the repo's 0.5%.
+        keys = rng_mod.split(key, cfg.spp)
+
+        def four_bands(c):
+            rows = c.height // 4
+            return torch.cat([path.render_band(
+                scene, cam, keys, c, row_start=r * rows, n_rows=rows)[0].mean()
+                for r in range(4)])
+        unsorted = dataclasses.replace(cfg, resort=False)
+        plain_unsorted = path.render(scene, cam, key, unsorted).mean()
+        bands_unsorted = four_bands(unsorted)
+        bands_sorted = four_bands(cfg)
+        err = (bands_sorted - plain).abs()
+        within = float((err <= 1e-4 + 1e-3 * plain.abs()).all(-1).float()
+                       .mean())
+        mean_rel = float((bands_sorted.mean() - plain.mean()).abs()
+                         / plain.mean())
+        out["bands_sorted"] = {
+            "pixels_differing": int((err.amax(-1) > 0).sum()),
+            "pixels_within_tol": within, "mean_rel": mean_rel,
+            "max_abs_err": float(err.max())}
+        print(f"helmet four row bands with the direction sort [{card_line()}]"
+              f": {out['bands_sorted']['pixels_differing']} of "
+              f"{cfg.height * cfg.width} pixels differ from render() "
+              f"({within:.6f} within 1e-4 + 1e-3|ref|), film mean "
+              f"{mean_rel:.3g} relative, max |diff| {float(err.max()):.4g}")
+        if not (torch.isfinite(bands_sorted).all() and mean_rel <= 5e-3):
+            raise AssertionError(f"helmet bands with the sort: {out}")
+        for label, a, b in (("render_sharded", sharded, plain),
+                            ("render_sharded_2d 1x1", two_d, plain),
+                            ("ring render (one sample)", ring, one),
+                            ("four row bands without the direction sort",
+                             bands_unsorted, plain_unsorted)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"helmet {label} differs from render()")
+            print(f"helmet {cfg.width}x{cfg.height} {label}: equal to the "
+                  "unsharded render bit for bit")
+        mean = float(sharded.mean())
+        lo, hi = FILM_MEAN_BAND["helmet"]
+        if (sharded.shape != (cfg.height, cfg.width, 3)
+                or not lo <= mean <= hi):
+            raise AssertionError(f"sharded helmet film {tuple(sharded.shape)}"
+                                 f" mean {mean}")
+        out["helmet_launches"] = got
+        out["helmet_film_mean"] = mean
+
+        # What the sharded program costs: frames in turns plain, sharded,
+        # sharded, plain (host clock, each ending in a sync).
+        def frame(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        plain_fn = lambda: path.render(scene, cam, key, cfg)
+        sharded_fn = lambda: sharding.render_sharded(scene, cam, key, cfg,
+                                                     mesh)
+        order = [("plain", plain_fn), ("sharded", sharded_fn),
+                 ("sharded", sharded_fn), ("plain", plain_fn)] * 2
+        times = {"plain": [], "sharded": []}
+        for name, fn in order:
+            times[name].append(frame(fn))
+        out["helmet_frame_s"] = times
+        print(f"helmet frame [{card_line()}], plain render() {times['plain']} s, "
+              f"render_sharded on one rank {times['sharded']} s (median "
+              f"{np.median(times['sharded']) / np.median(times['plain']):.3f}"
+              "x); one card: scaling over GPUs not measured")
+
+        # The sharded train step against the plain one: cornell at full
+        # size, four material fields.  The forward is deterministic, so the
+        # losses are equal bit for bit; K5b adds with atomics in an order
+        # that changes from run to run, so the gradients are held to
+        # K5B_REL * max|g|, beside the plain step's own run-to-run spread.
+        c = GRAD_CLI
+        gc = config.get("cornell")
+        cscene, ccam = config.build_scene(gc.scene, dev)
+        ccfg = dataclasses.replace(gc.render, width=c["size"],
+                                   height=c["size"], spp=c["spp"],
+                                   max_bounces=c["bounces"])
+        target = path.render(cscene, ccam, rng_mod.key(9999, dev),
+                             dataclasses.replace(ccfg, spp=8)).mean()
+
+        def one_step(m):
+            params = pinv.trainable_copy(pinv.TrainableParams.from_scene(
+                cscene, base_color=True, roughness=True, metallic=True,
+                emissive=True))
+            opt = torch.optim.Adam(params.leaves(), lr=5e-2)
+            step = pinv.make_train_step(cscene, ccam, ccfg, opt, mesh=m)
+            _, _, loss = step(params, None, rng_mod.key(7, dev), target)
+            return loss, _grads(params)
+
+        (loss_s, g_s), got = counted(lambda: one_step(mesh))
+        per_render = c["spp"] * (2 * c["bounces"] + 1)
+        want = {k: 0 for k in got}
+        want.update(resident=per_render, gather_fwd=per_render,
+                    gather_bwd=per_render)
+        if got != want:
+            raise AssertionError(f"sharded step launches {got}, expected "
+                                 f"{want}")
+        loss_p, g_p = one_step(None)
+        loss_q, g_q = one_step(None)
+        rel = {k: float((g_s[k] - g_p[k]).abs().max()
+                        / g_p[k].abs().max().clamp_min(1e-30)) for k in g_p}
+        spread = {k: float((g_q[k] - g_p[k]).abs().max()
+                           / g_p[k].abs().max().clamp_min(1e-30))
+                  for k in g_p}
+        if not torch.equal(loss_s, loss_p) or max(rel.values()) > K5B_REL:
+            raise AssertionError(f"sharded step: loss {float(loss_s)} vs "
+                                 f"{float(loss_p)}, gradients rel {rel}")
+        print(f"sharded step [{card_line()}] cornell {c['size']}x{c['size']} "
+              f"x {c['spp']} spp "
+              f"x {c['bounces']} bounces on one rank: loss equal bit for bit "
+              f"({float(loss_s):.6g}), gradients within {rel} of max|g| "
+              f"(the plain step against itself: {spread}); launches {got}")
+        out["step"] = {"loss": float(loss_s), "grad_rel": rel,
+                       "plain_run_to_run_rel": spread, "launches": got}
+
+        # --tiles 1 through both CLIs, inside this world.
+        hdr_path = Path(tmp) / "tiles1.npy"
+        stats, got = counted(lambda: run_cli(
+            ["cornell", "-o", str(Path(tmp) / "tiles1.png"), "--hdr-output",
+             str(hdr_path), "--stats", "--device", "cuda", "--tiles", "1"]))
+        dense = path.render(cscene, ccam, rng_mod.key(0, dev), gc.render)
+        if not np.array_equal(np.load(hdr_path), dense.mean().cpu().numpy()):
+            raise AssertionError("render CLI --tiles 1 differs from render()")
+        if got["resident"] != 36 or got["tonemap"] != 1 or got["fused"]:
+            raise AssertionError(f"render CLI --tiles 1 launches {got}")
+        print(f"render CLI cornell --tiles 1 [{card_line()}]: equal to "
+              "render() bit for bit, "
+              f"{stats['seconds']:.3f} s, {stats['rays']} ray queries, "
+              f"launches {got}")
+        rep, got_inv = counted(lambda: run_inverse_cli(
+            ["--scene", "cornell", "--steps", "4", "--tiles", "1",
+             "--checkpoint-dir", str(Path(tmp) / "ckpt_tiles"),
+             "--checkpoint-every", "2"], tmp, "inverse_tiles1"))
+        if rep["tiles"] != 1 or not np.isfinite(rep["final_loss"]):
+            raise AssertionError(f"inverse CLI --tiles 1: {rep}")
+        print(f"inverse CLI --tiles 1 [{card_line()}]: 4 steps, final loss "
+              f"{rep['final_loss']:.6g}, launches {got_inv}")
+        out["cli_tiles1"] = {"render_stats": stats, "render_launches": got,
+                             "inverse_final_loss": rep["final_loss"],
+                             "inverse_launches": got_inv}
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 def phase_profile_frame(dev, name):
@@ -1487,6 +1858,13 @@ def main() -> int:
     print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms "
           f"(wrapper {k1.wrapper_ms:.4f}), "
           f"plain {k1_plain_ms:.4f} ms")
+    # K1 at 16 clusters a step: 72 KB of shared memory, the opt-in branch.
+    k1c, k1c_ms, k1c_plain_ms = phase_k1(dev, "helmet_proc", chunk=16)
+    print(f"K1 262144 helmet_proc camera rays at chunk=16: kernel "
+          f"{k1c_ms:.4f} ms (wrapper {k1c.wrapper_ms:.4f}, bound "
+          f"{k1.bound[0]:.4f} as at chunk=4; the coarser exit adds "
+          f"{k1c.work['tests'] - k1.work['tests']} tests), plain "
+          f"{k1c_plain_ms:.4f} ms [{card_line()}]")
     asset = phase_helmet_asset(dev)
     k1h, k1h_ms, k1h_plain_ms = phase_k1(dev, "helmet")
     print(f"K1 262144 helmet camera rays at B=512: kernel {k1h_ms:.4f} ms "
@@ -1604,9 +1982,28 @@ def main() -> int:
     for kernel, count in probe_counts.items():
         launches[f"probe_{kernel}"] = {"probe_tool": count}
 
+    # 12. the probes P5-P8, and their tools' runs
+    mosaic_times, mosaic_counts = phase_mosaic(dev)
+    for name, kernel, tool in (
+            ("probe_mosaic_gather", "mosaic_gather", "probe_mosaic_tool"),
+            ("probe_mosaic_stack", "mosaic_scalar_stack", "probe_mosaic_tool"),
+            ("probe_chunk", "chunk", "probe_mosaic_tool"),
+            ("subtile_dma", "subtile_copy", "exp_subtile_dma_tool")):
+        launches[name] = {tool: mosaic_counts[kernel]}
+
     # 11. where a helmet frame's time goes, beside helmet_proc's
     frames = {name: phase_profile_frame(dev, name)
               for name in ("helmet", "helmet_proc")}
+
+    # 13. parallel/ on one NCCL rank; its main paths' launches.  Last: the
+    # profiled phases run before NCCL's threads start.
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = phase_sharded(dev, tmp, counters)
+    for k in counters:
+        launches[k]["sharded_helmet"] = sharded["helmet_launches"][k]
+        launches[k]["sharded_step"] = sharded["step"]["launches"][k]
+        launches[k]["render_cli_tiles1"] = (
+            sharded["cli_tiles1"]["render_launches"][k])
 
     def entry(name, src, replaces, err, ms, wrapper_ms, plain_ms, bnd,
               library_ms):
@@ -1640,14 +2037,22 @@ def main() -> int:
               k5["bwd_wrapper_ms"], k5["bwd_plain_ms"], k5["bwd_bound"],
               k5["bwd_library_ms"]),
     ] + [
-        # exact agreement with the plain version was checked at every shape
-        entry(name, "probes.cu", replaces, 0.0, e["ms"], e["wrapper_ms"],
-              e["plain_ms"], e["bound"], e["library_ms"])
+        entry(name, "probes.cu", replaces, e["max_abs_err"], e["ms"],
+              e["wrapper_ms"], e["plain_ms"], e["bound"], e["library_ms"])
         for name, replaces in (("probe_scalar_stack", "tools/probe2.py:36"),
                                ("probe_relayout", "tools/probe2.py:103"),
                                ("probe_onehot_mm", "tools/probe2.py:133"),
                                ("probe_gather", "tools/probe2.py:166"))
         for e in (probe_times[name],)
+    ] + [
+        entry(name, "mosaic.cu", replaces, e["max_abs_err"], e["ms"],
+              e["wrapper_ms"], e["plain_ms"], e["bound"], e["library_ms"])
+        for name, replaces in (
+            ("probe_mosaic_gather", "tools/probe_mosaic.py:37"),
+            ("probe_mosaic_stack", "tools/probe_mosaic.py:83"),
+            ("probe_chunk", "tools/probe_mosaic.py:148"),
+            ("subtile_dma", "tools/exp_subtile_dma.py:14"))
+        for e in (mosaic_times[name],)
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,
@@ -1674,8 +2079,19 @@ def main() -> int:
             "k5a_emitter_bound_ms": k1h.k5a_emitter_bound[0],
             "k5a_emitter_library_ms": k1h.k5a_emitter_library_ms,
             "shape": "262144 helmet camera rays x 1024 clusters, B=512"},
+        "k1_chunk16": {
+            "rays_compared": k1c.rays, "winner_mismatches": k1c.mismatch,
+            "max_abs_err_t": k1c.max_abs_err, "ms": k1c_ms,
+            "wrapper_ms": k1c.wrapper_ms, "plain_ms": k1c_plain_ms,
+            # The same rays need no more work at chunk=16 than at chunk=4:
+            # both settings are held to the chunk=4 run's bound, and the
+            # tests the coarser early exit adds are a number of their own.
+            "bound_ms": k1.bound[0], "work": k1c.work,
+            "tests_added_by_chunk": k1c.work["tests"] - k1.work["tests"],
+            "shape": "262144 helmet_proc camera rays, chunk=16 (72 KB)"},
         "helmet_asset": asset, "glb_by_path": by_path, "report": report,
         "probes": probe_times, "probe_tool": probe_tool,
+        "probes_p5_p8": mosaic_times, "sharded": sharded,
         "profiled_frames": frames,
         "main_paths": runs, "goldens": goldens,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,

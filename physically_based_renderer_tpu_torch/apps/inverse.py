@@ -14,7 +14,14 @@ its loss is read), `start_step`, and `initial_error_applied` /
 `final_error_applied`, the errors of the clamped values the scene renders.
 `--scene` also takes a path to a .gltf/.glb file (read by scene/gltf.py,
 rendered from the file's camera, no cluster grid, as in the reference).
-`--tiles` (sharded steps) is not ported yet and raises.
+
+`--tiles N` runs the sharded step (grad/inverse.py
+`make_train_step_spmd`) over N ranks, one device a rank: each rank renders
+the target and its row band, and the gradients are all-reduced.  Under
+`torchrun --nproc-per-node N` each process is a rank; run plainly, the CLI
+starts N local ranks itself (gloo with `--device cpu`, NCCL with one GPU a
+rank on `cuda`; more ranks than GPUs exits 2).  Rank 0 writes the
+checkpoints and the report.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ def build_parser():
     p.add_argument("--bounces", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiles", type=int, default=0,
-                   help="shard rows over N devices (not ported)")
+                   help="shard rows over N ranks, one device a rank")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--resume", action="store_true")
@@ -85,11 +92,8 @@ def _perturb(true_params, seed: int, scale: float, device):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.tiles:
-        raise NotImplementedError("--tiles (the sharded train step) is not "
-                                  "ported yet (ROADMAP.md section 1, item 7:"
-                                  " parallel/)")
 
     import numpy as np
     import torch
@@ -104,6 +108,15 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    mesh = None
+    if args.tiles:
+        from ..parallel import distributed, sharding
+        rc = distributed.run_tiles(args.tiles, args.device, __spec__.name,
+                                   argv)
+        if rc is not None:
+            return rc
+        mesh = sharding.make_mesh(args.tiles)
+        device = distributed.rank_device()
     if args.scene in config_mod.CONFIGS:
         scene, camera = config_mod.build_scene(
             config_mod.get(args.scene).scene, device)
@@ -113,8 +126,11 @@ def main(argv=None) -> int:
         scene, _, camera = gltf_mod.load(args.scene)
         scene = upload_scene(scene, device)
         camera = upload_scene(camera, device)
+    if mesh is not None:
+        scene = sharding.replicate_scene(scene, mesh)
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
                        max_bounces=args.bounces)
+    lead = mesh is None or mesh.get_rank() == 0
 
     # Ground truth from the unperturbed scene at 8x spp (at 1-2 spp the
     # pixel loss is dominated by Monte Carlo noise).
@@ -147,7 +163,8 @@ def main(argv=None) -> int:
         from ..grad.edge import build_edge_table
         edges = build_edge_table(scene.geometry.indices)
         log.info("edge gradients on: %d mesh edges", edges.num_edges)
-    step_fn = make_train_step(scene, camera, cfg, opt, edges=edges)
+    step_fn = make_train_step(scene, camera, cfg, opt, mesh=mesh,
+                              edges=edges)
 
     start, opt_state = 0, None
     if args.resume and args.checkpoint_dir:
@@ -173,7 +190,7 @@ def main(argv=None) -> int:
         step_seconds.append(time.perf_counter() - ts)
         if i % 10 == 0 or i == args.steps - 1:
             log.info("step %d loss %.6f", i, losses[-1])
-        if (args.checkpoint_dir and args.checkpoint_every
+        if (lead and args.checkpoint_dir and args.checkpoint_every
                 and (i + 1) % args.checkpoint_every == 0):
             ckpt_mod.save(args.checkpoint_dir, i + 1, params, opt_state)
     dt = time.perf_counter() - t0
@@ -200,6 +217,8 @@ def main(argv=None) -> int:
             errs[field] = float(np.abs(r - t).mean()) / denom
         return errs
 
+    if not lead:
+        return 0
     warm = step_seconds[1:] or step_seconds
     report = {"steps": args.steps, "seconds": dt,
               "final_loss": losses[-1] if losses else None,
@@ -209,7 +228,7 @@ def main(argv=None) -> int:
               "initial_error_applied": field_errors(init_params, True),
               "final_error_applied": field_errors(params, True),
               "seconds_per_step": (sum(warm) / len(warm)) if warm else None,
-              "start_step": start,
+              "start_step": start, "tiles": args.tiles or 1,
               "device": (torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu")}
     print(json.dumps(report, indent=2))

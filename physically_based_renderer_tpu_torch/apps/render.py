@@ -12,8 +12,16 @@ scene/gltf.py, gets the cluster grid and renders with the default
 for the scenes it takes: `triangle`, `cornell`, `cornell_ggx`), tonemapped
 with K3 (`ops/tonemap.py`) and written as a PNG.  `--stats` prints one JSON
 line to stderr: ray queries, seconds (host clock around the render,
-synchronized), rays/s, and the device it ran on.  `--tiles`,
-`--blinn-phong` and `--debug-checks` are not ported yet and raise.
+synchronized), rays/s, and the device it ran on.
+
+`--tiles N` shards the image rows over N ranks, one device a rank
+(parallel/sharding.py `render_sharded_with_stats`: the dense estimator,
+never K4, as in the reference; the ray count summed over the ranks).
+Under `torchrun --nproc-per-node N` each process is a rank; run plainly,
+the CLI starts N local ranks itself (gloo with `--device cpu`, NCCL with
+one GPU a rank on `cuda`; more ranks than GPUs exits 2).  Rank 0 writes
+the outputs.  `--blinn-phong` and `--debug-checks` are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-checks", action="store_true",
                    help="NaN/Inf/OOB checks (not ported)")
     p.add_argument("--tiles", type=int, default=0,
-                   help="shard rows over N devices (not ported)")
+                   help="shard rows over N ranks, one device a rank")
     p.add_argument("--stats", action="store_true",
                    help="print rays/s JSON to stderr")
     p.add_argument("--device", default="cuda",
@@ -54,9 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    for flag, on in (("--tiles", args.tiles), ("--blinn-phong",
-                     args.blinn_phong), ("--debug-checks", args.debug_checks)):
+    for flag, on in (("--blinn-phong", args.blinn_phong),
+                     ("--debug-checks", args.debug_checks)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet")
 
@@ -72,6 +81,15 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    mesh = None
+    if args.tiles:
+        from ..parallel import distributed, sharding
+        rc = distributed.run_tiles(args.tiles, args.device, __spec__.name,
+                                   argv)
+        if rc is not None:
+            return rc
+        mesh = sharding.make_mesh(args.tiles)
+        device = distributed.rank_device()
     if args.scene in config_mod.CONFIGS:
         bc = config_mod.get(args.scene)
         scene, camera = config_mod.build_scene(bc.scene, device)
@@ -101,6 +119,8 @@ def main(argv=None) -> int:
     if args.no_mis:
         overrides["mis"] = False
     rcfg = dataclasses.replace(rcfg, **overrides)
+    if mesh is not None:
+        scene = sharding.replicate_scene(scene, mesh)
 
     def sync():
         if device.type == "cuda":
@@ -108,24 +128,32 @@ def main(argv=None) -> int:
 
     sync()
     t0 = time.perf_counter()
-    film, count = render_with_stats(scene, camera, rng.key(args.seed, device),
-                                    rcfg)
+    key = rng.key(args.seed, device)
+    if mesh is None:
+        film, count = render_with_stats(scene, camera, key, rcfg)
+    else:
+        film, count = sharding.render_sharded_with_stats(scene, camera, key,
+                                                         rcfg, mesh)
     hdr = film.mean()
     sync()
     dt = time.perf_counter() - t0
     rays = int(count)
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0
 
     ldr = tonemap(hdr.contiguous())
     film_mod.write_png(args.output, ldr)
     if args.hdr_output:
         np.save(args.hdr_output, hdr.cpu().numpy())
     print(f"wrote {args.output} ({rcfg.width}x{rcfg.height}, "
-          f"{rcfg.spp} spp, {dt:.3f}s)")
+          f"{rcfg.spp} spp, {dt:.3f}s"
+          f"{f', {args.tiles} tiles' if mesh is not None else ''})")
     if args.stats:
         dev_name = (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu")
         print(json.dumps({"rays": rays, "seconds": dt,
-                          "rays_per_s": rays / dt, "device": dev_name}),
+                          "rays_per_s": rays / dt, "device": dev_name,
+                          "tiles": args.tiles or 1}),
               file=sys.stderr)
     return 0
 

@@ -15,7 +15,10 @@ base colour at 1) and black pixels sit on the loss's bound.
 
 Optimizers are `torch.optim` optimizers over the params' leaf tensors; the
 step updates those leaves in place, and its `opt_state` slot carries the
-optimizer's `state_dict()`.  The sharded step (`mesh=`) is not ported.
+optimizer's `state_dict()`.  With `mesh=` (a DeviceMesh with a `tiles`
+axis, parallel/sharding.py) the step is `make_train_step_spmd`: one
+process per rank, each rendering its row band, then one all-reduce of the
+gradients.
 """
 
 from __future__ import annotations
@@ -27,14 +30,12 @@ import torch
 from ..core import math3d
 from ..core import rng as rng_mod
 from ..core.camera import Camera
-from ..integrator.path import RenderConfig, render
+from ..integrator.path import (RenderConfig, _check_config, render,
+                               render_band)
 from ..scene.types import Scene
 
 FIELDS = ("base_color_factor", "roughness_factor", "metallic_factor",
           "emissive_factor", "texture_data", "env_data", "vertex_positions")
-
-_SHARDED = ("the sharded train step (mesh=) is not ported yet (ROADMAP.md "
-            "section 1, item 7: parallel/)")
 
 
 @dataclasses.dataclass
@@ -144,9 +145,12 @@ def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     `edges` (grad.edge.EdgeTable) adds the primary-visibility boundary
     gradient for vertex optimisation (silhouette edge sampling).
+
+    With `mesh`, the step is `make_train_step_spmd`.
     """
     if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+        return make_train_step_spmd(scene, camera, cfg, optimizer, mesh,
+                                    edges=edges, edge_samples=edge_samples)
     last = {"state": None}
 
     def loss_fn(params: TrainableParams, key, target):
@@ -175,9 +179,84 @@ def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
     return step
 
 
-def make_train_step_spmd(*args, **kwargs):
-    """The explicit-SPMD step of the reference: not ported yet."""
-    raise NotImplementedError(_SHARDED)
+def make_train_step_spmd(scene: Scene, camera: Camera, cfg: RenderConfig,
+                         optimizer: torch.optim.Optimizer, mesh, edges=None,
+                         edge_samples: int = 1024):
+    """The sharded step over the mesh's `tiles` axis, one process a rank:
+    step(params, opt_state, key, target[H, W, 3]) -> (params, opt_state,
+    loss), with the contract of `make_train_step`.
+
+    Each rank renders its row band over all spp (the same sample keys as
+    the single-device step), takes the pixel loss of its band and runs
+    backward.  Then the `.grad` of every trained leaf is all-reduced over
+    the axis and divided by n (the global loss is the mean of the band
+    losses, the bands being equal), the loss likewise, and every rank
+    takes the same optimizer step, so the parameters stay equal.
+
+    With `edges`: each band's dL/dI, divided by n, is all-gathered into
+    the full image's; each rank draws max(edge_samples // n, 1) edge
+    samples with the key `fold_in(k_edge, rank)`, and the boundary
+    gradient rides the same all-reduce.
+
+    The reduce happens once, on the gradients, after backward().  A
+    differentiable all-reduce inside the loss
+    (`torch.distributed.nn.functional.all_reduce`) would reduce again in
+    its backward and scale every gradient by n, the bug the reference's
+    implicit psum once had.
+    """
+    import torch.distributed as dist
+
+    from ..parallel.sharding import (TILE_AXIS, _check_divisible, axis_size,
+                                     gather_rows)
+
+    _check_config(cfg)
+    n = axis_size(mesh, TILE_AXIS)
+    _check_divisible(cfg.height, n)
+    group = mesh.get_group(TILE_AXIS)
+    rank = mesh.get_local_rank(TILE_AXIS)
+    rows = cfg.height // n
+    r0 = rank * rows
+    last = {"state": None}
+
+    def band_mean(s, key):
+        return render_band(s, camera, rng_mod.split(key.to(s.device),
+                                                    cfg.spp), cfg,
+                           row_start=r0, n_rows=rows)[0].mean()
+
+    def local_loss(params: TrainableParams, key, target_band):
+        s = _with_live_accel(apply_params(scene, params), params)
+        if edges is None:
+            return pixel_loss(band_mean(s, key), target_band)
+        from .edge import edge_boundary_loss
+        k_img, k_edge = rng_mod.split(key, 2)
+        band = band_mean(s, k_img)
+        loss = pixel_loss(band, target_band)
+        dl_di = gather_rows(pixel_loss_grad(band, target_band) / n, group)
+        k_rank = rng_mod.fold_in(k_edge, rank)
+        return loss + edge_boundary_loss(s, camera, cfg, dl_di, k_rank,
+                                         edges,
+                                         n_samples=max(edge_samples // n, 1))
+
+    def step(params: TrainableParams, opt_state, key, target):
+        if opt_state is not None and opt_state is not last["state"]:
+            optimizer.load_state_dict(opt_state)
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = local_loss(params, key, target[r0:r0 + rows])
+            loss.backward()
+        loss = loss.detach().clone()
+        for leaf in params.leaves():
+            if leaf.grad is None:
+                leaf.grad = torch.zeros_like(leaf)
+            dist.all_reduce(leaf.grad, group=group)
+            leaf.grad.div_(n)
+        dist.all_reduce(loss, group=group)
+        loss.div_(n)
+        optimizer.step()
+        last["state"] = optimizer.state_dict()
+        return params, last["state"], loss
+
+    return step
 
 
 def trainable_copy(params: TrainableParams) -> TrainableParams:
@@ -194,13 +273,12 @@ def fit(scene: Scene, camera: Camera, target: torch.Tensor,
 
     `torch.optim.Adam(lr)` makes the update of the reference's
     `optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 added after the
-    bias-corrected square root.
+    bias-corrected square root.  With `mesh`, every rank runs it and the
+    steps are the sharded ones (make_train_step_spmd).
     """
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
     params = trainable_copy(params)
     opt = torch.optim.Adam(params.leaves(), lr=lr)
-    step = make_train_step(scene, camera, cfg, opt, edges=edges)
+    step = make_train_step(scene, camera, cfg, opt, mesh=mesh, edges=edges)
     key = rng_mod.key(seed, scene.device)
     opt_state = None
     losses = []

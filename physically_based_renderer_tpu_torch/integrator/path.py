@@ -15,8 +15,15 @@ accepts (tracer `auto` or `fused`) renders the whole frame with the fused
 kernel K4 (ops/fused.py) instead; on the CPU it stays dense, and the dense
 path takes the name `fused` as the reference's dispatch does, as brute
 force.  `render()` never takes K4.  The XLA block tracer (`block`), the
-BVH tracer, batched spp and the ring ray exchange are not ported yet and
-raise.
+BVH tracer and batched spp are not ported yet and raise.
+
+Row bands: `_sample_radiance(row_start=, n_rows=)` renders rows
+[row_start, row_start + n_rows) with per-ray keys from the GLOBAL pixel
+ids, so a band equals the same rows of the full frame bit for bit; the
+sharded renders and the sharded train step (parallel/, grad/inverse.py)
+stand on it.  `cfg.exchange_axis` routes the block tracer's calls through
+the ring ray exchange of parallel/exchange.py, on the mesh that
+`render_sample_sharded(exchange=True)` binds.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ class RenderConfig:
     max_u: int = 48               # candidate clusters per block
     chunk: int = 4                # clusters per kernel loop iteration
     resort: bool = True           # in-tracer direction-bin sort
-    exchange_axis: str | None = None  # ring ray exchange (not ported)
+    exchange_axis: str | None = None  # mesh axis of the ring ray exchange
     batch_spp: bool = False       # all spp as one ray stream (not ported)
 
 
@@ -101,6 +108,19 @@ def _tracer(scene: Scene, cfg: RenderConfig) -> str:
     return tracer
 
 
+def _maybe_exchange(tr, o, d, t_max, cfg: RenderConfig):
+    """Route a block-tracer call through the ring ray exchange when
+    cfg.exchange_axis names an axis of the bound mesh
+    (parallel/exchange.py)."""
+    if cfg.exchange_axis is None:
+        return tr(o, d, t_max)
+    from ..parallel import exchange
+    t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                            device=o.device).expand(o.shape[0])
+    return exchange.with_ring_exchange(
+        tr, o, d, t_max, exchange.axis_group(cfg.exchange_axis))
+
+
 def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
                 active=None, sort: bool = False, soup=None) -> Hit:
     """Closest-hit dispatch (cfg.tracer: auto|resident|pallas|brute).
@@ -116,10 +136,14 @@ def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
                                            soup=soup)
     if tracer == "pallas":
         t_max = BIG if active is None else torch.where(active, BIG, 0.0)
-        return intersect_blocks_pallas(
-            scene.clusters, o, d, t_min=t_min, t_max=t_max,
-            block=cfg.block_size, max_u=cfg.max_u, sort=sort,
-            chunk=cfg.chunk)
+
+        def tr(o_, d_, tm_):
+            return intersect_blocks_pallas(
+                scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
+                block=cfg.block_size, max_u=cfg.max_u, sort=sort,
+                chunk=cfg.chunk)
+
+        return _maybe_exchange(tr, o, d, t_max, cfg)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return intersect_brute(o, d, v0, v1, v2, t_min=t_min,
                            chunk=cfg.tri_chunk)
@@ -135,10 +159,13 @@ def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig,
                                            t_max=t_max, any_hit=True,
                                            soup=soup)
     if tracer == "pallas":
-        return intersect_blocks_pallas(
-            scene.clusters, o, d, t_min=t_min, t_max=t_max, any_hit=True,
-            block=cfg.block_size, max_u=cfg.max_u, sort=cfg.resort,
-            chunk=cfg.chunk)
+        def tr(o_, d_, tm_):
+            return intersect_blocks_pallas(
+                scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
+                any_hit=True, block=cfg.block_size, max_u=cfg.max_u,
+                sort=cfg.resort, chunk=cfg.chunk)
+
+        return _maybe_exchange(tr, o, d, t_max, cfg)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return occluded_brute(o, d, v0, v1, v2, t_min=t_min, t_max=t_max,
                           chunk=cfg.tri_chunk)
@@ -340,28 +367,31 @@ def _nee_prepare(sp, wo, ls, throughput, active, mis: bool,
 def _check_config(cfg: RenderConfig) -> None:
     if cfg.batch_spp:
         raise NotImplementedError("batch_spp is not ported yet")
-    if cfg.exchange_axis is not None:
-        raise NotImplementedError("the ring ray exchange is not ported yet "
-                                  "(ROADMAP.md, module queue: parallel/)")
 
 
 def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
-                     cfg: RenderConfig, return_stats: bool = False,
+                     cfg: RenderConfig, row_start: int = 0,
+                     n_rows: int | None = None, return_stats: bool = False,
                      tables: FrameTables | None = None):
-    """One sample per pixel -> radiance [H, W, 3].
+    """One sample per pixel for a row band -> radiance [n_rows, W, 3].
 
-    Per-ray keys derive from the global pixel ids.  With the block tracer
-    the rays are processed in morton order (compact 16x16 tiles per
-    256-ray block, core/morton.py) and unscrambled at the end; the other
-    tracers are order-invariant and take row-major order."""
+    Per-ray keys derive from the GLOBAL pixel ids, so a band equals the
+    same rows of a full render.  With the block tracer the band's rays are
+    processed in band-local morton order (compact 16x16 tiles per 256-ray
+    block, core/morton.py) and unscrambled at the end; the other tracers
+    are order-invariant and take row-major order."""
     dev = scene.device
-    n_pix = cfg.height * cfg.width
+    if n_rows is None:
+        n_rows = cfg.height
+    first = row_start * cfg.width
     morton = _tracer(scene, cfg) == "pallas"
     if morton:
-        pix = torch.from_numpy(morton_pixel_ids(cfg.height, cfg.width)).to(
-            device=dev, dtype=torch.int64)
+        pix = torch.from_numpy(morton_pixel_ids(
+            cfg.height, cfg.width, row_start, n_rows)).to(
+                device=dev, dtype=torch.int64)
     else:
-        pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
+        pix = torch.arange(first, first + n_rows * cfg.width,
+                           dtype=torch.int64, device=dev)
     keys = rng_mod.ray_keys(key, pix)
     jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
     px = (pix % cfg.width).to(torch.float32)
@@ -374,9 +404,19 @@ def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
                          cone_angle=cone_angle, tables=tables)
     L, count = out if return_stats else (out, None)
     if morton:
-        L = torch.zeros_like(L).index_put_((pix,), L)
-    img = L.reshape(cfg.height, cfg.width, 3)
+        # Scatter by the band-local index: pix holds global ids.
+        L = torch.zeros_like(L).index_put_((pix - first,), L)
+    img = L.reshape(n_rows, cfg.width, 3)
     return (img, count) if return_stats else img
+
+
+def render_sample(scene: Scene, camera: Camera, key: torch.Tensor,
+                  cfg: RenderConfig, row_start: int = 0,
+                  n_rows: int | None = None) -> torch.Tensor:
+    """One sample per pixel for a row band -> radiance [n_rows, W, 3]."""
+    _check_config(cfg)
+    return _sample_radiance(scene, camera, key.to(scene.device), cfg,
+                            row_start, n_rows)
 
 
 def render(scene: Scene, camera: Camera, key: torch.Tensor,
@@ -385,6 +425,12 @@ def render(scene: Scene, camera: Camera, key: torch.Tensor,
     dense estimator on any device (never K4, as in the reference)."""
     _check_config(cfg)
     return _render_with_stats_dense(scene, camera, key, cfg)[0]
+
+
+def render_image(scene: Scene, camera: Camera, seed: int,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Convenience: render -> mean HDR image [H, W, 3]."""
+    return render(scene, camera, rng_mod.key(seed, scene.device), cfg).mean()
 
 
 def _use_fused(scene: Scene, cfg: RenderConfig) -> bool:
@@ -422,12 +468,24 @@ def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
 def _render_with_stats_dense(scene: Scene, camera: Camera, key: torch.Tensor,
                              cfg: RenderConfig):
     """Dense render + ray-query count: one pass per sample."""
-    film = Film.zeros(cfg.height, cfg.width, device=scene.device)
+    return render_band(scene, camera,
+                       rng_mod.split(key.to(scene.device), cfg.spp), cfg)
+
+
+def render_band(scene: Scene, camera: Camera, keys: torch.Tensor,
+                cfg: RenderConfig, row_start: int = 0,
+                n_rows: int | None = None):
+    """(Film of the band's rows summed over one pass per sample key in
+    `keys`, int64 ray-query count).  The sharded renders call it with
+    their share of the samples (parallel/sharding.py)."""
+    n_rows = cfg.height if n_rows is None else n_rows
+    film = Film.zeros(n_rows, cfg.width, device=scene.device)
     count = torch.zeros((), dtype=torch.int64, device=scene.device)
     tables = frame_tables(scene, cfg)
-    for k in rng_mod.split(key.to(scene.device), cfg.spp):
-        radiance, c = _sample_radiance(scene, camera, k, cfg,
-                                       return_stats=True, tables=tables)
+    for k in keys:
+        radiance, c = _sample_radiance(scene, camera, k, cfg, row_start,
+                                       n_rows, return_stats=True,
+                                       tables=tables)
         film = film.add_samples(radiance)
         count = count + c
     return film, count

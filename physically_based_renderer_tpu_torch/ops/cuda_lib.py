@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu",
-           "gather.cu", "probes.cu")
+           "gather.cu", "probes.cu", "mosaic.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -74,6 +74,14 @@ _SIGNATURES = {
     "pbr_probe_onehot_mm": [_P, _P, _I, _I, _I, _P, _P],
     # x, idx, rows, lanes, axis, out, stream
     "pbr_probe_gather": [_P, _P, _I, _I, _I, _P, _P],
+    # x, idx, rows, lanes, axis, reps, out, stream
+    "pbr_mosaic_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # boxes, n_nodes, out, stream
+    "pbr_mosaic_scalar_stack": [_P, _I, _P, _P],
+    # o, t, b, w, n_chunks, out, stream
+    "pbr_mosaic_chunk": [_P, _P, _I, _I, _I, _P, _P],
+    # src, idx, n_src, nb, n_iters, ch, out, stream
+    "pbr_subtile_copy": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,6 @@
-"""The four primitive probes P1-P4 (port of the kernels of the reference
-repository's `tools/probe2.py`): wrappers, plain versions, launch counts.
+"""The primitive probes P1-P8 (port of the kernels of the reference
+repository's `tools/probe2.py`, `tools/probe_mosaic.py` and
+`tools/exp_subtile_dma.py`): wrappers, plain versions, launch counts.
 
   P1 `scalar_stack(boxes)`    one scalar walk of an implicit binary tree of
                               boxes with a stack -> (visited, leaves), leaves
@@ -7,13 +8,24 @@ repository's `tools/probe2.py`): wrappers, plain versions, launch counts.
                               ten times (x + i), summed, and moved back
   P3 `onehot_mm(win, rows)`   rows.T[win] as a one-hot product
   P4 `gather(x, idx, axis)`   take_along_axis(x, idx, axis)
+  P5 `mosaic_gather(x, idx, axis, reps)`
+                              sum over i < reps of take_along_axis(x,
+                              (idx + i) mod size, axis)
+  P6 `mosaic_scalar_stack(boxes)`
+                              P1's walk without the leaf list -> visited
+  P7 `chunk(o, t, n_chunks)`  the block tracer's per-chunk arithmetic on
+                              b rays x w columns, masked, min
+  P8 `subtile_copy(src, idx, n_iters, ch)`
+                              double-buffered copies of [16, 32] tiles picked
+                              by idx, summed over rows and steps
 
-Each wrapper launches its kernel (`csrc/probes.cu`) for CUDA tensors and
-raises on what the kernel does not take; for CPU tensors it runs the plain
-version beside it.  The plain versions repeat the kernels' arithmetic step
-by step and are used by the tests and by nothing on a card.  `LAUNCHES`
-counts kernel launches by probe name.  The tool that drives them is
-`tools/probe2.py` of this package.
+Each wrapper launches its kernel (`csrc/probes.cu` for P1-P4,
+`csrc/mosaic.cu` for P5-P8) for CUDA tensors and raises on what the kernel
+does not take; for CPU tensors it runs the plain version beside it.  The
+plain versions repeat the kernels' arithmetic step by step and are used by
+the tests and by nothing on a card.  `LAUNCHES` counts kernel launches by
+probe name.  The tools that drive them are `tools/probe2.py`,
+`tools/probe_mosaic.py` and `tools/exp_subtile_dma.py` of this package.
 """
 
 from __future__ import annotations
@@ -23,12 +35,16 @@ import torch
 from . import cuda_lib
 
 # Kernel launches since the last reset, by kernel.
-LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0}
+LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0,
+            "mosaic_gather": 0, "mosaic_scalar_stack": 0, "chunk": 0,
+            "subtile_copy": 0}
 
 TILE = (8, 128)        # P2's tile: eight sublanes by 128 lanes
 RELAYOUT_MOVES = 10
 MAX_NODES = 8191       # P1: boxes, stack and leaf list fit in 227 KB
 MAX_MM_ROWS = 32       # P3: attribute rows per CTA
+TILE_P8 = (16, 32)     # P8: one copied tile, 2 KB
+MAX_P8_CH = 32         # P8: ch x 32 threads a CTA
 
 
 def reset_launches() -> None:
@@ -211,4 +227,192 @@ def gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
         out.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "pbr_probe_gather")
     LAUNCHES["gather"] += 1
+    return out
+
+
+def _aligned16(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         "kernel reads it in 16-byte pieces)")
+
+
+# --------------------------------------------------------------------- P5
+
+def mosaic_gather_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                        reps: int) -> torch.Tensor:
+    """Plain P5: the sum over i < reps of the gathers at (idx + i) mod
+    size, the modulo a floor modulo, as jnp's %."""
+    size = x.shape[axis]
+    acc = torch.zeros_like(x)
+    for i in range(reps):
+        acc = acc + torch.gather(x, axis, (idx.long() + i) % size)
+    return acc
+
+
+def mosaic_gather(x: torch.Tensor, idx: torch.Tensor, axis: int,
+                  reps: int) -> torch.Tensor:
+    """P5: x f32[R, L], idx i32[R, L] -> out[r, c] = sum over i < reps of
+    x[(idx[r, c] + i) mod R, c] (axis 0) or x[r, (idx[r, c] + i) mod L]
+    (axis 1).  The kernel stages x in shared memory where it fits (227
+    KB)."""
+    _require(x, "x", torch.float32, 2)
+    _require(idx, "idx", torch.int32, 2)
+    _same_device(x, idx)
+    if idx.shape != x.shape or axis not in (0, 1) or reps < 0:
+        raise ValueError(f"idx must have x's shape {tuple(x.shape)}, axis be "
+                         f"0 or 1 and reps >= 0, got {tuple(idx.shape)}, "
+                         f"{axis}, {reps}")
+    if x.numel() >= 1 << 31:
+        raise ValueError("x is too large for the kernel's 32-bit indexing")
+    if x.device.type == "cpu":
+        return mosaic_gather_plain(x, idx, axis, reps)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _aligned16(x, "x")
+    rc = cuda_lib.library().pbr_mosaic_gather(
+        x.data_ptr(), idx.data_ptr(), x.shape[0], x.shape[1], axis, reps,
+        out.data_ptr(), cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(rc, "pbr_mosaic_gather")
+    LAUNCHES["mosaic_gather"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- P6
+
+def mosaic_scalar_stack_plain(boxes: torch.Tensor) -> torch.Tensor:
+    """Plain P6: P1's walk (a Python loop over a CPU copy) counting the
+    nodes visited; no leaf list."""
+    b = boxes.detach().cpu().reshape(-1, 6)
+    n = b.shape[0]
+    hit = (b[:, :3].amax(dim=1) <= b[:, 3:].amin(dim=1)).tolist()
+    stack, visited = [0], 0
+    while stack:
+        node = stack.pop()
+        left = 2 * node + 1
+        if hit[node] and left < n:
+            stack.append(left)
+            stack.append(left + 1)
+        visited += 1
+    return torch.tensor([visited], dtype=torch.int32, device=boxes.device)
+
+
+def mosaic_scalar_stack(boxes: torch.Tensor) -> torch.Tensor:
+    """P6 -> i32[1]: the nodes a walk of the implicit tree visits.  boxes
+    f32[n * 6] as for P1 (lo xyz | hi xyz a node; n odd)."""
+    _require(boxes, "boxes", torch.float32, 1)
+    n = boxes.shape[0] // 6
+    if boxes.shape[0] != n * 6 or n % 2 == 0 or not 1 <= n <= MAX_NODES:
+        raise ValueError(f"boxes must hold 6 floats for an odd number of "
+                         f"nodes up to {MAX_NODES}, got {boxes.shape[0]} "
+                         "floats")
+    if boxes.device.type == "cpu":
+        return mosaic_scalar_stack_plain(boxes)
+    out = torch.empty((1,), dtype=torch.int32, device=boxes.device)
+    rc = cuda_lib.library().pbr_mosaic_scalar_stack(
+        boxes.data_ptr(), n, out.data_ptr(), cuda_lib.stream_ptr(boxes.device))
+    cuda_lib.check(rc, "pbr_mosaic_scalar_stack")
+    LAUNCHES["mosaic_scalar_stack"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- P7
+
+def chunk_plain(o: torch.Tensor, t: torch.Tensor,
+                n_chunks: int) -> torch.Tensor:
+    """Plain P7, the reference's arithmetic op by op in float32."""
+    rox = o[0, :, None]
+    acc = torch.full((o.shape[1], 1), 1e30, dtype=torch.float32,
+                     device=o.device)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=o.device)
+    for j in range(n_chunks):
+        e = (t * f32(j + 1.0)) * f32(1.0001)
+        px = rox * e[0][None, :]
+        det = px * e[1][None, :] + px
+        inv = torch.where(det.abs() > f32(1e-9), f32(1.0) / det, f32(0.0))
+        uu = px * inv
+        vv = uu * inv + px
+        tt = vv * uu + uu
+        ok = (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > 0.0)
+        tt = torch.where(ok, tt, f32(1e30))
+        acc = torch.minimum(acc, tt.amin(dim=1, keepdim=True))
+    return acc
+
+
+def chunk(o: torch.Tensor, t: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
+    """P7: o f32[8, b], t f32[16, w] -> f32[b, 1].  Per chunk j < n_chunks:
+    e = t (j + 1) 1.0001; px = o[0] e[0]; det = px e[1] + px; inv = 1/det
+    (0 where |det| <= 1e-9); u = px inv; v = u inv + px; tt = v u + u; tt
+    where u, v >= 0, u + v <= 1, tt > 0, else 1e30; the min over the
+    columns and over the chunks."""
+    _require(o, "o", torch.float32, 2)
+    _require(t, "t", torch.float32, 2)
+    _same_device(o, t)
+    if o.shape[0] < 1 or t.shape[0] < 2 or n_chunks < 0:
+        raise ValueError(f"o must have a row and t two, n_chunks >= 0; got "
+                         f"{tuple(o.shape)}, {tuple(t.shape)}, {n_chunks}")
+    if o.device.type == "cpu":
+        return chunk_plain(o, t, n_chunks)
+    b, w = o.shape[1], t.shape[1]
+    out = torch.empty((b, 1), dtype=torch.float32, device=o.device)
+    if b == 0:
+        return out
+    rc = cuda_lib.library().pbr_mosaic_chunk(
+        o.data_ptr(), t.data_ptr(), b, w, n_chunks, out.data_ptr(),
+        cuda_lib.stream_ptr(o.device))
+    cuda_lib.check(rc, "pbr_mosaic_chunk")
+    LAUNCHES["chunk"] += 1
+    return out
+
+
+# --------------------------------------------------------------------- P8
+
+def subtile_copy_plain(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                       ch: int) -> torch.Tensor:
+    """Plain P8: per block and step, the picked tiles' rows summed in
+    order (row 0 + row 1 + ...), then added to the running sum; indices
+    clamped into range, as in the kernel."""
+    nb = idx.shape[0] // (n_iters * ch)
+    k = idx.long().clamp(0, src.shape[0] - 1).reshape(nb, n_iters, ch)
+    acc = torch.zeros((nb, ch, TILE_P8[1]), dtype=torch.float32,
+                      device=src.device)
+    for j in range(n_iters):
+        tiles = src[k[:, j]]                    # [nb, ch, 16, 32]
+        rows = tiles[:, :, 0]
+        for r in range(1, TILE_P8[0]):
+            rows = rows + tiles[:, :, r]
+        acc = acc + rows
+    return acc.reshape(nb, 1, ch * TILE_P8[1])
+
+
+def subtile_copy(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                 ch: int) -> torch.Tensor:
+    """P8: src f32[C, 16, 32], idx i32[nb * n_iters * ch] ->
+    f32[nb, 1, ch * 32]: out[g, 0, 32 i + l] = sum over j < n_iters of the
+    row sum of src[idx[g n_iters ch + j ch + i], :, l]."""
+    _require(src, "src", torch.float32, 3)
+    _require(idx, "idx", torch.int32, 1)
+    _same_device(src, idx)
+    if (tuple(src.shape[1:]) != TILE_P8 or src.shape[0] < 1
+            or n_iters < 1 or not 1 <= ch <= MAX_P8_CH
+            or idx.shape[0] % (n_iters * ch)):
+        raise ValueError(f"src must be [C >= 1, 16, 32], 1 <= ch <= "
+                         f"{MAX_P8_CH}, n_iters >= 1 and idx a multiple of "
+                         f"n_iters * ch long; got {tuple(src.shape)}, "
+                         f"ch {ch}, n_iters {n_iters}, {idx.shape[0]} indices")
+    if src.numel() >= 1 << 31:
+        raise ValueError("src is too large for the kernel's indexing")
+    if src.device.type == "cpu":
+        return subtile_copy_plain(src, idx, n_iters, ch)
+    nb = idx.shape[0] // (n_iters * ch)
+    out = torch.empty((nb, 1, ch * TILE_P8[1]), dtype=torch.float32,
+                      device=src.device)
+    if nb == 0:
+        return out
+    _aligned16(src, "src")
+    rc = cuda_lib.library().pbr_subtile_copy(
+        src.data_ptr(), idx.data_ptr(), src.shape[0], nb, n_iters, ch,
+        out.data_ptr(), cuda_lib.stream_ptr(src.device))
+    cuda_lib.check(rc, "pbr_subtile_copy")
+    LAUNCHES["subtile_copy"] += 1
     return out

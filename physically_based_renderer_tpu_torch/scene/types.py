@@ -375,14 +375,20 @@ def make_scene(geometry: Geometry, materials: Materials,
     )
 
 
-def _to_device(obj, device):
+def map_tensors(obj, fn):
+    """`obj` (a record of tensors: a Scene, a Camera, a cluster grid) with
+    fn applied to every tensor, nested records included."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
-            f.name: _to_device(getattr(obj, f.name), device)
+            f.name: map_tensors(getattr(obj, f.name), fn)
             for f in dataclasses.fields(obj)})
     return obj
+
+
+def _to_device(obj, device):
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 def with_clusters(scene: Scene) -> Scene:

@@ -32,6 +32,8 @@ import sys
 
 import numpy as np
 
+from .timing import device_ms
+
 N_NODES = 2047
 # name -> (rows, lanes, axis) of the gather probes
 GATHER_SHAPES = {
@@ -124,25 +126,10 @@ def wrapper_us(fn, iters: int, device) -> float | None:
 
 def device_us(fn, iters: int, kernel: str, device) -> float | None:
     """Microseconds per launch of the kernels named `kernel` on the device
-    itself, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    itself (tools/timing.py); None on the CPU."""
     if device.type != "cuda":
         return None
-    fn()
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize(device)
-    own = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in e.key]
-    n = sum(e.count for e in own)
-    if n == 0:
-        raise RuntimeError(f"the profiler saw no launch of {kernel}")
-    return sum(e.self_device_time_total for e in own) / n
+    return device_ms(fn, iters, kernel)[0] * 1e3
 
 
 def _us(v) -> str:

@@ -1,0 +1,191 @@
+"""In-kernel gather, scalar walk and chunk arithmetic on the card (port of
+the reference repository's `tools/probe_mosaic.py`): P5, P6, P7.
+
+    python -m physically_based_renderer_tpu_torch.tools.probe_mosaic \
+        [--device cuda] [--iters 50]
+
+  P5 `gather`: sum over i < reps of take_along_axis(x, (idx + i) % size,
+     axis) for the reference probe's ten shapes (x = arange, idx from
+     `default_rng(0)`), held exactly to the probe's own numpy check;
+  P6 `scalar_stack`: a walk of an implicit tree of 2,047 boxes counting the
+     nodes visited, on the probe's own boxes (`default_rng(1)`: the root box
+     fails the slab test, so the walk is one node long, as for P1) and on
+     the sets of `tools/probe2.py` where the tree really is walked, held to
+     the plain version;
+  P7 `chunk`: the block tracer's per-chunk arithmetic on 256 rays x 512
+     columns x 8 chunks, on the probe's data (all ones: every test fails
+     the mask and every output is 1e30) and on seeded random data where the
+     mask passes, held bit for bit to the plain version.
+
+Every shape runs; any disagreement or failed launch exits non-zero (the
+reference caught compile failures per shape and went on).  Each line gives
+the kernel's device time per launch (torch.profiler), the wrapper's time
+per call back to back (CUDA events) and the card's name and power limit;
+`--device cpu` runs the plain versions and prints no times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from .probe2 import STACK_DATA, card_line, device_us, scalar_stack_boxes, \
+    wrapper_us, _us
+
+# (rows, lanes, axis, reps, iters): the reference probe's calls.
+GATHER_CASES = (
+    (8, 128, 0, 16, 50), (8, 512, 0, 16, 50), (32, 512, 0, 16, 50),
+    (256, 512, 0, 16, 50), (1024, 512, 0, 4, 50), (4096, 128, 0, 2, 10),
+    (8, 128, 1, 16, 50), (8, 512, 1, 16, 50), (256, 512, 1, 16, 50),
+    (8, 4096, 1, 4, 50))
+# P7's shape: b rays, w columns, chunks.
+CHUNK = (256, 512, 8)
+# P7 data: the probe's own (all ones) and seeded random data whose tests
+# pass the mask: name -> seed (None: ones).
+CHUNK_DATA = {"probe": None, "random": 7}
+
+
+def gather_inputs(rows: int, lanes: int, axis: int):
+    """(x = arange f32[rows, lanes], idx i32[rows, lanes]) as the reference
+    probe makes them."""
+    x = np.arange(rows * lanes, dtype=np.float32).reshape(rows, lanes)
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, rows if axis == 0 else lanes,
+                       (rows, lanes)).astype(np.int32)
+    return x, idx
+
+
+def gather_expected(x: np.ndarray, idx: np.ndarray, axis: int,
+                    reps: int) -> np.ndarray:
+    """The reference probe's own check (`probe_mosaic.py:69-73`)."""
+    size = x.shape[axis]
+    return sum(np.take_along_axis(x, (idx + i) % size, axis=axis)
+               for i in range(reps))
+
+
+def chunk_inputs(data: str):
+    """(o f32[8, b], t f32[16, w]) of one of CHUNK_DATA's sets.  Random:
+    o in [0.5, 1.5), t row 0 in [0.01, 0.2) and row 1 in [0.5, 5): det =
+    px (e1 + 1) stays away from 0, and 38-94% of a chunk's tests pass the
+    mask, varying with the chunk."""
+    b, w, _ = CHUNK
+    seed = CHUNK_DATA[data]
+    if seed is None:
+        return (np.ones((8, b), np.float32), np.ones((16, w), np.float32))
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.5, 1.5, (8, b)).astype(np.float32)
+    t = rng.uniform(-1.0, 1.0, (16, w)).astype(np.float32)
+    t[0] = rng.uniform(0.01, 0.2, w)
+    t[1] = rng.uniform(0.5, 5.0, w)
+    return o, t
+
+
+def probe_gather(case, device, iters: int) -> dict:
+    import torch
+
+    from ..ops import probes
+    rows, lanes, axis, reps, case_iters = case
+    x_np, idx_np = gather_inputs(rows, lanes, axis)
+    x = torch.from_numpy(x_np).to(device)
+    idx = torch.from_numpy(idx_np).to(device)
+    got = probes.mosaic_gather(x, idx, axis, reps).cpu().numpy()
+    ok = bool((got == gather_expected(x_np, idx_np, axis, reps)).all())
+    n = min(iters, case_iters)
+    call = lambda: probes.mosaic_gather(x, idx, axis, reps)
+    dev_us = device_us(call, n, "mosaic_gather_kernel", device)
+    wrap = wrapper_us(call, n, device)
+    rate = (f" ({rows * lanes * reps / dev_us / 1e3:.2f} G gathers/s)"
+            if dev_us is not None else "")
+    print(f"P5 gather axis={axis} [{rows},{lanes}] x{reps}: device "
+          f"{_us(dev_us)}{rate}, wrapper {_us(wrap)} ok={ok} "
+          f"[{card_line(device)}]", flush=True)
+    return {"ok": ok, "device_us": dev_us, "wrapper_us": wrap}
+
+
+def probe_scalar_stack(device, iters: int) -> dict:
+    import torch
+
+    from ..ops import probes
+    res = {}
+    for data in STACK_DATA:
+        boxes = torch.from_numpy(scalar_stack_boxes(data)).to(device)
+        got = probes.mosaic_scalar_stack(boxes)
+        visited = int(got[0])
+        ok = bool(torch.equal(got.cpu(),
+                              probes.mosaic_scalar_stack_plain(boxes.cpu())))
+        call = lambda: probes.mosaic_scalar_stack(boxes)
+        dev_us = device_us(call, iters, "mosaic_scalar_stack_kernel", device)
+        wrap = wrapper_us(call, iters, device)
+        per_node = (f" ({dev_us / max(visited, 1) * 1e3:.0f} ns/node)"
+                    if dev_us is not None else "")
+        print(f"P6 scalar_stack[{data}]: visited {visited} nodes, device "
+              f"{_us(dev_us)}{per_node}, wrapper {_us(wrap)} ok={ok} "
+              f"[{card_line(device)}]", flush=True)
+        res[data] = {"visited": visited, "ok": ok, "device_us": dev_us,
+                     "wrapper_us": wrap}
+    return res
+
+
+def probe_chunk(device, iters: int) -> dict:
+    import torch
+
+    from ..ops import probes
+    b, w, n_chunks = CHUNK
+    res = {}
+    for data in CHUNK_DATA:
+        o_np, t_np = chunk_inputs(data)
+        o = torch.from_numpy(o_np).to(device)
+        t = torch.from_numpy(t_np).to(device)
+        got = probes.chunk(o, t, n_chunks)
+        want = probes.chunk_plain(o.cpu(), t.cpu(), n_chunks)
+        ok = bool(torch.equal(got.cpu(), want))
+        hits = int((want < 1e30).sum())
+        call = lambda: probes.chunk(o, t, n_chunks)
+        dev_us = device_us(call, iters, "mosaic_chunk_kernel", device)
+        wrap = wrapper_us(call, iters, device)
+        each = (f" ({dev_us / n_chunks:.3f} us/chunk)"
+                if dev_us is not None else "")
+        print(f"P7 chunk[{data}] [{b},{w}] x{n_chunks}: {hits} of {b} rays "
+              f"hit, device {_us(dev_us)}{each}, wrapper {_us(wrap)} "
+              f"ok={ok} [{card_line(device)}]", flush=True)
+        res[data] = {"ok": ok, "hits": hits, "device_us": dev_us,
+                     "wrapper_us": wrap}
+    return res
+
+
+def run(device, iters: int = 50) -> dict:
+    """Every probe of the tool on `device`: {name: results}."""
+    out = {f"gather_{r}x{l}_axis{a}": probe_gather(c, device, iters)
+           for c in GATHER_CASES for r, l, a in (c[:3],)}
+    out["scalar_stack"] = probe_scalar_stack(device, iters)
+    out["chunk"] = probe_chunk(device, iters)
+    return out
+
+
+def all_ok(results: dict) -> bool:
+    return all(r["ok"] for res in results.values()
+               for r in (res.values() if "ok" not in res else (res,)))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="pbr-probe-mosaic-torch",
+                                description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, cuda:1, cpu: plain versions, "
+                        "no times)")
+    p.add_argument("--iters", type=int, default=50)
+    args = p.parse_args(argv)
+
+    import torch
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    print(f"--- probe_mosaic on {card_line(device)}", flush=True)
+    return 0 if all_ok(run(device, args.iters)) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

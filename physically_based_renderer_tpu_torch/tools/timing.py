@@ -1,0 +1,74 @@
+"""Device time of a call on the card, from torch.profiler.
+
+Shared by `chip_smoke.py` and the probe tools (probe2, probe_mosaic,
+exp_subtile_dma).  Run on a CUDA device only.
+"""
+
+from __future__ import annotations
+
+
+def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
+              attempts: int = 4):
+    """Device time of fn under torch.profiler: (ms per launch of the
+    kernels whose name holds `kernel`, ms per call of every other kernel
+    the call ran).  With kernel None, every kernel counts as the call's own
+    and the first number is ms per call.  The warm-up calls run in the
+    profiler's warm-up step, so tracing is already on when the measured
+    step starts.  The tracer on the card's machine now and then drops the
+    events of a step of short launches (seen: none, 64 or 82 of 100, of a
+    1-18 us kernel): a step in which it saw fewer than 90% of the launches
+    of `kernel` is measured again, up to `attempts` times.  The time per
+    launch is averaged over the launches seen, in the step that saw the
+    most; it raises only if no step saw one.  The second number counts the
+    other kernels' events seen, so drops lower it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    best = None
+    for attempt in range(attempts):
+        # The events of the measured step, read when it ends (the profiler
+        # clears them at the end of its cycle).
+        steps = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: steps.append(p.key_averages())
+                     ) as prof:
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        if len(steps) != 1:
+            raise AssertionError(f"profiler gave {len(steps)} measured steps")
+        own_us = other_us = 0.0
+        n_own = 0
+        for e in steps[0]:
+            # The step's own annotation also has a device-side span over all
+            # of its kernels: it is no kernel.
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.key.startswith("ProfilerStep")):
+                continue
+            if kernel is None or kernel in e.key:
+                own_us += e.self_device_time_total
+                n_own += e.count
+            else:
+                other_us += e.self_device_time_total
+        if kernel is not None and n_own > iters:
+            raise AssertionError(f"{n_own} launches of {kernel} in {iters} "
+                                 "calls: the name matches another kernel")
+        if own_us > 0.0 and (best is None or n_own > best[2]):
+            best = own_us, other_us, n_own
+        if own_us > 0.0 and (kernel is None or n_own >= 0.9 * iters):
+            break
+        print(f"profiler saw {n_own} launches of {kernel} in {iters} calls "
+              f"(attempt {attempt + 1} of {attempts})")
+    if best is None:
+        raise AssertionError(f"profiler saw no launch of {kernel} in "
+                             f"{iters} calls, {attempts} times")
+    own_us, other_us, n_own = best
+    if kernel is None:
+        return own_us / 1e3 / iters, 0.0
+    return own_us / 1e3 / n_own, other_us / 1e3 / iters

@@ -8,6 +8,8 @@ contracts multiply-adds into FMAs inside the reference's jitted kernel
 (measured here: up to 13 ulps, 1.4e-6 relative), while the plain version
 rounds every product and sum, as the CUDA kernel does (-fmad=false)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -326,3 +328,67 @@ def test_auto_tracer_picks_the_block_tracer():
         path.closest_hit(no_grid, torch.zeros(1, 3), torch.ones(1, 3), 0.0,
                          path.RenderConfig(tracer="pallas"))
     assert jax.default_backend() == "cpu"
+
+
+
+# The block tracer's knobs (RenderConfig chunk, block_size, max_u) against
+# the reference's tracer (K1 in interpret mode) and, where every candidate
+# is kept, brute force.  chunk = 16 stages 72 KB a step on the card, the
+# shared-memory opt-in of csrc/trace_blocks.cu (tests/test_torch_cuda.py).
+KNOBS = {"chunk2": dict(chunk=2), "chunk8": dict(chunk=8),
+         "chunk16": dict(chunk=16), "block128": dict(block=128),
+         "max_u16": dict(max_u=16)}
+
+
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_intersect_blocks_knobs_match_reference(sphere48, knob):
+    ref, port = sphere48
+    o, d, tm = _rays(600, 8, inside_frac=0.3)
+    o_t, d_t, tm_t = _t(o, d, tm)
+    kw = dict(dict(block=256, max_u=48, chunk=4), **KNOBS[knob])
+    for any_hit in (False, True):
+        want = jbt.intersect_blocks_pallas(
+            ref.clusters, ref.geometry, jnp.asarray(o), jnp.asarray(d),
+            t_min=1e-3, t_max=jnp.asarray(tm), any_hit=any_hit,
+            interpret=True, lean=True, sort=True, **kw)
+        got = bt.intersect_blocks_pallas(port.clusters, o_t, d_t,
+                                         t_min=1e-3, t_max=tm_t,
+                                         any_hit=any_hit, sort=True, **kw)
+        if any_hit:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            assert 0 < int(got.sum()) < got.numel()
+            continue
+        np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+        np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t),
+                                   rtol=T_RTOL)
+
+
+@pytest.mark.parametrize("resort", [False, True])
+def test_resort_reaches_the_tracer(sphere48, monkeypatch, resort):
+    """RenderConfig.resort sets the in-tracer sort of the bounce and the
+    shadow calls (the sort itself against the reference:
+    test_intersect_blocks_matches_reference_and_brute); camera rays stay
+    in morton order."""
+    from physically_based_renderer_tpu_torch.core import rng
+    from physically_based_renderer_tpu_torch.core.camera import Camera
+    _, port = sphere48
+    seen = []
+    real = path.intersect_blocks_pallas
+
+    def spy(*a, **kw):
+        seen.append((kw.get("any_hit", False), kw["sort"]))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(path, "intersect_blocks_pallas", spy)
+    env = types.scene_from_numpy(scene_arrays(jtypes.make_scene(
+        jproc.make_uv_sphere(rings=48, sectors=48),
+        jtypes.Materials.default(1),
+        env=jtypes.build_env_tables(np.ones((8, 16, 3), np.float32)))))
+    scene = dataclasses.replace(env, clusters=port.clusters)
+    cam = Camera.make(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
+                      fov_y=1.0)
+    cfg = path.RenderConfig(width=16, height=16, spp=1, max_bounces=2,
+                            resort=resort)
+    path.render_with_stats(scene, cam, rng.key(0), cfg)
+    assert seen == [(False, False), (True, resort), (False, resort),
+                    (True, resort), (False, resort)]

@@ -19,7 +19,8 @@ from physically_based_renderer_tpu_torch.grad import inverse
 from physically_based_renderer_tpu_torch.ops import (blocktrace, fused,
                                                      gather, probes, resident,
                                                      tonemap, trace_blocks)
-from physically_based_renderer_tpu_torch.tools import probe2
+from physically_based_renderer_tpu_torch.tools import (exp_subtile_dma,
+                                                       probe2, probe_mosaic)
 from physically_based_renderer_tpu_torch.utils import config
 from torch_parity import (COUNT_REL, MEAN_REL, PIXEL_FRAC,  # noqa: F401
                           cuda_device, golden_module, render_agreement)
@@ -294,6 +295,32 @@ def helmet():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sort", [False, True])
+def test_k1_kernel_matches_plain_at_chunk_16(cuda_device, helmet_proc, sort):
+    """16 clusters a step: 9 x 16 x 128 x 4 = 72 KB of shared memory, the
+    opt-in branch of csrc/trace_blocks.cu."""
+    bc, (scene, _) = helmet_proc
+    grid = scene.clusters
+    grid = type(grid)(**{f: getattr(grid, f).to(cuda_device)
+                         for f in grid.__dataclass_fields__})
+    o, d, tm = _sphere_rays(100_003, 12, cuda_device)
+    for any_hit, t_max in ((False, 1e30), (True, tm)):
+        args, _ = blocktrace.block_inputs(grid, o, d, 1e-3, t_max, sort=sort,
+                                          chunk=16)
+        before = trace_blocks.LAUNCHES
+        k = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=any_hit,
+                                      chunk=16)
+        torch.cuda.synchronize()
+        assert trace_blocks.LAUNCHES == before + 1
+        p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3,
+                                            any_hit=any_hit, chunk=16)
+        if any_hit:
+            assert torch.equal(k, p)
+        else:
+            assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [False, True])
 def test_k1_kernel_matches_plain_at_block_512(cuda_device, helmet, sort):
     """K1 at the helmet config's block size (512 rays a CTA, 16 warps in
     the early-exit reduction) on the .glb helmet's clusters."""
@@ -398,3 +425,100 @@ def test_p4_kernel_matches_plain(cuda_device, tag):
     torch.cuda.synchronize()
     assert probes.LAUNCHES["gather"] == before + 1
     assert torch.equal(got, probes.gather_plain(x, idx, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", probe_mosaic.GATHER_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}")
+def test_p5_kernel_matches_plain(cuda_device, case):
+    rows, lanes, axis, reps, _ = case
+    x_np, idx_np = probe_mosaic.gather_inputs(rows, lanes, axis)
+    idx_np[0, :2] = (-3, 2 * (rows + lanes))       # floor modulo
+    x, idx = torch.from_numpy(x_np), torch.from_numpy(idx_np)
+    before = probes.LAUNCHES["mosaic_gather"]
+    got = probes.mosaic_gather(x.to(cuda_device), idx.to(cuda_device), axis,
+                               reps)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["mosaic_gather"] == before + 1
+    assert torch.equal(got.cpu(), probes.mosaic_gather_plain(x, idx, axis,
+                                                             reps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", sorted(probe2.STACK_DATA))
+def test_p6_kernel_matches_plain(cuda_device, data):
+    boxes = torch.from_numpy(probe2.scalar_stack_boxes(data))
+    before = probes.LAUNCHES["mosaic_scalar_stack"]
+    got = probes.mosaic_scalar_stack(boxes.to(cuda_device))
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["mosaic_scalar_stack"] == before + 1
+    assert torch.equal(got.cpu(), probes.mosaic_scalar_stack_plain(boxes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", sorted(probe_mosaic.CHUNK_DATA))
+def test_p7_kernel_matches_plain(cuda_device, data):
+    o, t = (torch.from_numpy(a) for a in probe_mosaic.chunk_inputs(data))
+    before = probes.LAUNCHES["chunk"]
+    got = probes.chunk(o.to(cuda_device), t.to(cuda_device), 8)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["chunk"] == before + 1
+    # 1/det is an IEEE division and -fmad=false: bit for bit
+    assert torch.equal(got.cpu(), probes.chunk_plain(o, t, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [exp_subtile_dma.NB, 3])
+def test_p8_kernel_matches_plain(cuda_device, nb):
+    src_np, idx_np = exp_subtile_dma.inputs(1, nb)
+    src, idx = torch.from_numpy(src_np), torch.from_numpy(idx_np)
+    before = probes.LAUNCHES["subtile_copy"]
+    got = probes.subtile_copy(src.to(cuda_device), idx.to(cuda_device),
+                              exp_subtile_dma.NI, exp_subtile_dma.CH)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["subtile_copy"] == before + 1
+    plain = probes.subtile_copy_plain(src, idx, exp_subtile_dma.NI,
+                                      exp_subtile_dma.CH)
+    rel = ((got.cpu() - plain).abs() / plain.abs()).max()
+    assert float(rel) <= exp_subtile_dma.PLAIN_RTOL
+
+
+@pytest.mark.cuda
+def test_sharded_paths_on_one_nccl_rank(cuda_device, tmp_path):
+    """parallel/ on a world of one NCCL rank: the sharded render, the 1x1
+    2-D render and the ring render equal render() bit for bit, and the
+    sharded step's loss equals the plain step's (its gradients differ by
+    K5b's atomics at most)."""
+    import torch.distributed as dist
+
+    from physically_based_renderer_tpu_torch.parallel import sharding
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    cfg = dataclasses.replace(bc.render, width=64, height=64, spp=2,
+                              max_bounces=2)
+    key = rng.key(0, cuda_device)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1)
+        scene = sharding.replicate_scene(scene, mesh)
+        want = path.render(scene, cam, key, cfg).mean()
+        assert torch.equal(sharding.render_sharded(scene, cam, key, cfg,
+                                                   mesh).mean(), want)
+        assert torch.equal(sharding.render_sharded_2d(
+            scene, cam, key, cfg, sharding.make_mesh_2d(1, 1)).mean(), want)
+        pcfg = dataclasses.replace(cfg, tracer="pallas")
+        assert torch.equal(
+            sharding.render_sample_sharded(scene, cam, key, pcfg, mesh,
+                                           exchange=True),
+            path.render_sample(scene, cam, key, pcfg))
+        losses = []
+        for m in (mesh, None):
+            params = inverse.trainable_copy(
+                inverse.TrainableParams.from_scene(scene, base_color=True))
+            opt = torch.optim.SGD(params.leaves(), lr=1e-2)
+            step = inverse.make_train_step(scene, cam, cfg, opt, mesh=m)
+            losses.append(step(params, None, key, want)[2])
+        assert torch.equal(*losses)
+    finally:
+        dist.destroy_process_group()

@@ -173,15 +173,31 @@ def test_one_adam_step_matches_reference():
                                    err_msg=k)
 
 
+class _Mesh:
+    """A mesh's shape without a process group: the sharded step checks
+    shapes before any collective."""
+
+    def __init__(self, n, names=("tiles",)):
+        self.n, self.mesh_dim_names = n, names
+
+    def size(self, dim=None):
+        return self.n
+
+
 def test_sharded_step_raises():
+    """The sharded step (tests/test_torch_sharding.py runs it) refuses a
+    height its tiles do not divide, and a mesh without a `tiles` axis,
+    with ValueError before any collective."""
     scene = _port(jproc.make_cornell_box())
-    with pytest.raises(NotImplementedError):
-        pinv.make_train_step(scene, _cam(), CFG, None, mesh=object())
-    with pytest.raises(NotImplementedError):
-        pinv.make_train_step_spmd(scene, _cam(), CFG, None, object())
-    with pytest.raises(NotImplementedError):
-        pinv.fit(scene, _cam(), torch.zeros(4, 4, 3),
-                 pinv.TrainableParams(), CFG, mesh=object())
+    with pytest.raises(ValueError, match="divide"):
+        pinv.make_train_step(scene, _cam(), CFG, None, mesh=_Mesh(5))
+    with pytest.raises(ValueError, match="tiles"):
+        pinv.make_train_step_spmd(scene, _cam(), CFG, None,
+                                  _Mesh(2, ("rows",)))
+    with pytest.raises(ValueError, match="divide"):
+        pinv.fit(scene, _cam(), torch.zeros(24, 24, 3),
+                 pinv.TrainableParams.from_scene(scene, base_color=True),
+                 CFG, mesh=_Mesh(7))
 
 
 def test_recover_texture_data():
@@ -318,14 +334,24 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--tiles", "2"], ["--scene", "x.glb"]])
-def test_cli_unported_paths_raise(argv):
-    """--tiles is not ported; a scene that is no config name is a glTF path
-    now, and a missing file is the loader's GltfError, as in the
-    reference."""
+def test_cli_unported_paths_raise(argv, monkeypatch):
+    """--tiles N without a launcher starts N local ranks that rerun the
+    CLI (recorded here; tests/test_torch_sharding.py runs the ranks); a
+    scene that is no config name is a glTF path, and a missing file is the
+    loader's GltfError, as in the reference."""
+    from physically_based_renderer_tpu_torch.parallel import distributed
     from physically_based_renderer_tpu_torch.scene.gltf import GltfError
-    error = NotImplementedError if "--tiles" in argv else GltfError
-    with pytest.raises(error):
-        inverse_app.main(argv + ["--device", "cpu", "--steps", "1"])
+    argv = argv + ["--device", "cpu", "--steps", "1"]
+    spawned = []
+    monkeypatch.setattr(distributed, "spawn_local",
+                        lambda *a: spawned.append(a) or 0)
+    if "--tiles" not in argv:
+        with pytest.raises(GltfError):
+            inverse_app.main(argv)
+        return
+    assert inverse_app.main(argv) == 0
+    assert spawned == [("physically_based_renderer_tpu_torch.apps.inverse",
+                        argv, 2, "gloo")]
 
 
 def test_cli_cuda_without_card_raises():

@@ -243,3 +243,226 @@ def test_tool_runs_every_probe_on_the_cpu(capsys):
     assert "visited=1 leaves=0" in lines[1]
     assert "visited=2047 leaves=1024" in lines[2]
     assert not any(probes.LAUNCHES.values())         # CPU: plain versions
+
+
+# ------------------------------------------------- P5-P7 (probe_mosaic.py)
+
+from physically_based_renderer_tpu_torch.tools import (  # noqa: E402
+    exp_subtile_dma, probe_mosaic)
+
+
+@pytest.fixture
+def ref_mosaic(monkeypatch):
+    """The reference's tools/probe_mosaic.py with its kernels in interpret
+    mode; its `timeit` hands back the jitted kernel and its inputs
+    instead of timing them: {probe name: (run, args)}."""
+    monkeypatch.syspath_prepend(str(TOOLS))
+    monkeypatch.delitem(sys.modules, "probe_mosaic", raising=False)
+    import probe_mosaic as ref
+    monkeypatch.setattr(ref.pl, "pallas_call", functools.partial(
+        ref.pl.pallas_call, interpret=True))
+    caught = []
+    monkeypatch.setattr(ref, "timeit", lambda f, *args, iters=0: (
+        caught.append((f, args)), 1.0)[1])
+    yield ref, caught
+    sys.modules.pop("probe_mosaic", None)
+
+
+def test_mosaic_cases_are_the_reference_calls():
+    src = (TOOLS / "probe_mosaic.py").read_text()
+    calls = re.findall(r"probe_gather\((\d+), (\d+), (\d)(?:, reps=(\d+))?"
+                       r"(?:, iters=(\d+))?\)", src)
+    assert [(int(r), int(l), int(a), int(rep or 16), int(it or 50))
+            for r, l, a, rep, it in calls] == list(probe_mosaic.GATHER_CASES)
+
+
+@pytest.mark.parametrize("case", probe_mosaic.GATHER_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}")
+def test_mosaic_gather_plain_is_the_probe_check(case):
+    rows, lanes, axis, reps, _ = case
+    x, idx = probe_mosaic.gather_inputs(rows, lanes, axis)
+    got = probes.mosaic_gather(torch.from_numpy(x), torch.from_numpy(idx),
+                               axis, reps)
+    np.testing.assert_array_equal(
+        got.numpy(), probe_mosaic.gather_expected(x, idx, axis, reps))
+
+
+@pytest.mark.parametrize("case", [(8, 128, 0, 16), (8, 512, 1, 16),
+                                  (32, 512, 0, 16)],
+                         ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}")
+def test_mosaic_gather_matches_the_reference_kernel(case, ref_mosaic,
+                                                    capsys):
+    ref, caught = ref_mosaic
+    rows, lanes, axis, reps = case
+    ref.probe_gather(rows, lanes, axis, reps=reps)
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and "MISMATCH" not in out
+    run, (x, idx) = caught[0]
+    want = np.asarray(run(x, idx))
+    got = probes.mosaic_gather(torch.from_numpy(np.asarray(x)),
+                               torch.from_numpy(np.asarray(idx)), axis, reps)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mosaic_gather_floor_modulo_and_checks():
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6)
+    idx = torch.tensor([[-1, 7, 0, 3, -9, 5]] * 4, dtype=torch.int32)
+    got = probes.mosaic_gather(x, idx, 1, 3)
+    for r in range(4):
+        for c in range(6):
+            k = int(idx[r, c])
+            assert got[r, c] == sum(x[r, (k + i) % 6] for i in range(3))
+    with pytest.raises(ValueError):
+        probes.mosaic_gather(x, idx[:, :5].contiguous(), 1, 3)
+    with pytest.raises(ValueError):
+        probes.mosaic_gather(x, idx, 2, 3)
+    with pytest.raises(ValueError):
+        probes.mosaic_gather(x.double(), idx, 0, 3)
+
+
+@pytest.mark.parametrize("data", sorted(probe2.STACK_DATA))
+def test_mosaic_stack_counts_the_walk(data):
+    """P6 counts the nodes P1's walk visits (an independent numpy walk
+    here): one on the probe's own boxes (the root fails the slab test),
+    2,047 and 745 on the sets where the tree is walked."""
+    boxes = probe2.scalar_stack_boxes(data)
+    got = probes.mosaic_scalar_stack(torch.from_numpy(boxes))
+    assert got.dtype == torch.int32 and got.shape == (1,)
+    assert int(got[0]) == _walk(boxes)[0] == {"probe": 1, "all": 2047,
+                                              "partial": 745}[data]
+
+
+def test_mosaic_stack_reference_binds_its_refs_out_of_order(ref_mosaic,
+                                                            capsys):
+    """A fault of the reference probe, not carried over: its kernel takes
+    (boxes_ref, o_ref, stack, out_ref) while pallas_call passes inputs,
+    then outputs, then scratch, so the 1-entry output serves as the stack
+    and the count lands in the scratch.  In interpret mode it reports 0
+    nodes on its own data, where the walk visits 1 (the port's P6)."""
+    ref, caught = ref_mosaic
+    ref.probe_scalar_stack()
+    assert "visited 0 nodes" in capsys.readouterr().out
+    run, _ = caught[0]
+    boxes = probe2.scalar_stack_boxes("probe")
+    assert int(np.asarray(run(boxes.reshape(-1, 6)))[0]) == 0
+    assert int(probes.mosaic_scalar_stack(torch.from_numpy(boxes))[0]) == 1
+
+
+def test_mosaic_stack_rejects_bad_boxes():
+    for n in (7, 12):                  # not 6 floats a node; an even tree
+        with pytest.raises(ValueError):
+            probes.mosaic_scalar_stack(torch.zeros(n * 6 if n == 12 else n))
+    with pytest.raises(ValueError):
+        probes.mosaic_scalar_stack(torch.zeros((3, 6)))
+
+
+def _chunk_numpy(o, t, n_chunks):
+    """probe_mosaic.py:155-165 in numpy float32, op by op."""
+    f = np.float32
+    rox = o[0][:, None]
+    acc = np.full((o.shape[1], 1), f(1e30), np.float32)
+    for j in range(n_chunks):
+        e = (t * f(j + 1.0)) * f(1.0001)
+        px = rox * e[0][None, :]
+        det = px * e[1][None, :] + px
+        with np.errstate(divide="ignore"):
+            inv = np.where(np.abs(det) > f(1e-9), f(1.0) / det, f(0.0))
+        uu = px * inv
+        vv = uu * inv + px
+        tt = vv * uu + uu
+        ok = (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (tt > 0)
+        tt = np.where(ok, tt, f(1e30))
+        acc = np.minimum(acc, tt.min(axis=1, keepdims=True))
+    return acc
+
+
+@pytest.mark.parametrize("data", sorted(probe_mosaic.CHUNK_DATA))
+def test_chunk_plain_is_the_numpy_restatement(data):
+    o, t = probe_mosaic.chunk_inputs(data)
+    got = probes.chunk(torch.from_numpy(o), torch.from_numpy(t), 8).numpy()
+    want = _chunk_numpy(o, t, 8)
+    np.testing.assert_array_equal(got, want)
+    if data == "probe":                # all ones: every test is masked
+        assert (got == np.float32(1e30)).all()
+    else:
+        assert (got < 1e30).all() and (got > 0).all()
+
+
+@pytest.mark.parametrize("data", sorted(probe_mosaic.CHUNK_DATA))
+def test_chunk_matches_the_reference_kernel(data, ref_mosaic, capsys):
+    """Exact on the probe's data; on random data within 2 ulps, since
+    XLA's CPU compiler may contract the reference's multiply-adds."""
+    ref, caught = ref_mosaic
+    ref.probe_chunk()
+    capsys.readouterr()
+    run, _ = caught[0]
+    o, t = probe_mosaic.chunk_inputs(data)
+    want = np.asarray(run(o, t))
+    got = probes.chunk(torch.from_numpy(o), torch.from_numpy(t), 8).numpy()
+    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=0)
+
+
+# ----------------------------------------------- P8 (exp_subtile_dma.py)
+
+@pytest.fixture
+def ref_subtile(monkeypatch):
+    """The reference's tools/exp_subtile_dma.py kernel and `run` in
+    interpret mode, without its import-time run: only its imports and
+    function definitions are executed."""
+    import ast
+    from jax.experimental import pallas as pl
+    path = TOOLS / "exp_subtile_dma.py"
+    tree = ast.parse(path.read_text())
+    tree.body = [n for n in tree.body if isinstance(
+        n, (ast.Import, ast.ImportFrom, ast.FunctionDef))]
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(
+        pl.pallas_call, interpret=True))
+    ns = {}
+    exec(compile(tree, str(path), "exec"), ns)
+    return ns["run"]
+
+
+def test_subtile_copy_matches_the_reference_kernel(ref_subtile):
+    nb = 8
+    src, idx = exp_subtile_dma.inputs(3, nb)
+    want = np.asarray(ref_subtile(idx, src, n_iters=exp_subtile_dma.NI,
+                                  ch=exp_subtile_dma.CH, nb=nb))
+    got = probes.subtile_copy(torch.from_numpy(src), torch.from_numpy(idx),
+                              exp_subtile_dma.NI, exp_subtile_dma.CH)
+    assert got.shape == want.shape == (nb, 1, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+def test_subtile_copy_plain_is_the_reference_check():
+    nb = 64
+    src, idx = exp_subtile_dma.inputs(0, nb)
+    got = probes.subtile_copy(torch.from_numpy(src), torch.from_numpy(idx),
+                              exp_subtile_dma.NI, exp_subtile_dma.CH)
+    np.testing.assert_allclose(got.numpy()[:, 0],
+                               exp_subtile_dma.expected(src, idx, nb),
+                               rtol=exp_subtile_dma.REF_RTOL)
+
+
+def test_subtile_copy_rejects_bad_shapes():
+    src = torch.zeros((4, 16, 32))
+    idx = torch.zeros(32, dtype=torch.int32)
+    for bad in (dict(src=torch.zeros((4, 16, 16))), dict(ch=0),
+                dict(idx=torch.zeros(31, dtype=torch.int32)),
+                dict(idx=idx.long())):
+        kw = dict(dict(src=src, idx=idx, n_iters=8, ch=4), **bad)
+        with pytest.raises(ValueError):
+            probes.subtile_copy(kw["src"], kw["idx"], kw["n_iters"],
+                                kw["ch"])
+
+
+def test_mosaic_tools_run_on_the_cpu(capsys):
+    probes.reset_launches()
+    assert probe_mosaic.main(["--device", "cpu"]) == 0
+    assert exp_subtile_dma.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "--- probe_mosaic on cpu"
+    assert len(lines) == 1 + 10 + 3 + 2 + 2
+    body = lines[1:16] + lines[17:]
+    assert all("ok=True" in ln and ln.endswith("[cpu]") for ln in body)
+    assert "visited 1 nodes" in lines[11]
+    assert not any(probes.LAUNCHES.values())         # CPU: plain versions

@@ -79,6 +79,33 @@ def test_render_matches_reference(name, seed):
                           int(count), float(jcount))
 
 
+# The dense path's branches: no NEE, NEE without MIS, Russian roulette
+# from the first bounce, and from the second without MIS.
+BRANCHES = {"no_nee": dict(nee=False), "no_mis": dict(mis=False),
+            "rr_start_1": dict(rr_start=1),
+            "rr_start_2_no_mis": dict(rr_start=2, mis=False)}
+
+
+@pytest.mark.parametrize("name", ["cornell", "triangle"])
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_render_branches_match_reference(name, branch):
+    """Per pixel, as test_render_matches_reference, at 16x16."""
+    ref, jcam, port, cam = _both(name)
+    small = dict(SMALL, width=16, height=16, **BRANCHES[branch])
+    jfilm, jcount = j_render_with_stats(
+        ref, jcam, jax.random.key(1), JRenderConfig(**small,
+                                                    tracer="resident"))
+    film, count = path.render_with_stats(port, cam, rng.key(1),
+                                         path.RenderConfig(**small))
+    got, want = film.mean().numpy(), np.asarray(jfilm.mean())
+    if name == "triangle" and branch == "no_nee":
+        # Lit by a directional light alone, which only NEE reaches.
+        assert not want.any() and not got.any()
+        assert int(count) == float(jcount) > 0
+        return
+    _assert_render_agrees(got, want, int(count), float(jcount))
+
+
 HELMET_CAM = dict(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
                   fov_y=1.0)
 # (reference builder, camera, render settings, reference tracer, port
@@ -184,14 +211,20 @@ def test_render_is_differentiable_and_equals_stats_render():
 
 
 @pytest.mark.parametrize("change", [dict(batch_spp=True),
-                                    dict(exchange_axis="tiles"),
+                                    dict(exchange_axis="tiles",
+                                         tracer="pallas"),
                                     dict(tracer="bvh"),
                                     dict(tracer="block")])
 def test_unported_options_raise(change):
+    """Unported options raise NotImplementedError; the ring exchange is
+    ported but needs the mesh that render_sample_sharded binds, so outside
+    it the block tracer's call raises ValueError (the reference's
+    exchange_axis, likewise, names an axis of shard_map only)."""
     _, _, port, cam = _both("cornell")
     cfg = path.RenderConfig(width=4, height=4, spp=1, **change)
-    with pytest.raises(NotImplementedError):
-        path.render_with_stats(port, cam, rng.key(0), cfg)
+    error = ValueError if "exchange_axis" in change else NotImplementedError
+    with pytest.raises(error):
+        path.render_with_stats(with_clusters(port), cam, rng.key(0), cfg)
 
 
 def test_golden_matches_fresh_reference_render():
@@ -231,9 +264,23 @@ def test_cli_renders_on_cpu(tmp_path, capsys):
                                   ["scene.glb", "--tiles", "2"],
                                   ["helmet", "--blinn-phong", "--device",
                                    "cpu"]])
-def test_cli_unported_paths_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError):
-        render_app.main(argv + ["-o", str(tmp_path / "x.png")])
+def test_cli_unported_paths_raise(argv, tmp_path, monkeypatch):
+    """--blinn-phong and --debug-checks are not ported.  --tiles N without
+    a launcher starts N local ranks that rerun the CLI (recorded here;
+    tests/test_torch_sharding.py runs the ranks)."""
+    from physically_based_renderer_tpu_torch.parallel import distributed
+    argv = argv + ["-o", str(tmp_path / "x.png")]
+    if "--tiles" not in argv:
+        with pytest.raises(NotImplementedError):
+            render_app.main(argv)
+        return
+    argv += ["--device", "cpu"]
+    spawned = []
+    monkeypatch.setattr(distributed, "spawn_local",
+                        lambda *a: spawned.append(a) or 0)
+    assert render_app.main(argv) == 0
+    assert spawned == [("physically_based_renderer_tpu_torch.apps.render",
+                        argv, 2, "gloo")]
 
 
 def test_cli_cuda_without_card_raises(tmp_path):
