@@ -14,18 +14,25 @@ of which raises on failure (an uncaught exception exits non-zero):
      soup (dynamic shared memory above 48 KB); a ragged ray count;
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
-  4. K1 (block-stream tracer) against its plain-torch version on
+  4. K1's branch-free reciprocal against 1.0f / x on every float with |x|
+     in [1e-9, 2^126); the registers and spill bytes of K1's and K5a's
+     instantiations (cuobjdump -res-usage); K1 (block-stream tracer)
+     against its plain-torch version on
      `helmet_proc` (100,352 triangles, 1,024 clusters, ray blocks of 256)
      and on `helmet` (the 99,400-triangle .glb, ray blocks of 512): 512x512
      morton camera rays, direction-sorted surface bounce rays, env shadow
      rays (any hit, root-culled t_max), on `helmet` also shadow rays toward
      its 15,600 emissive triangles, and a ragged ray count, through phase A
-     as the integrator calls it; kernel and plain times at 262,144 camera
-     rays; on `helmet`, K5a on the emitter table (15,600 x 20) against its
-     plain version, and the time to author, write and ingest the asset;
-     K1 once more on `helmet_proc` at chunk=16 (72 KB of shared memory a
-     block, the opt-in branch), held to the chunk=4 run's bound (the same
-     rays need no more work), with the tests its coarser exit adds;
+     as the integrator calls it; device and wrapper times, bound, tests a
+     second and the ratio to the bound of the camera closest-hit call and
+     the env and emitter shadow any-hit calls at 262,144 rays (any-hit
+     work replayed by k1_any_work), and the plain version's time of the
+     camera call; on `helmet`, K5a on the emitter table (15,600 x 20)
+     against its plain version, and the time to author, write and ingest
+     the asset; K1 once more on `helmet_proc` at chunk=16 (2 x 72 KB of
+     shared memory a block, the opt-in branch), each timed call held to
+     the chunk=4 run's work and bound (the same rays need no more work),
+     with the tests its coarser exit adds counted apart;
   5. K4 (fused whole-frame kernel) against its plain-torch version on the
      same packed tables: `cornell` and `cornell_ggx` at their full configs
      (512x512, 4 spp, 4 bounces), `triangle` at its full config (256x256,
@@ -52,7 +59,9 @@ of which raises on failure (an uncaught exception exits non-zero):
      and skewed cases where every ray picks one row; forward bit-equal,
      backward within K5B_REL * max|plain|; kernel, plain and library
      (index_select, index_add_) times at cornell's shape (262,144 rays x 86
-     columns from 32 rows);
+     columns from 32 rows); then K5a at every distinct (T, W, N) that a
+     helmet frame and a dense cornell frame gather, logged from the frames
+     and timed on their own tensors, with index_select beside it;
   9. the gradient path: (a) render() + pixel_loss gradients against the
      reference's (tests/data/cornell_grad_64_golden.npz) with exact K5a/K5b
      counts; (b) the inverse CLI at the cornell config's full size (512x512,
@@ -69,7 +78,8 @@ of which raises on failure (an uncaught exception exits non-zero):
      itself (`tools/probe2.py all`), whose launches the kernels line
      reports;
  11. one `helmet` frame and one `helmet_proc` frame under torch.profiler:
-     launches, device idle share and K1's share of the device time;
+     launches, device idle share and K1's and K5a's shares of the device
+     time;
  12. the probes P5-P8 (`ops/probes.py`, `csrc/mosaic.cu`) against their
      plain versions at every shape of their tools (P5-P7 exact, P8 within
      1e-6 relative and the reference's own check), with device, wrapper
@@ -314,6 +324,54 @@ def k1_work(args, best_t, best_flat, chunk: int, tri_id):
     return tests, int(torch.unique(read).numel())
 
 
+def k1_any_work(args, t_min: float, chunk: int, tri_id):
+    """The least work one any-hit K1 call needs on these inputs: (ray-
+    triangle tests, distinct clusters read).  The chunk of each ray's first
+    hit comes from the plain version with n_valid capped at j + 1 chunks
+    (the capped call runs chunks 0..j exactly as the full one does); the
+    block's early exit is then replayed from it: a block stops after chunk
+    j once no live lane is open or the next entry lies beyond every open
+    lane's t_max.  A live lane tests the real triangles of each visited
+    chunk before its first hit, and at least one test in that chunk (where
+    in the chunk it stops is not counted, so the bound stays low)."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    u_idx, _, _, tm, soup, n_valid, entry = args
+    dev = tm.device
+    n_u = u_idx.shape[1]
+    ch = min(chunk, n_u)
+    nct = n_u // ch
+    live = tm > 0.0
+    first = torch.full(tm.shape, nct, dtype=torch.int64, device=dev)
+    for j in reversed(range(nct)):
+        capped = torch.clamp_max(n_valid, (j + 1) * ch).contiguous()
+        occ = tb.trace_blocks_plain(*args[:5], capped, args[6], t_min=t_min,
+                                    any_hit=True, chunk=chunk)
+        first = torch.where(occ, j, first)
+    j = torch.arange(nct, device=dev)
+    open_after = live[..., None] & (first[..., None] > j)       # [NB, B, J]
+    rem_tmax = torch.where(open_after, tm[..., None], 0.0).amax(dim=1)
+    nxt = torch.where((j[None] + 1) * ch < n_valid[:, None],
+                      entry[:, torch.clamp_max(j + 1, nct - 1) * ch], BIG)
+    stop = ~open_after.any(dim=1) | (nxt > rem_tmax)
+    visited = torch.minimum(torch.where(stop, j[None], nct).amin(dim=1) + 1,
+                            (n_valid.long() + ch - 1) // ch)
+    n_clusters = tri_id.shape[0]
+    real = torch.cat([(tri_id >= 0).sum(dim=1),
+                      torch.zeros(1, dtype=torch.int64, device=dev)])
+    per_chunk = real[u_idx.long()].reshape(-1, nct, ch).sum(dim=2)
+    cum = torch.cat([torch.zeros_like(per_chunk[:, :1]),
+                     per_chunk.cumsum(dim=1)], dim=1)          # [NB, J + 1]
+    upto = torch.minimum(first, visited[:, None])
+    full = torch.gather(cum, 1, upto)
+    tests = int(torch.where(live, full + (first < visited[:, None]).long(),
+                            0).sum())
+    run = torch.arange(n_u, device=dev)[None] < visited[:, None] * ch
+    read = u_idx[run & (u_idx < n_clusters)]
+    return tests, int(torch.unique(read).numel())
+
+
 class TraceStats:
     """Agreement of a tracer kernel with its plain version, and its bound
     at the timed shape."""
@@ -520,11 +578,14 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
-def phase_k1(dev, name="helmet_proc", chunk=None):
+def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
     """K1 against its plain version on the rays of config `name`, at that
     config's block size (and `chunk` clusters a step where given); on a
     scene with area emitters also shadow rays toward them and K5a on the
-    emitter table."""
+    emitter table.  `held_to`: the timed calls of a run on the same rays
+    at the config's own chunk; each call here is held to that run's work
+    and bound (the same rays need no more work), and the tests its own
+    chunk's coarser exit adds are counted apart."""
     import numpy as np
     import torch
 
@@ -606,12 +667,15 @@ def phase_k1(dev, name="helmet_proc", chunk=None):
     d_in = torch.nn.functional.normalize(jitter, dim=-1)
     compare("interior closest sorted", o_in, d_in, cfg.ray_eps, alive, True,
             False)
-    # Env shadow rays: environment NEE directions from the same points.
+    # Env shadow rays: environment NEE directions from the same points,
+    # sorted as the integrator's occluded() sorts them (resort).
     u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
     es = lights.sample_env(scene, n, u2)
     t_sh = torch.where(active & es.valid, es.dist * (1.0 - 1e-3), 0.0)
-    compare("env shadow any-hit sorted", o_b, es.wi, cfg.ray_eps, t_sh,
-            True, True)
+    timed = {"camera closest": (cam_args, 0.0, False),
+             "env shadow any-hit": (compare(
+                 "env shadow any-hit sorted", o_b, es.wi, cfg.ray_eps, t_sh,
+                 True, True), cfg.ray_eps, True)}
     compare("env shadow any-hit unsorted", o_b, es.wi, cfg.ray_eps, t_sh,
             False, True)
     st.emitter_rows = 0
@@ -623,9 +687,11 @@ def phase_k1(dev, name="helmet_proc", chunk=None):
         ls = lights.sample_area_emitters(scene, sp.pos, u3[:, 0], u3[:, 1:],
                                          emitter_attrs=attrs)
         t_em = torch.where(active & ls.valid, ls.dist * (1.0 - 1e-3), 0.0)
-        compare("emitter shadow any-hit sorted", o_b, ls.wi, cfg.ray_eps,
-                t_em, True, True)
-        # K5a on the emitter table at the frame's shape.
+        timed["emitter shadow any-hit"] = (compare(
+            "emitter shadow any-hit sorted", o_b, ls.wi, cfg.ray_eps, t_em,
+            True, True), cfg.ray_eps, True)
+        # K5a on the emitter table at the frame's shape (timed in phase 8
+        # with the frame's other gathers).
         e_idx = torch.from_numpy(rng.integers(
             0, attrs.shape[0], n).astype(np.int32)).to(dev)
         rows_k = gather.gather_fwd(attrs, e_idx)
@@ -635,16 +701,8 @@ def phase_k1(dev, name="helmet_proc", chunk=None):
             raise AssertionError(f"K5a on the {tuple(attrs.shape)} emitter "
                                  "table differs from its plain version")
         st.emitter_rows = attrs.shape[0]
-        st.k5a_emitter_ms, _ = device_ms(
-            lambda: gather.gather_fwd(attrs, e_idx), 100, "gather_fwd_kernel")
-        st.k5a_emitter_library_ms, _ = device_ms(
-            lambda: torch.index_select(attrs, 0, e_idx), 100, None)
-        st.k5a_emitter_bound = bound(n * attrs.shape[1] * 4 + n * 4
-                                     + attrs.numel() * 4, 0)
         print(f"K5a {name} emitter table {tuple(attrs.shape)} x {n} rows: "
-              f"bit-equal, kernel {st.k5a_emitter_ms:.4f} ms (bound "
-              f"{st.k5a_emitter_bound[0]:.4f}, index_select "
-              f"{st.k5a_emitter_library_ms:.4f})")
+              "bit-equal")
     # Ragged ray count (not a multiple of the block size).
     nr = n - 77
     compare("ragged closest", o_cam[:nr], d_cam[:nr], 0.0, 1e30, False,
@@ -654,30 +712,65 @@ def phase_k1(dev, name="helmet_proc", chunk=None):
     compare("ragged any-hit random t_max", o_b[:nr], d_b[:nr], 1e-3,
             rand_tm, True, True)
 
-    # Time at the main path's shape: 262,144 morton camera rays.
-    call = lambda: tb.trace_blocks(*cam_args, t_min=0.0, any_hit=False,
-                                   chunk=cfg.chunk)
-    ms, _ = device_ms(call, 50, "trace_blocks_kernel")
-    st.wrapper_ms = time_ms(call, 50)
+    # Times at the main path's shape: 262,144 rays through phase A as the
+    # integrator calls it, the camera's closest hit and the shadow rays' any
+    # hit.  The work these inputs need: closest hit, the tests of live lanes
+    # against the real triangles of the chunks each block visits before its
+    # early exit, replayed from the call's winners (k1_work); any hit, the
+    # tests before each lane's first hit, replayed likewise (k1_any_work).
+    # Bytes: o, d, t_max in and the results out per lane, the candidate
+    # lists and entries, the soup of the distinct clusters read, once.
+    tri_id = grid.tri_id.to(dev)
+    st.calls = {}
+    for label, (args, t_min, any_hit) in timed.items():
+        call = functools.partial(tb.trace_blocks, *args, t_min=t_min,
+                                 any_hit=any_hit, chunk=cfg.chunk)
+        ms, _ = device_ms(call, 50, "trace_blocks_kernel")
+        wrapper_ms = time_ms(call, 50)
+        if any_hit:
+            tests, n_clusters = k1_any_work(args, t_min, cfg.chunk, tri_id)
+        else:
+            tests, n_clusters = k1_work(args, *call(), cfg.chunk, tri_id)
+        u_idx, o_b, _, _, soup_b, n_valid, _ = args
+        nb, blk = o_b.shape[0], o_b.shape[1]
+        bnd = bound(nb * blk * (12 + 12 + 4 + (1 if any_hit else 8))
+                    + u_idx.numel() * 8 + nb * 4
+                    + n_clusters * soup_b[0].numel() * 4, tests * MT_FLOPS)
+        added = None
+        if held_to is not None:
+            base = held_to[label]
+            # Any-hit counts are lower bounds, and their difference is no
+            # count of tests; the closest-hit replay is exact.
+            if not any_hit:
+                added = tests - base["tests"]
+            tests, n_clusters = base["tests"], base["clusters_read"]
+            bnd = (base["bound_ms"], base["bound_by"])
+        st.calls[label] = {
+            "ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "tests": tests, "clusters_read": n_clusters,
+            "tests_added_by_chunk": added,
+            "tests_per_s": tests / (ms * 1e-3), "ratio_to_bound": ms / bnd[0]}
+        extra = (f"; the chunk's coarser exit adds {added} tests"
+                 if added is not None else "")
+        print(f"K1 {name} B={blk} chunk={cfg.chunk} {label} ({nb * blk} "
+              f"lanes): device {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}; {tests} tests needed, "
+              f"{n_clusters} clusters read{extra}), "
+              f"{tests / (ms * 1e-3):.4g} tests/s, {ms / bnd[0]:.2f}x the "
+              f"bound [{card_line()}]")
+    cam = st.calls["camera closest"]
+    ms, st.wrapper_ms = cam["ms"], cam["wrapper_ms"]
+    st.bound = (cam["bound_ms"], cam["bound_by"])
     plain_ms = time_ms(lambda: tb.trace_blocks_plain(
         *cam_args, t_min=0.0, any_hit=False, chunk=cfg.chunk), 5, warmup=1)
-    # The work these inputs need (k1_work): the tests of live lanes against
-    # the real triangles of the chunks each block visits before its early
-    # exit.  Bytes: o, d, t_max in and t, flat out per lane, the candidate
-    # lists and entries, the soup of the distinct clusters read, once.
-    best_t, best_flat = call()
-    tests, n_clusters = k1_work(cam_args, best_t, best_flat, cfg.chunk,
-                                grid.tri_id.to(dev))
     u_idx, o_b, _, _, soup_b, n_valid, _ = cam_args
-    nb, blk = o_b.shape[0], o_b.shape[1]
-    st.work = {"tests": tests, "tests_if_no_exit": int(n_valid.sum()) * blk
-               * soup_b.shape[-1], "clusters_read": n_clusters}
-    print(f"K1 {name} camera closest work: {tests} ray-triangle tests needed "
-          f"({st.work['tests_if_no_exit']} if every lane tested every "
-          f"candidate), {n_clusters} clusters read")
-    st.bound = bound(nb * blk * (12 + 12 + 4 + 4 + 4) + u_idx.numel() * 8
-                     + nb * 4 + n_clusters * soup_b[0].numel() * 4,
-                     tests * MT_FLOPS)
+    st.work = {"tests": cam["tests"], "tests_if_no_exit": int(n_valid.sum())
+               * o_b.shape[1] * soup_b.shape[-1],
+               "clusters_read": cam["clusters_read"],
+               "tests_added_by_chunk": cam["tests_added_by_chunk"]}
+    print(f"K1 {name} camera closest work: {st.work['tests']} ray-triangle "
+          f"tests needed ({st.work['tests_if_no_exit']} if every lane tested "
+          f"every candidate), {st.work['clusters_read']} clusters read")
     return st, ms, plain_ms
 
 
@@ -856,7 +949,92 @@ def phase_k5(dev):
     out.update(times)
     print("K5 262144 x 86 from 32 rows: " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()))
+    print(f"K5a at cornell's shape: kernel {times['fwd_ms']:.4f} ms, "
+          f"index_select {times['fwd_library_device_ms']:.4f} ms, bound "
+          f"{out['fwd_bound'][0]:.4f} ms [{card_line()}]")
+
+    # K5a at every (T, W) that a helmet frame and a dense cornell frame
+    # gather, on the frames' own tables and indices, index_select beside it.
+    out["main_path_shapes"] = [time_k5a_shape(*c)
+                               for c in k5a_main_path_calls(dev)]
     return out
+
+
+def k5a_main_path_calls(dev):
+    """The distinct K5a calls of one helmet frame and one dense cornell
+    frame (512x512, 4 spp, their configs' bounces), logged by wrapping
+    gather.gather_fwd while the frames render: [(label, table, idx,
+    calls by frame)], keyed by (T, W, N, index type), each with the first
+    call's tensors."""
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.ops import gather
+    from physically_based_renderer_tpu_torch.utils import config
+
+    seen = {}
+    frame = None
+    real = gather.gather_fwd
+
+    def logged(table, idx):
+        key = (*table.shape, idx.shape[0], str(idx.dtype).split(".")[-1])
+        entry = seen.setdefault(key, [table, idx, {}])
+        entry[2][frame] = entry[2].get(frame, 0) + 1
+        return real(table, idx)
+
+    gather.gather_fwd = logged
+    try:
+        for frame, tracer in (("helmet", "auto"), ("cornell", "resident")):
+            bc = config.get(frame)
+            scene, cam = config.build_scene(bc.scene, dev)
+            cfg = dataclasses.replace(bc.render, tracer=tracer)
+            path.render_with_stats(scene, cam, rng_mod.key(0, dev), cfg)
+    finally:
+        gather.gather_fwd = real
+    calls = []
+    for (t, w, n, dtype), (table, idx, by_frame) in sorted(seen.items()):
+        label = f"T={t} W={w} N={n} {dtype}"
+        print(f"K5a main-path shape {label}: {by_frame} calls")
+        calls.append((label, table, idx, by_frame))
+    return calls
+
+
+def time_k5a_shape(label, table, idx, by_frame):
+    """K5a on one main-path call's tensors: bit-equal to the plain version;
+    device and wrapper times, its bound and index_select's device time.
+    The yardstick gets the indices clamped into [0, T) (index_select has no
+    zero rows, and an index outside the table would fault), so it moves the
+    same bytes.  Bytes: the rows out, the indices in, the distinct table
+    rows read, once each."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import gather
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+
+    t, w = table.shape
+    n = idx.shape[0]
+    if not torch.equal(gather.gather_fwd(table, idx),
+                       gather.take_rows_plain(table, idx)):
+        raise AssertionError(f"K5a {label}: rows differ from the plain "
+                             "version")
+    call = lambda: gather.gather_fwd(table, idx)
+    ms, _ = device_ms(call, 200, "gather_fwd_kernel")
+    wrapper_ms = time_ms(call, 200)
+    safe = idx.clamp(0, t - 1)
+    library_ms, _ = device_ms(lambda: torch.index_select(table, 0, safe),
+                              200, None)
+    rows = int(torch.unique(idx[(idx >= 0) & (idx < t)]).numel())
+    bnd = bound(n * w * 4 + n * idx.element_size() + rows * w * 4, 0)
+    # The route csrc/gather.cu takes for this table.
+    mode = "quads" if w % 4 == 0 and table.data_ptr() % 16 == 0 else "rows"
+    print(f"K5a {label} ({mode}; {rows} rows read): device {ms:.4f} ms, "
+          f"wrapper {wrapper_ms:.4f} ms, index_select {library_ms:.4f} ms, "
+          f"bound {bnd[0]:.4f} ms, {ms / bnd[0]:.2f}x the bound, "
+          f"{library_ms / ms:.2f}x faster than index_select "
+          f"[{card_line()}]")
+    return {"shape": label, "route": mode, "calls": by_frame,
+            "rows_read": rows, "ms": ms, "wrapper_ms": wrapper_ms,
+            "library_ms": library_ms, "bound_ms": bnd[0],
+            "ratio_to_bound": ms / bnd[0]}
 
 
 def phase_grad_golden(dev):
@@ -1169,23 +1347,58 @@ def phase_report(tmp):
     return {"stats": stats, "perf": perf}
 
 
-def relayout_sass():
-    """Shared-memory stores, loads and barriers in the SASS of P2's two
-    instantiations, from cuobjdump on the built library: the compiler kept
-    the eleven moves of the exchanging kernel and the other has none.  None
+def cuobjdump(flag):
+    """cuobjdump's `flag` listing of the built kernel library, or None
     where the toolkit has no cuobjdump."""
-    import re
     import shutil
 
     from physically_based_renderer_tpu_torch.ops import cuda_lib
     tool = shutil.which("cuobjdump") or str(
         Path(cuda_lib._nvcc()).with_name("cuobjdump"))
     if not Path(tool).exists():
+        return None
+    return subprocess.run(
+        [tool, flag, str(cuda_lib.build_dir() / cuda_lib.LIB_NAME)],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+
+
+def k1_k5a_resources():
+    """Registers and local-memory (spill) bytes a thread of each K1 and
+    K5a instantiation, as ptxas allotted them (`cuobjdump -res-usage` on
+    the built library), keyed by the mangled name up to its parameters:
+    trace_blocks_kernelILb<any hit>ELi<rays a thread>E,
+    gather_fwd_kernel_<route>I<index type><flat index type>E."""
+    import re
+
+    usage = cuobjdump("-res-usage")
+    if usage is None:
+        print("K1/K5a registers: not measured (no cuobjdump)")
+        return None
+    out = {}
+    for name, line in re.findall(r"Function (\S+):\s*\n([^\n]*)", usage):
+        short = re.search(r"(trace_blocks_kernel|gather_fwd_kernel_\w+?)"
+                          r"(I\w*?E)(?:E|v)", name)
+        if short:
+            res = dict(re.findall(r"(\w+):(\d+)", line))
+            out[short.group(1) + short.group(2)] = {
+                "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
+                "local_bytes": int(res["LOCAL"])}
+    print(f"K1/K5a registers a thread (cuobjdump -res-usage) "
+          f"[{card_line()}]: {out}")
+    return out
+
+
+def relayout_sass():
+    """Shared-memory stores, loads and barriers in the SASS of P2's two
+    instantiations, from cuobjdump on the built library: the compiler kept
+    the eleven moves of the exchanging kernel and the other has none.  None
+    where the toolkit has no cuobjdump."""
+    import re
+
+    sass = cuobjdump("-sass")
+    if sass is None:
         print("P2 relayout SASS: not measured (no cuobjdump)")
         return None
-    sass = subprocess.run(
-        [tool, "-sass", str(cuda_lib.build_dir() / cuda_lib.LIB_NAME)],
-        capture_output=True, text=True, timeout=120, check=True).stdout
     counts = {}
     for part in sass.split("Function :")[1:]:
         name = part.split("\n")[0]
@@ -1726,7 +1939,8 @@ def phase_sharded(dev, tmp, counters):
 
 def phase_profile_frame(dev, name):
     """One warm frame of config `name` under torch.profiler: launches, the
-    device's busy and idle share, K1's share of the device time."""
+    device's busy and idle share, K1's and K5a's shares of the device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1765,7 +1979,8 @@ def phase_profile_frame(dev, name):
            "idle_share_warm": 1.0 - busy / min(warm),
            "k1_device_s": k1, "k1_share_of_device": k1 / busy,
            "k1_share_of_warm_frame": k1 / min(warm),
-           "k5a_device_s": k5, "block_size": bc.render.block_size,
+           "k5a_device_s": k5, "k5a_share_of_device": k5 / busy,
+           "block_size": bc.render.block_size,
            "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3,
                             e.count) for e in top]}
     print(f"profiled {name} frame (B={bc.render.block_size}): warm frames "
@@ -1774,7 +1989,8 @@ def phase_profile_frame(dev, name):
           f"(idle {out['idle_share_warm']:.1%} of the fastest warm frame), "
           f"K1 {k1 * 1e3:.2f} ms = {out['k1_share_of_device']:.1%} of the "
           f"device time, {out['k1_share_of_warm_frame']:.2%} of the frame; "
-          f"K5a {k5 * 1e3:.2f} ms")
+          f"K5a {k5 * 1e3:.2f} ms = {out['k5a_share_of_device']:.1%} "
+          f"[{card_line()}]")
     return out
 
 
@@ -1853,17 +2069,24 @@ def main() -> int:
     print(f"K3 512x512: kernel {k3_ms:.4f} ms (wrapper "
           f"{k3['wrapper_ms']:.4f}), plain {k3_plain_ms:.4f} ms")
 
-    # 4. K1 against its plain version
+    # 4. K1 against its plain version; its reciprocal against division
+    rcp_bad = trace_blocks.rcp_mismatches(dev)
+    print(f"K1 reciprocal: {rcp_bad} floats with |x| in [1e-9, 2^126) "
+          "differ from 1.0f / x")
+    if rcp_bad:
+        raise AssertionError("K1's reciprocal differs from 1.0f / x")
+    resources = k1_k5a_resources()
     k1, k1_ms, k1_plain_ms = phase_k1(dev)
     print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms "
           f"(wrapper {k1.wrapper_ms:.4f}), "
           f"plain {k1_plain_ms:.4f} ms")
     # K1 at 16 clusters a step: 72 KB of shared memory, the opt-in branch.
-    k1c, k1c_ms, k1c_plain_ms = phase_k1(dev, "helmet_proc", chunk=16)
+    k1c, k1c_ms, k1c_plain_ms = phase_k1(dev, "helmet_proc", chunk=16,
+                                         held_to=k1.calls)
     print(f"K1 262144 helmet_proc camera rays at chunk=16: kernel "
           f"{k1c_ms:.4f} ms (wrapper {k1c.wrapper_ms:.4f}, bound "
-          f"{k1.bound[0]:.4f} as at chunk=4; the coarser exit adds "
-          f"{k1c.work['tests'] - k1.work['tests']} tests), plain "
+          f"{k1c.bound[0]:.4f} as at chunk=4; the coarser exit adds "
+          f"{k1c.work['tests_added_by_chunk']} tests), plain "
           f"{k1c_plain_ms:.4f} ms [{card_line()}]")
     asset = phase_helmet_asset(dev)
     k1h, k1h_ms, k1h_plain_ms = phase_k1(dev, "helmet")
@@ -2061,6 +2284,7 @@ def main() -> int:
                "wrapper_ms": k2.wrapper_ms, "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
+        "k1_rcp_mismatches": rcp_bad, "k1_k5a_resources": resources,
         "k1": {"rays_compared": k1.rays, "winner_mismatches": k1.mismatch,
                "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,
                "wrapper_ms": k1.wrapper_ms, "plain_ms": k1_plain_ms,
@@ -2075,10 +2299,10 @@ def main() -> int:
             "wrapper_ms": k1h.wrapper_ms, "plain_ms": k1h_plain_ms,
             "bound_ms": k1h.bound[0], "work": k1h.work,
             "k5a_emitter_rows": k1h.emitter_rows,
-            "k5a_emitter_ms": k1h.k5a_emitter_ms,
-            "k5a_emitter_bound_ms": k1h.k5a_emitter_bound[0],
-            "k5a_emitter_library_ms": k1h.k5a_emitter_library_ms,
             "shape": "262144 helmet camera rays x 1024 clusters, B=512"},
+        "k1_calls": {"helmet_proc B=256 chunk=4": k1.calls,
+                     "helmet_proc B=256 chunk=16": k1c.calls,
+                     "helmet B=512 chunk=4": k1h.calls},
         "k1_chunk16": {
             "rays_compared": k1c.rays, "winner_mismatches": k1c.mismatch,
             "max_abs_err_t": k1c.max_abs_err, "ms": k1c_ms,
@@ -2086,8 +2310,8 @@ def main() -> int:
             # The same rays need no more work at chunk=16 than at chunk=4:
             # both settings are held to the chunk=4 run's bound, and the
             # tests the coarser early exit adds are a number of their own.
-            "bound_ms": k1.bound[0], "work": k1c.work,
-            "tests_added_by_chunk": k1c.work["tests"] - k1.work["tests"],
+            "bound_ms": k1c.bound[0], "work": k1c.work,
+            "tests_added_by_chunk": k1c.work["tests_added_by_chunk"],
             "shape": "262144 helmet_proc camera rays, chunk=16 (72 KB)"},
         "helmet_asset": asset, "glb_by_path": by_path, "report": report,
         "probes": probe_times, "probe_tool": probe_tool,

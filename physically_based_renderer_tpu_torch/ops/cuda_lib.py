@@ -55,6 +55,8 @@ _SIGNATURES = {
     # ... t_min, occ_out, stream
     "pbr_trace_blocks_any": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P, _P],
+    # lo, count, bad, stream
+    "pbr_rcp_check": [_U, _L, _P, _P],
     # cam, tri, n_tris, em, n_em, mtex, n_mats, quads, n_rows, width,
     # height, spp, max_bounces, eps, inv_w, inv_h, seed0, seed1, has_em,
     # has_dir, textured, hdr_out, count_out, stream

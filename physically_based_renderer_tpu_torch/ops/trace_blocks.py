@@ -22,11 +22,18 @@ themselves through det = 0 (inverse 0, so t = 0 fails t > t_min >= 0).
 
 `trace_blocks_plain` is that function in torch; the wrapper
 `trace_blocks` launches the CUDA kernel (`csrc/trace_blocks.cu`) for CUDA
-tensors and takes the plain version only for CPU tensors.
+tensors and takes the plain version only for CPU tensors.  The kernel runs
+B / R threads a block, each testing R rays (R = 2 where B % 64 == 0, else
+1), and copies the soup with 16-byte copies, so on the card K must be a
+multiple of 4 and the soup 16-byte aligned.  Its reciprocal of det is a
+branch-free sequence checked equal to 1.0f / det over every float of
+[RCP_LO, RCP_HI) on the card (`rcp_mismatches`); a group of tests with
+|det| beyond it divides.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..accel.clusters import SOUP_ROWS
@@ -37,6 +44,9 @@ from .intersect import BIG
 LAUNCHES = 0
 # Elements of one [blocks, B, ch*K] intersection array of the plain version.
 _PLAIN_CHUNK = 1 << 22
+# The range of |det| over which the kernel's branch-free reciprocal is
+# checked equal to 1.0f / det (csrc/trace_blocks.cu kRcpLo, kRcpHi).
+RCP_LO, RCP_HI = 1e-9, 2.0 ** 126
 
 
 def _check(u_idx, o, d, t_max, soup, n_valid, entry, t_min, chunk):
@@ -177,9 +187,13 @@ def trace_blocks(u_idx, o, d, t_max, soup, n_valid, entry, *,
                                   t_min=t_min, any_hit=any_hit, chunk=chunk)
     if o.device.type != "cuda":
         raise ValueError(f"block tracer: unsupported device {o.device}")
-    lib = cuda_lib.library()
     nb, b = t_max.shape
     n_u, k = u_idx.shape[1], soup.shape[-1]
+    if k % 4 or soup.data_ptr() % 16:
+        raise ValueError(f"the kernel copies soup rows 16 bytes at a time: "
+                         f"K = {k} must be a multiple of 4 and the soup "
+                         "16-byte aligned")
+    lib = cuda_lib.library()
     args = (u_idx.data_ptr(), n_valid.data_ptr(), entry.data_ptr(),
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(), soup.data_ptr(),
             nb, b, n_u, k, ch, float(t_min))
@@ -197,3 +211,19 @@ def trace_blocks(u_idx, o, d, t_max, soup, n_valid, entry, *,
     cuda_lib.check(rc, "pbr_trace_blocks_closest")
     LAUNCHES += 1
     return best_t, best_flat
+
+
+def rcp_mismatches(device) -> int:
+    """Floats x with |x| in [1e-9, 2^126), both signs, for which the
+    kernel's branch-free reciprocal and 1.0f / x differ in any bit, counted
+    on the card over every such float (0 means K1's t and winners are
+    those of a division)."""
+    lo = int(np.float32(RCP_LO).view(np.uint32))
+    hi = int(np.float32(RCP_HI).view(np.uint32))
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = cuda_lib.stream_ptr(device)
+    for sign in (0, 1 << 31):
+        rc = cuda_lib.library().pbr_rcp_check(sign + lo, hi - lo,
+                                              bad.data_ptr(), stream)
+        cuda_lib.check(rc, "pbr_rcp_check")
+    return int(bad.item())

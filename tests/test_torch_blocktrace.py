@@ -335,9 +335,13 @@ def test_auto_tracer_picks_the_block_tracer():
 # the reference's tracer (K1 in interpret mode) and, where every candidate
 # is kept, brute force.  chunk = 16 stages 72 KB a step on the card, the
 # shared-memory opt-in of csrc/trace_blocks.cu (tests/test_torch_cuda.py).
+# block 32, 96 and 1024 run one, one and two rays a thread in the kernel
+# (two where B % 64 == 0), chunk 1 one cluster a buffer.
 KNOBS = {"chunk2": dict(chunk=2), "chunk8": dict(chunk=8),
          "chunk16": dict(chunk=16), "block128": dict(block=128),
-         "max_u16": dict(max_u=16)}
+         "max_u16": dict(max_u=16), "chunk1": dict(chunk=1),
+         "block32": dict(block=32), "block96": dict(block=96),
+         "block1024": dict(block=1024)}
 
 
 @pytest.mark.parametrize("knob", sorted(KNOBS))

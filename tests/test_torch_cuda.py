@@ -247,6 +247,36 @@ def test_k5_kernels_match_plain(cuda_device, t, w, n, dtype):
     assert (tab.grad - plain).abs().max() <= 1e-5 * plain.abs().max()
 
 
+# K5a's routes (csrc/gather.cu, chosen there from W and the table's
+# address): W a multiple of 4 on an aligned table moves float4 quarters of
+# rows; anything else float4s of the output gathered across rows.
+K5A_WIDTHS = (1, 3, 12, 16, 20, 86)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("w", K5A_WIDTHS)
+def test_k5a_routes_match_plain(cuda_device, w, dtype):
+    """K5a bit-equal to its plain version on a small and a large table, for
+    ragged N (N*W no multiple of 4) and N below one float4, with indices -1
+    and T among them; and on a table 4 bytes past a 16-byte boundary,
+    which takes the rows route whatever W is."""
+    g = torch.Generator(device=cuda_device).manual_seed(w)
+    for t in (7, 32, 99_400):
+        big = torch.randn(t * w + 1, device=cuda_device, generator=g) * 1e3
+        for table in (big[:-1].view(t, w), big[1:].view(t, w)):
+            for n in (1, 3, 4_097, 262_147):
+                idx = torch.randint(-1, t + 1, (n,), device=cuda_device,
+                                    generator=g, dtype=dtype)
+                idx[0] = -1 if n < 3 else t
+                before = gather.LAUNCHES_FWD
+                out = gather.gather_fwd(table, idx)
+                torch.cuda.synchronize()
+                assert gather.LAUNCHES_FWD == before + 1
+                assert torch.equal(out, gather.take_rows_plain(table, idx)), (
+                    t, w, n, table.data_ptr() % 16)
+
+
 @pytest.mark.cuda
 def test_k5_rejects_what_it_does_not_take(cuda_device):
     table = torch.ones((4, 3), device=cuda_device)
@@ -347,6 +377,91 @@ def test_k1_kernel_matches_plain_at_block_512(cuda_device, helmet, sort):
                 assert torch.equal(k, p)
             else:
                 assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+
+
+def _assert_closest_agrees(kern, plain):
+    """chip_smoke.py's TraceStats: winners equal but for exact ties (at most
+    1e-4 of the rays, t within 1e-5 relative there), hit or miss equal, t
+    bit-equal where the winners agree and on misses."""
+    (tk, ik), (tp, ip) = kern, plain
+    assert torch.equal(ik < 0, ip < 0)
+    diff = ik != ip
+    assert int(diff.sum()) <= 1e-4 * ik.numel()
+    if bool(diff.any()):
+        rel = (tk[diff] - tp[diff]).abs() / tp[diff].abs().clamp_min(1e-30)
+        assert rel.max().item() <= 1e-5
+    assert torch.equal(tk[~diff], tp[~diff])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 4, 16])
+@pytest.mark.parametrize("block", [32, 96, 128, 256, 512, 1024])
+def test_k1_kernel_matches_plain_at_block_and_chunk(cuda_device, helmet_proc,
+                                                    block, chunk):
+    """K1 at each rays-a-thread R the kernel picks (B = 32, 96: R = 1;
+    128-1024: R = 2) and chunk (1, 4, 16: one to 16 clusters a buffer,
+    144 KB of double-buffered shared memory at 16), closest and any hit, on
+    a ragged ray count."""
+    bc, (scene, _) = helmet_proc
+    grid = scene.clusters
+    grid = type(grid)(**{f: getattr(grid, f).to(cuda_device)
+                         for f in grid.__dataclass_fields__})
+    o, d, tm = _sphere_rays(20_011, block + chunk, cuda_device)
+    for any_hit, t_max in ((False, 1e30), (True, tm)):
+        args, _ = blocktrace.block_inputs(grid, o, d, 1e-3, t_max, sort=True,
+                                          block=block, chunk=chunk)
+        before = trace_blocks.LAUNCHES
+        k = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=any_hit,
+                                      chunk=chunk)
+        torch.cuda.synchronize()
+        assert trace_blocks.LAUNCHES == before + 1
+        p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3,
+                                            any_hit=any_hit, chunk=chunk)
+        if any_hit:
+            assert torch.equal(k, p)
+            assert 0 < int(k.sum()) < k.numel()
+        else:
+            _assert_closest_agrees(k, p)
+            assert 0 < int((k[1] >= 0).sum()) < k[1].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [96, 128])
+def test_k1_groups_beyond_the_reciprocal_divide(cuda_device, b):
+    """A triangle with edges of 1e19 gives |det| = 1e38 >= 2^126, where the
+    kernel's reciprocal is not used: its group is run again with the
+    division (whose denormal 1/det the flushed reciprocal would zero, and
+    every ray would miss).  Rays along +z from z = -1 hit it at t = 1; a
+    block of 96 runs one ray a thread, of 128 two."""
+    soup = torch.zeros((2, 9, 128))
+    soup[0, :, 0] = torch.tensor([-1e18, -1e18, 0.0, 1e19, 0.0, 0.0,
+                                  0.0, 1e19, 0.0])
+    g = np.random.default_rng(17)
+    o = torch.from_numpy(np.concatenate(
+        [g.uniform(-0.5, 0.5, (b, 2)), -np.ones((b, 1))], 1).astype(
+            np.float32))[None]
+    d = torch.tensor([0.0, 0.0, 1.0]).expand(1, b, 3).contiguous()
+    u_idx = torch.tensor([[0, 1, 1, 1]], dtype=torch.int32)
+    n_valid = torch.tensor([1], dtype=torch.int32)
+    entry = torch.zeros((1, 4))
+    for any_hit, t_max in ((False, 1e30), (True, 2.0)):
+        args = [x.to(cuda_device).contiguous() for x in (
+            u_idx, o, d, torch.full((1, b), t_max), soup, n_valid, entry)]
+        k = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=any_hit)
+        p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3,
+                                            any_hit=any_hit)
+        if any_hit:
+            assert bool(p.all()) and torch.equal(k, p)
+        else:
+            assert bool((p[1] == 0).all())
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+def test_k1_reciprocal_equals_division(cuda_device):
+    """The kernel's branch-free reciprocal equals 1.0f / x on every float
+    with |x| in [1e-9, 2^126), the range it serves."""
+    assert trace_blocks.rcp_mismatches(cuda_device) == 0
 
 
 @pytest.mark.cuda

@@ -27,9 +27,21 @@ def _table_idx(t, w, n=1000, lo=0, seed=0):
     return table, idx
 
 
-@pytest.mark.parametrize("t,w", [(36, 8), (64, 52), (513, 16)])
-def test_forward_bit_equal_to_reference_kernel(t, w):
-    table, idx = _table_idx(t, w)
+# The CUDA kernel's route changes with W (float4 quarters of rows when
+# W % 4 == 0, else float4s of the output across rows): each width of the
+# render path (1 and 3 below one float4, 86 straddling rows), N = 1003 so
+# that N*W leaves a tail, on a table in and beyond the reference kernel's
+# VMEM row limit (MAX_VMEM_ROWS = 2048).
+ROUTE_CASES = [pytest.param(t, w, 1003, id=f"T={t}-W={w}-N=1003")
+               for w in (1, 3, 12, 16, 20, 86) for t in (32, 2049)]
+
+
+@pytest.mark.parametrize("t,w,n", [pytest.param(36, 8, 1000, id="36-8"),
+                                   pytest.param(64, 52, 1000, id="64-52"),
+                                   pytest.param(513, 16, 1000, id="513-16")]
+                         + ROUTE_CASES)
+def test_forward_bit_equal_to_reference_kernel(t, w, n):
+    table, idx = _table_idx(t, w, n)
     want = np.asarray(j_take_rows(jnp.asarray(table), jnp.asarray(idx),
                                   force="interpret"))
     got = gather.take_rows(torch.from_numpy(table), torch.from_numpy(idx))
