@@ -14,9 +14,10 @@ of which raises on failure (an uncaught exception exits non-zero):
      soup (dynamic shared memory above 48 KB); a ragged ray count;
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
-  4. K1's branch-free reciprocal against 1.0f / x on every float with |x|
-     in [1e-9, 2^126); the registers and spill bytes of K1's and K5a's
-     instantiations (cuobjdump -res-usage); K1 (block-stream tracer)
+  4. the branch-free reciprocal of K1 and K4 (csrc/rcp.cuh) against
+     1.0f / x on every float with |x| in [1e-9, 2^126); the registers and
+     spill bytes of K1's, K4's, K5a's and K5b's instantiations (cuobjdump
+     -res-usage); K1 (block-stream tracer)
      against its plain-torch version on
      `helmet_proc` (100,352 triangles, 1,024 clusters, ray blocks of 256)
      and on `helmet` (the 99,400-triangle .glb, ray blocks of 512): 512x512
@@ -37,7 +38,9 @@ of which raises on failure (an uncaught exception exits non-zero):
      same packed tables: `cornell` and `cornell_ggx` at their full configs
      (512x512, 4 spp, 4 bounces), `triangle` at its full config (256x256,
      4 spp, 1 bounce) and a ragged 24x20 cornell frame, images and ray
-     counts; kernel and plain times of the cornell frame;
+     counts; kernel and plain times of the cornell and cornell_ggx frames
+     beside the bound from the ray-triangle tests their data needs
+     (tools/work.py) and the lane use of the closest-hit loop;
   6. the main paths at full size, launch counts reset just before each:
      the render CLI on `cornell` and on `cornell_ggx`, which K4 renders
      (1 K4, 1 K3, no tracer kernel); the dense cornell path,
@@ -59,9 +62,13 @@ of which raises on failure (an uncaught exception exits non-zero):
      and skewed cases where every ray picks one row; forward bit-equal,
      backward within K5B_REL * max|plain|; kernel, plain and library
      (index_select, index_add_) times at cornell's shape (262,144 rays x 86
-     columns from 32 rows); then K5a at every distinct (T, W, N) that a
-     helmet frame and a dense cornell frame gather, logged from the frames
-     and timed on their own tensors, with index_select beside it;
+     columns from 32 rows, random indices, and every row on one index);
+     then K5a at every distinct (T, W, N) that a helmet frame and a dense
+     cornell frame gather, logged from the frames and timed on their own
+     tensors, with index_select beside it; and K5b at every (T, W, N) of
+     one gradient step's render() backward (tri_attrs [32, 86] and the
+     emitter table [2, 20]), on the step's own indices and cotangents,
+     each call held to its plain version, with index_add_ beside it;
   9. the gradient path: (a) render() + pixel_loss gradients against the
      reference's (tests/data/cornell_grad_64_golden.npz) with exact K5a/K5b
      counts; (b) the inverse CLI at the cornell config's full size (512x512,
@@ -780,6 +787,7 @@ def phase_k4(dev):
 
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
     from physically_based_renderer_tpu_torch.ops import fused
+    from physically_based_renderer_tpu_torch.tools import work
     from physically_based_renderer_tpu_torch.tools.timing import device_ms
     from physically_based_renderer_tpu_torch.utils import config
 
@@ -824,24 +832,46 @@ def phase_k4(dev):
         out["max_count_rel"] = max(out["max_count_rel"], count_rel)
         frames[label] = frame
 
-    # Time at the main path's shape: the whole cornell frame.
-    frame = frames["cornell"]
-    ms, _ = device_ms(lambda: fused.fused_kernel(frame), 20, "fused_kernel")
-    out["wrapper_ms"] = time_ms(lambda: fused.fused_kernel(frame), 20)
-    plain_ms = time_ms(lambda: fused.fused_plain(frame), 3, warmup=1)
-    # The work is a lower bound from this run's query count: of `count`
-    # queries at most one in 1 + n_shadow is a closest hit (each shadow
-    # query follows one), and a closest hit tests every triangle; shadow
-    # queries (which may be skipped or stop at the first occluder) and the
-    # shading arithmetic are left out.  Bytes: the HDR sum out (the tables
-    # are kilobytes).
-    _, count = fused.fused_kernel(frame)
-    n_shadow = int(frame.has_em) + int(frame.has_dir)
-    closest = -(-int(count) // (1 + n_shadow))
-    n_tris = frame.tri.shape[0]
-    out["closest_queries_at_least"] = closest
-    out["bound"] = bound(512 * 512 * 3 * 4, closest * n_tris * MT_FLOPS)
-    return out, ms, plain_ms
+    # Times at the main paths' shapes: the whole cornell and cornell_ggx
+    # frames.  Bound: the ray-triangle tests this frame's data needs
+    # (tools/work.py, replayed from the plain version's own queries: every
+    # triangle for a closest hit, up to and including the first occluder
+    # for a shadow ray), MT_FLOPS each; the shading arithmetic is left out.
+    # Bytes: the HDR sum out (the tables are kilobytes).  Beside it, the
+    # earlier lower bound, from the query count alone: of `count` queries
+    # at least one in 1 + n_shadow is a closest hit.
+    out["frames"] = {}
+    for label in ("cornell", "cornell_ggx"):
+        frame = frames[label]
+        ms, _ = device_ms(lambda: fused.fused_kernel(frame), 20,
+                          "fused_kernel")
+        wrapper_ms = time_ms(lambda: fused.fused_kernel(frame), 20)
+        plain_ms = time_ms(lambda: fused.fused_plain(frame), 3, warmup=1)
+        w = work.fused_work(frame)
+        n_shadow = int(frame.has_em) + int(frame.has_dir)
+        n_tris = frame.tri.shape[0]
+        n_bytes = frame.width * frame.height * 3 * 4
+        bnd = bound(n_bytes, w["tests"] * MT_FLOPS)
+        old = bound(n_bytes, -(-w["count"] // (1 + n_shadow)) * n_tris
+                    * MT_FLOPS)
+        print(f"K4 {label} frame device {ms:.4f} ms, wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bnd[0]:.4f} ms ({w['tests']} tests: {w['closest_queries']}"
+              f" closest-hit queries x {n_tris} triangles, "
+              f"{w['shadow_queries']} shadow queries traced with "
+              f"{w['shadow_tests']} tests), {ms / bnd[0]:.2f}x the bound; "
+              f"the closest-hit-only lower bound {old[0]:.4f} ms; lane use "
+              f"of the closest-hit loop {w['lane_use_samples']:.4f} with a "
+              f"thread a (pixel, sample), {w['lane_use_pixels']:.4f} with a "
+              f"thread a pixel [{card_line()}]")
+        out["frames"][label] = {"ms": ms, "wrapper_ms": wrapper_ms,
+                                "plain_ms": plain_ms, "bound": bnd,
+                                "closest_hit_only_bound_ms": old[0],
+                                "work": w, "ratio_to_bound": ms / bnd[0]}
+    cornell = out["frames"]["cornell"]
+    out["wrapper_ms"] = cornell["wrapper_ms"]
+    out["bound"] = cornell["bound"]
+    return out, cornell["ms"], cornell["plain_ms"]
 
 
 def phase_k5(dev):
@@ -957,6 +987,10 @@ def phase_k5(dev):
     # gather, on the frames' own tables and indices, index_select beside it.
     out["main_path_shapes"] = [time_k5a_shape(*c)
                                for c in k5a_main_path_calls(dev)]
+    # K5b at every (T, W, N) of one gradient step's render() backward, on
+    # the step's own indices and cotangents, index_add_ beside it.
+    out["bwd_main_path_shapes"] = [time_k5b_shape(*c)
+                                   for c in k5b_main_path_calls(dev)]
     return out
 
 
@@ -1035,6 +1069,81 @@ def time_k5a_shape(label, table, idx, by_frame):
             "rows_read": rows, "ms": ms, "wrapper_ms": wrapper_ms,
             "library_ms": library_ms, "bound_ms": bnd[0],
             "ratio_to_bound": ms / bnd[0]}
+
+
+def k5b_main_path_calls(dev):
+    """The K5b calls of one render() backward of the gradient step (the
+    inverse CLI's cornell at GRAD_CLI's size, the four material fields),
+    logged by tools/work.py: [(label, [(idx, ct, T), ...])] by (T, W, N,
+    index type), calls in launch order."""
+    from physically_based_renderer_tpu_torch.tools import work
+
+    c = GRAD_CLI
+    calls = work.gradient_step_calls(dev, c["size"], c["spp"], c["bounces"])
+    want = c["spp"] * (2 * c["bounces"] + 1)
+    if len(calls) != want:
+        raise AssertionError(f"{len(calls)} K5b calls in a step's backward, "
+                             f"expected {want}")
+    groups = {}
+    for idx, ct, t in calls:
+        key = (t, ct.shape[1], idx.shape[0], str(idx.dtype).split(".")[-1])
+        groups.setdefault(key, []).append((idx, ct, t))
+    out = []
+    for (t, w, n, dtype), group in sorted(groups.items()):
+        label = f"T={t} W={w} N={n} {dtype}"
+        print(f"K5b main-path shape {label}: {len(group)} calls a step")
+        out.append((label, group))
+    return out
+
+
+def time_k5b_shape(label, calls):
+    """K5b on one main-path shape's calls (a step's own indices and
+    cotangents): each within K5B_REL * max|plain| of the plain version;
+    device and wrapper times per launch over the calls in turn, the bound
+    and index_add_'s device time.  The yardstick gets the indices clamped
+    into [0, T) (index_add_ faults on an index outside the table), so it
+    moves the same bytes.  Bytes: the cotangent rows and indices in,
+    d_table out, once each; operations: one add an element."""
+    import itertools
+
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import gather
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+
+    worst, runs = 0.0, 0
+    for idx, ct, t in calls:
+        dk = gather.gather_bwd(idx, ct, t)
+        dp = gather.take_rows_bwd_plain(idx, ct, t)
+        scale = dp.abs().max().item()
+        err = (dk - dp).abs().max().item()
+        if err > K5B_REL * scale:
+            raise AssertionError(f"K5b {label}: max |kernel - plain| {err:.3g}"
+                                 f" > {K5B_REL} x {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+        runs += 1 + int((idx[1:] != idx[:-1]).sum())
+    idx, ct, t = calls[0]
+    n, w = ct.shape
+    iters = len(calls) * max(1, 200 // len(calls))
+    turn = itertools.cycle(calls)
+    call = lambda: gather.gather_bwd(*next(turn))
+    ms, fill_ms = device_ms(call, iters, "gather_bwd_")
+    wrapper_ms = time_ms(call, iters)
+    acc = torch.zeros((t, w), device=ct.device)
+    lib_turn = itertools.cycle([(i.clamp(0, t - 1), c) for i, c, _ in calls])
+    library_ms, _ = device_ms(lambda: acc.index_add_(0, *next(lib_turn)),
+                              iters, None)
+    bnd = bound(n * w * 4 + n * idx.element_size() + t * w * 4, n * w)
+    rows_a_run = len(calls) * n / runs
+    print(f"K5b {label} ({len(calls)} calls, {rows_a_run:.1f} rows a run "
+          f"of equal indices): device {ms:.4f} ms (+ {fill_ms:.4f} zero "
+          f"fill), wrapper {wrapper_ms:.4f} ms, index_add_ {library_ms:.4f}"
+          f" ms, bound {bnd[0]:.4f} ms, {ms / bnd[0]:.2f}x the bound, max "
+          f"rel err {worst:.3g} [{card_line()}]")
+    return {"shape": label, "calls": len(calls), "rows_a_run": rows_a_run,
+            "ms": ms, "fill_ms": fill_ms, "wrapper_ms": wrapper_ms,
+            "library_ms": library_ms, "bound_ms": bnd[0],
+            "ratio_to_bound": ms / bnd[0], "max_rel_err": worst}
 
 
 def phase_grad_golden(dev):
@@ -1362,28 +1471,30 @@ def cuobjdump(flag):
         capture_output=True, text=True, timeout=120, check=True).stdout
 
 
-def k1_k5a_resources():
-    """Registers and local-memory (spill) bytes a thread of each K1 and
-    K5a instantiation, as ptxas allotted them (`cuobjdump -res-usage` on
-    the built library), keyed by the mangled name up to its parameters:
-    trace_blocks_kernelILb<any hit>ELi<rays a thread>E,
-    gather_fwd_kernel_<route>I<index type><flat index type>E."""
+def kernel_resources():
+    """Registers and local-memory (spill) bytes a thread of each K1, K4,
+    K5a and K5b instantiation, as ptxas allotted them (`cuobjdump
+    -res-usage` on the built library), keyed by the mangled name up to its
+    parameters: trace_blocks_kernelILb<any hit>ELi<rays a thread>E,
+    fused_kernel, gather_fwd_kernel_<route>I<index type><flat index
+    type>E, gather_bwd_kernelI<index type><accumulator><column groups>E."""
     import re
 
     usage = cuobjdump("-res-usage")
     if usage is None:
-        print("K1/K5a registers: not measured (no cuobjdump)")
+        print("K1/K4/K5 registers: not measured (no cuobjdump)")
         return None
     out = {}
     for name, line in re.findall(r"Function (\S+):\s*\n([^\n]*)", usage):
-        short = re.search(r"(trace_blocks_kernel|gather_fwd_kernel_\w+?)"
-                          r"(I\w*?E)(?:E|v)", name)
+        short = re.search(r"(trace_blocks_kernel|fused_kernel|"
+                          r"gather_fwd_kernel_\w+?|gather_bwd_kernel)"
+                          r"(I\w*?E)?(?:E|v)", name)
         if short:
             res = dict(re.findall(r"(\w+):(\d+)", line))
-            out[short.group(1) + short.group(2)] = {
+            out[short.group(1) + (short.group(2) or "")] = {
                 "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
                 "local_bytes": int(res["LOCAL"])}
-    print(f"K1/K5a registers a thread (cuobjdump -res-usage) "
+    print(f"K1/K4/K5 registers a thread (cuobjdump -res-usage) "
           f"[{card_line()}]: {out}")
     return out
 
@@ -2069,13 +2180,14 @@ def main() -> int:
     print(f"K3 512x512: kernel {k3_ms:.4f} ms (wrapper "
           f"{k3['wrapper_ms']:.4f}), plain {k3_plain_ms:.4f} ms")
 
-    # 4. K1 against its plain version; its reciprocal against division
+    # 4. K1 against its plain version; the reciprocal of K1 and K4
+    # (csrc/rcp.cuh) against division
     rcp_bad = trace_blocks.rcp_mismatches(dev)
-    print(f"K1 reciprocal: {rcp_bad} floats with |x| in [1e-9, 2^126) "
+    print(f"K1/K4 reciprocal: {rcp_bad} floats with |x| in [1e-9, 2^126) "
           "differ from 1.0f / x")
     if rcp_bad:
-        raise AssertionError("K1's reciprocal differs from 1.0f / x")
-    resources = k1_k5a_resources()
+        raise AssertionError("the reciprocal differs from 1.0f / x")
+    resources = kernel_resources()
     k1, k1_ms, k1_plain_ms = phase_k1(dev)
     print(f"K1 262144 helmet_proc camera rays: kernel {k1_ms:.4f} ms "
           f"(wrapper {k1.wrapper_ms:.4f}), "
@@ -2284,7 +2396,7 @@ def main() -> int:
                "wrapper_ms": k2.wrapper_ms, "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
-        "k1_rcp_mismatches": rcp_bad, "k1_k5a_resources": resources,
+        "k1_rcp_mismatches": rcp_bad, "kernel_resources": resources,
         "k1": {"rays_compared": k1.rays, "winner_mismatches": k1.mismatch,
                "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,
                "wrapper_ms": k1.wrapper_ms, "plain_ms": k1_plain_ms,

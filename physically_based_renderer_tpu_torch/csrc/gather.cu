@@ -37,15 +37,21 @@
 // bit-equal to the plain version.
 //
 // K5b's trouble is contention: in cornell, 262,144 x 86 cotangents land on
-// 32 x 86 = 2,752 addresses.  One thread per (row, column) element; when
-// the T*W table fits in kSharedMaxBytes, each block accumulates its share
-// of the elements in a private copy in shared memory (shared-memory float
-// atomics), then adds that copy to d_table with one global atomic per
-// non-zero element; larger tables (helmet_proc's 100,352 x 86) use plain
-// global atomics, which are spread over many addresses.  Atomics make the
-// order of the sums, and so their last bits, vary from run to run.  The
-// wrapper zeroes d_table before the launch.  Indices are int32 or int64
-// (one instantiation each).
+// 32 x 86 = 2,752 addresses, and a gradient step's rows come in pixel
+// order, so neighbouring rows often name the same triangle (3.9 rows a run
+// of equal indices at tri_attrs, 2.0 at the emitter table).  A warp walks
+// a run of rows and sums the columns of equal consecutive indices in
+// registers, adding them to its accumulator once per run of equal indices
+// (no per-element division).  The accumulator is a private table of the
+// warp's own in shared memory where one for each of the block's 32 warps
+// fits the card's opt-in shared memory (no atomics), else the block's one
+// table (shared-memory atomics), else d_table (global atomics);
+// gather_bwd_kernel below.  What is left is the latency of the rows'
+// loads: 32 warps an SM with 8 rows each in flight beat 16 warps with
+// private tables and deeper pipelines (PERF.md; tools/sweep.py).  Atomics
+// and the warps' sums make the order of the sums, and so their last bits,
+// vary from run to run.  The wrapper zeroes d_table before the launch.
+// Indices are int32 or int64 (one instantiation each).
 
 #include <cuda_runtime.h>
 
@@ -54,7 +60,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSharedMaxBytes = 48 * 1024;
 constexpr long long kMaxBlocks = 1 << 20;
 // Flat element counts below this use 32-bit index arithmetic (the
 // grid-stride sum e + stride stays below 2^32).
@@ -66,26 +71,23 @@ constexpr int kMaxDevices = 64;
 constexpr int kFwdQuads = 4;
 constexpr int kFwdTile = kThreads * kFwdQuads;
 
-long long blocks_for(long long total) {
-  const long long b = (total + kThreads - 1) / kThreads;
-  return b < kMaxBlocks ? b : kMaxBlocks;
-}
-
-// The current device's SM count, queried once per device and kept: the
-// kernels run many times a frame, and the attribute query costs a
-// runtime call each time (a benign race: concurrent first calls store the
-// same value).
-cudaError_t sm_count(int* sms) {
-  static int cached[kMaxDevices] = {};
+// An attribute of the current device (the SM count, the opt-in shared
+// memory a block), queried once per device and kept: the kernels run many
+// times a frame, and the attribute query costs a runtime call each time
+// (a benign race: concurrent first calls store the same value).
+cudaError_t device_attr(cudaDeviceAttr attr, int* value) {
+  constexpr int kAttrs = 2;
+  static int cached[kAttrs][kMaxDevices] = {};
+  const int a = attr == cudaDevAttrMultiProcessorCount ? 0 : 1;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *sms = cached[dev];
+  if (dev < kMaxDevices && cached[a][dev] > 0) {
+    *value = cached[a][dev];
     return cudaSuccess;
   }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < kMaxDevices) cached[dev] = *sms;
+  err = cudaDeviceGetAttribute(value, attr, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) cached[a][dev] = *value;
   return err;
 }
 
@@ -204,64 +206,161 @@ int gather_fwd(const float* table, const I* idx, long long n, int t, int w,
   return launch_fwd<I, long long>(table, idx, total, t, w, quads, out, s);
 }
 
-template <typename I, typename E>
-__global__ void gather_bwd_shared_kernel(const I* __restrict__ idx,
-                                         const float* __restrict__ ct,
-                                         E total, int t, int w,
-                                         float* __restrict__ d_table) {
-  extern __shared__ float acc[];
+// K5b.  A warp takes a run of kBwdRun consecutive rows of ct; its lanes own
+// the columns c = col0 + lane + 32 j, j < J, so a row is one coalesced load.
+// The run's indices are read once, one a lane, and handed round by
+// shuffle.  The warp walks its rows in order and keeps each column's sum in
+// registers while the index repeats; it adds the sums to its accumulator
+// only when the index changes, or at the run's end.  kBwdAhead rows are
+// loaded before any is added, to keep bytes in flight.  Three accumulators
+// (Acc), the first that fits the card's opt-in shared memory:
+//  * kWarp: a private T x W table for each warp of the block; one warp
+//    writes it, so the adds are plain loads and stores (no atomics);
+//  * kBlock: one T x W table for the block, shared-memory atomics;
+//  * kGlobal: d_table itself, global atomics.
+// A shared table is added to d_table at the block's end, one global atomic
+// per non-zero element.
+enum class Acc { kWarp, kBlock, kGlobal };
+
+// Chosen by measurement on the card (PERF.md): 1024 threads (at most 64
+// registers a thread), runs of 32 rows, 8 rows loaded ahead.
+constexpr int kBwdThreads = 1024;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdRun = 32;
+constexpr int kBwdAhead = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+template <Acc A, int J>
+__device__ __forceinline__ void add_sums(float* tab, int k, int w, int col0,
+                                         int lane, const float (&s)[J]) {
+  float* row = tab + (long long)k * w;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = col0 + lane + 32 * j;
+    if (c < w) {
+      if (A == Acc::kWarp) {
+        row[c] += s[j];
+      } else {
+        atomicAdd(row + c, s[j]);
+      }
+    }
+  }
+}
+
+template <typename I, Acc A, int J>
+__global__ void __launch_bounds__(kBwdThreads) gather_bwd_kernel(
+    const I* __restrict__ idx, const float* __restrict__ ct, long long n,
+    int t, int w, float* __restrict__ d_table) {
+  extern __shared__ float tabs[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int tw = t * w;
-  for (int j = threadIdx.x; j < tw; j += blockDim.x) acc[j] = 0.0f;
-  __syncthreads();
-  const E ww = E(w);
-  const E stride = E(gridDim.x) * E(blockDim.x);
-  for (E e = E(blockIdx.x) * E(blockDim.x) + E(threadIdx.x); e < total;
-       e += stride) {
-    const E r = e / ww;
-    const E c = e - r * ww;
-    const long long k = (long long)__ldg(idx + r);
-    if (k >= 0 && k < t) atomicAdd(&acc[k * w + c], __ldg(ct + e));
+  constexpr int kTables = A == Acc::kWarp ? kBwdWarps : 1;
+  float* tab = d_table;
+  if (A != Acc::kGlobal) {
+    for (int j = threadIdx.x; j < kTables * tw; j += kBwdThreads)
+      tabs[j] = 0.0f;
+    __syncthreads();
+    tab = A == Acc::kWarp ? tabs + warp * tw : tabs;
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < tw; j += blockDim.x) {
-    const float v = acc[j];
-    if (v != 0.0f || v != v) atomicAdd(d_table + j, v);
+  const long long first =
+      ((long long)blockIdx.x * kBwdWarps + warp) * kBwdRun;
+  const long long stride = (long long)gridDim.x * kBwdWarps * kBwdRun;
+  for (int col0 = 0; col0 < w; col0 += 32 * J) {
+    for (long long r0 = first; r0 < n; r0 += stride) {
+      const int len = int(n - r0 < kBwdRun ? n - r0 : kBwdRun);
+      int cur = -1;  // the index whose sums s holds; -1: none
+      float s[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) s[j] = 0.0f;
+      for (int b = 0; b < len; b += 32) {
+        // The batch's indices, one a lane; -1 outside [0, T).
+        int kl = -1;
+        if (b + lane < len) {
+          const long long k = (long long)__ldg(idx + r0 + b + lane);
+          kl = k >= 0 && k < t ? int(k) : -1;
+        }
+        const int m = len - b < 32 ? len - b : 32;
+        for (int a = 0; a < m; a += kBwdAhead) {
+          // kBwdAhead rows loaded before any is added; rows with an index
+          // outside the table are not read.
+          int ks[kBwdAhead];
+          float v[kBwdAhead][J];
+#pragma unroll
+          for (int u = 0; u < kBwdAhead; ++u) {
+            ks[u] = __shfl_sync(kFull, kl, a + u);
+            const float* row = ct + (r0 + b + a + u) * w;
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              const int c = col0 + lane + 32 * j;
+              v[u][j] = a + u < m && ks[u] >= 0 && c < w ? __ldg(row + c)
+                                                         : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kBwdAhead; ++u) {
+            if (a + u < m) {
+              if (ks[u] != cur) {
+                if (cur >= 0) add_sums<A, J>(tab, cur, w, col0, lane, s);
+                cur = ks[u];
+#pragma unroll
+                for (int j = 0; j < J; ++j) s[j] = 0.0f;
+              }
+#pragma unroll
+              for (int j = 0; j < J; ++j) s[j] += v[u][j];
+            }
+          }
+        }
+      }
+      if (cur >= 0) add_sums<A, J>(tab, cur, w, col0, lane, s);
+    }
+  }
+  if (A != Acc::kGlobal) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < tw; j += kBwdThreads) {
+      float v = tabs[j];
+      for (int q = 1; q < kTables; ++q) v += tabs[q * tw + j];
+      if (v != 0.0f || v != v) atomicAdd(d_table + j, v);
+    }
   }
 }
 
-template <typename I, typename E>
-__global__ void gather_bwd_global_kernel(const I* __restrict__ idx,
-                                         const float* __restrict__ ct,
-                                         E total, int t, int w,
-                                         float* __restrict__ d_table) {
-  const E ww = E(w);
-  const E stride = E(gridDim.x) * E(blockDim.x);
-  for (E e = E(blockIdx.x) * E(blockDim.x) + E(threadIdx.x); e < total;
-       e += stride) {
-    const E r = e / ww;
-    const E c = e - r * ww;
-    const long long k = (long long)__ldg(idx + r);
-    if (k >= 0 && k < t) atomicAdd(d_table + k * w + c, __ldg(ct + e));
+template <typename I, Acc A, int J>
+int launch_bwd(const I* idx, const float* ct, long long n, int t, int w,
+               float* d_table, size_t smem, int sms, cudaStream_t s) {
+  const auto kernel = &gather_bwd_kernel<I, A, J>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
   }
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kBwdThreads, smem);
+  if (err != cudaSuccess) return int(err);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  // As many blocks as fit at once, and no more than the runs need: every
+  // block then flushes its table once.
+  const long long runs = (n + kBwdRun - 1) / kBwdRun;
+  long long blocks = (runs + kBwdWarps - 1) / kBwdWarps;
+  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  kernel<<<unsigned(blocks), kBwdThreads, smem, s>>>(idx, ct, n, t, w,
+                                                     d_table);
+  return int(cudaGetLastError());
 }
 
-template <typename I, typename E>
-void launch_bwd(const I* idx, const float* ct, long long total, int t, int w,
-                float* d_table, long long shared_bytes, int sms,
-                cudaStream_t s) {
-  if (shared_bytes <= kSharedMaxBytes) {
-    // A few blocks per SM: each then covers many elements, so the flush of
-    // its private table (t * w atomics) is amortised over many rays.
-    long long blocks = blocks_for(total);
-    if (blocks > 4LL * sms) blocks = 4LL * sms;
-    gather_bwd_shared_kernel<I, E><<<unsigned(blocks), kThreads,
-                                     size_t(shared_bytes), s>>>(
-        idx, ct, E(total), t, w, d_table);
-  } else {
-    gather_bwd_global_kernel<I, E><<<unsigned(blocks_for(total)), kThreads,
-                                     0, s>>>(idx, ct, E(total), t, w,
-                                             d_table);
-  }
+template <typename I, Acc A>
+int launch_bwd_j(const I* idx, const float* ct, long long n, int t, int w,
+                 float* d_table, size_t smem, int sms, cudaStream_t s) {
+  // Column groups of 32 a lane holds: W up to 128 in one pass over the
+  // rows, wider tables in passes of 128 columns.
+  if (w <= 32) return launch_bwd<I, A, 1>(idx, ct, n, t, w, d_table, smem,
+                                          sms, s);
+  if (w <= 64) return launch_bwd<I, A, 2>(idx, ct, n, t, w, d_table, smem,
+                                          sms, s);
+  if (w <= 96) return launch_bwd<I, A, 3>(idx, ct, n, t, w, d_table, smem,
+                                          sms, s);
+  return launch_bwd<I, A, 4>(idx, ct, n, t, w, d_table, smem, sms, s);
 }
 
 template <typename I>
@@ -269,18 +368,19 @@ int gather_bwd(const I* idx, const float* ct, long long n, int t, int w,
                float* d_table, void* stream) {
   if (n <= 0 || w <= 0 || t <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = n * w;
-  const long long shared_bytes = (long long)t * w * (long long)sizeof(float);
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
+  int sms = 0, optin = 0;
+  cudaError_t err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
+  if (err == cudaSuccess)
+    err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
   if (err != cudaSuccess) return int(err);
-  if (total < kMax32)
-    launch_bwd<I, unsigned>(idx, ct, total, t, w, d_table, shared_bytes, sms,
-                            s);
-  else
-    launch_bwd<I, long long>(idx, ct, total, t, w, d_table, shared_bytes,
-                             sms, s);
-  return int(cudaGetLastError());
+  const size_t table = size_t(t) * size_t(w) * sizeof(float);
+  if (kBwdWarps * table <= size_t(optin))
+    return launch_bwd_j<I, Acc::kWarp>(idx, ct, n, t, w, d_table,
+                                       kBwdWarps * table, sms, s);
+  if (table <= size_t(optin))
+    return launch_bwd_j<I, Acc::kBlock>(idx, ct, n, t, w, d_table, table,
+                                        sms, s);
+  return launch_bwd_j<I, Acc::kGlobal>(idx, ct, n, t, w, d_table, 0, sms, s);
 }
 
 }  // namespace

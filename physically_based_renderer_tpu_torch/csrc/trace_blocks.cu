@@ -28,7 +28,7 @@
 //    where B % 64 == 0 (B / 2 threads are whole warps), else R = 1.  Four
 //    rays a thread needed ~128 registers, left too few warps an SM, and
 //    were slower on every shape measured (PERF.md), so R = 4 is not built;
-//  * the reciprocal of det is rcp_rn below: three instructions, no branch,
+//  * the reciprocal of det is rcp_rn (rcp.cuh): three instructions, no branch,
 //    equal to 1.0f / det on every float with |det| in [1e-9, 2^126)
 //    (checked exhaustively on the card, pbr_rcp_check).  A group of four
 //    triangles in which some |det| reaches 2^126 is run again with the
@@ -67,6 +67,8 @@
 
 #include <cstdint>
 
+#include "rcp.cuh"
+
 namespace {
 
 constexpr float kBig = 1e30f;
@@ -93,20 +95,11 @@ __device__ __forceinline__ float lane(const float4& a, int m) {
   return m == 0 ? a.x : m == 1 ? a.y : m == 2 ? a.z : a.w;
 }
 
-// 1.0f / x rounded as IEEE division rounds it, for |x| in [kRcpLo, kRcpHi):
-// an approximate reciprocal and one Newton step, three instructions and no
-// branch (the division gives the same value through a branch and a
-// slow-path call).  pbr_rcp_check compares it with 1.0f / x on every float
-// of that range (chip_smoke.py phase 4); above kRcpHi, where 1 / x is
-// subnormal, the flushed approximation gives 0 and is not used.
-constexpr float kRcpLo = 1e-9f;
-constexpr float kRcpHi = 0x1p126f;
-
-__device__ __forceinline__ float rcp_rn(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
-}
+// The reciprocal of det: rcp_rn from rcp.cuh, equal to 1.0f / det for
+// |det| in [kRcpLo, kRcpHi).
+using pbr::kRcpHi;
+using pbr::kRcpLo;
+using pbr::rcp_rn;
 
 // Four consecutive triangles (flat index flat .. flat + 3, their nine soup
 // rows in a[]) against a thread's R rays, in flat order; returns whether

@@ -5,7 +5,8 @@ and the objects are linked into one shared library with a plain C
 interface, loaded with ctypes: seconds to build, where an extension that
 includes PyTorch's headers takes minutes.  The library lands in
 `build/torch_kernels/<hash>/` at the repository root, keyed by a hash of
-the sources and the flags, and is built at first use.  A failed build
+the sources, the headers they include and the flags, and is built at
+first use.  A failed build
 raises; nothing falls back to the plain versions.
 
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA, so
@@ -59,9 +60,9 @@ _SIGNATURES = {
     "pbr_rcp_check": [_U, _L, _P, _P],
     # cam, tri, n_tris, em, n_em, mtex, n_mats, quads, n_rows, width,
     # height, spp, max_bounces, eps, inv_w, inv_h, seed0, seed1, has_em,
-    # has_dir, textured, hdr_out, count_out, stream
+    # has_dir, textured, hdr_out, count_out, samples, arrivals, stream
     "pbr_fused_render": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _U, _U, _I, _I, _I, _P, _P, _P],
+                         _F, _F, _F, _U, _U, _I, _I, _I, _P, _P, _P, _P, _P],
     # table, idx, n_rows, n_table_rows, width, out, stream
     "pbr_gather_fwd_i32": [_P, _P, _L, _I, _I, _P, _P],
     "pbr_gather_fwd_i64": [_P, _P, _L, _I, _I, _P, _P],
@@ -102,9 +103,16 @@ def _nvcc() -> str:
     return found
 
 
+def headers() -> list[str]:
+    """The headers the sources include (`csrc/*.cuh`)."""
+    return sorted(p.name for p in CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
+    """Where this build's library lives: keyed by the flags and the bytes of
+    every source and header, so that an edit to either builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *headers()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return _PKG.parent / "build" / "torch_kernels" / h.hexdigest()[:16]

@@ -41,7 +41,8 @@ TWO_PI = 6.283185307179586
 
 # Scenes the kernel takes, kept as the reference has them so that the same
 # scenes take K4 in both packages.  At the limits the tables take
-# 340*32 + 32*14 + M*6 + 160*16 floats, about 55.6 KB + 24 B per material of
+# 340*(12 + 32) + 32*14 + M*6 + 160*16 floats (the kernel adds a float4
+# copy of each triangle's geometry), about 72 KB + 24 B per material of
 # shared memory: within the 227 KB a Hopper block can use.
 MAX_FUSED_TRIS = 340
 MAX_FUSED_EMITTERS = 32
@@ -513,8 +514,10 @@ def _pick_emitter(em, u_sel):
     return _row_or(em[:, :13], pick.to(torch.float32), 0.0)
 
 
-def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1):
-    """Radiance of sample s for every pixel -> (L triple, ray-query count)."""
+def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1,
+                  on_query=None):
+    """Radiance of sample s for every pixel -> (L triple, ray-query count).
+    on_query, if given, sees each query as fused_plain says."""
     cam = f.cam
     eye = (cam[0], cam[1], cam[2])
     rv = (cam[3], cam[4], cam[5])
@@ -539,7 +542,10 @@ def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1):
 
     for bounce in range(f.max_bounces + 1):
         cnt = cnt + active.sum()
-        tb, win, uw, vw = _closest(f.tri, o, d, 0.0 if bounce == 0 else f.eps)
+        t_min = 0.0 if bounce == 0 else f.eps
+        if on_query is not None:
+            on_query("closest", o, d, t_min, BIG, active)
+        tb, win, uw, vw = _closest(f.tri, o, d, t_min)
         rows = torch.where((win >= 0)[:, None], f.tri[torch.clamp_min(win, 0)],
                            0.0)
         attrs = [rows[:, 9 + k] for k in range(20)]
@@ -621,6 +627,9 @@ def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1):
             fb, pdf_b = _eval_bsdf(wo, wi, alpha, f0, diff, psel)
             cos_i = torch.clamp_min(wi[2], 0.0)
             cand = active & lvalid & (cos_i > 1e-7) & (pdf_sa > 0.0)
+            if on_query is not None:
+                on_query("shadow", o_next, wi_w, f.eps, dist * (1.0 - 1e-3),
+                         cand)
             occ = _occluded(f.tri, o_next, wi_w, f.eps, dist * (1.0 - 1e-3))
             vis = cand & ~occ
             w = _power_mis(pdf_sa, pdf_b)
@@ -636,6 +645,9 @@ def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1):
             fd, _ = _eval_bsdf(wo, wi, alpha, f0, diff, psel)
             cos_i = torch.clamp_min(wi[2], 0.0)
             dirs = tuple(x.expand_as(ones) for x in dir_wi)
+            if on_query is not None:
+                on_query("shadow", o_next, dirs, f.eps, BIG * (1.0 - 1e-3),
+                         active & (cos_i > 1e-7))
             occ = _occluded(f.tri, o_next, dirs, f.eps, BIG * (1.0 - 1e-3))
             vis = active & ~occ & (cos_i > 1e-7)
             k = torch.where(vis, cos_i, 0.0)
@@ -664,9 +676,16 @@ def _sample_frame(f: FusedFrame, s: int, pid, pxf, pyf, seed0, seed1):
     return (lr, lg, lb), cnt
 
 
-def fused_plain(f: FusedFrame):
+def fused_plain(f: FusedFrame, on_query=None):
     """Plain-torch K4 on the frame's device -> (hdr_sum f32[H, W, 3],
-    ray-query count int64[]); the sum runs over samples in order."""
+    ray-query count int64[]); the sum runs over samples in order.
+
+    on_query(kind, o, d, t_min, t_max, lanes), if given, is called before
+    each closest-hit ("closest") and shadow ("shadow") query with its rays
+    (vec3 triples of [N] tensors), its bounds (t_max a float or [N]) and
+    the lanes that the kernel traces: the active paths, and for a shadow
+    ray those of them whose light sample can contribute (the kernel tests
+    no triangle for the others).  `tools/work.py` counts K4's work so."""
     dev = f.tri.device
     n = f.width * f.height
     pid = torch.arange(n, dtype=torch.int64, device=dev)
@@ -678,7 +697,7 @@ def fused_plain(f: FusedFrame):
            for _ in range(3)]
     count = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(f.spp):
-        L, c = _sample_frame(f, s, pid, pxf, pyf, seed0, seed1)
+        L, c = _sample_frame(f, s, pid, pxf, pyf, seed0, seed1, on_query)
         acc = [a + x for a, x in zip(acc, L)]
         count = count + c
     return torch.stack(acc, dim=-1).reshape(f.height, f.width, 3), count
@@ -714,10 +733,17 @@ def _check(f: FusedFrame):
         raise ValueError("tables exceed the fused kernel's limits")
     if f.width * f.height >= 1 << 24:
         raise ValueError("too many pixels for exact f32 pixel ids")
+    if f.spp < 1:
+        raise ValueError(f"spp must be at least 1, got {f.spp}")
 
 
 def fused_kernel(f: FusedFrame):
-    """K4 on the card -> (hdr_sum f32[H, W, 3], ray-query count int64[])."""
+    """K4 on the card -> (hdr_sum f32[H, W, 3], ray-query count int64[]).
+
+    The kernel traces each (pixel, sample) path on its own and sums a
+    pixel's samples in order at the end; the wrapper allocates its scratch:
+    the paths' radiance (12 bytes a path: 12.6 MB at 512x512 x 4 spp), a
+    pixel's arrival count and the work counter beside the ray count."""
     global LAUNCHES
     _check(f)
     dev = f.tri.device
@@ -725,7 +751,10 @@ def fused_kernel(f: FusedFrame):
         raise ValueError(f"fused kernel: tables on {dev}, not a CUDA device")
     lib = cuda_lib.library()
     hdr = torch.empty((f.height, f.width, 3), dtype=torch.float32, device=dev)
-    count = torch.zeros((1,), dtype=torch.int64, device=dev)
+    count = torch.zeros((2,), dtype=torch.int64, device=dev)
+    n_pix = f.width * f.height
+    samples = torch.empty((n_pix, f.spp, 3), dtype=torch.float32, device=dev)
+    arrivals = torch.zeros((n_pix,), dtype=torch.int32, device=dev)
     seed0, seed1 = f.seeds
     rc = lib.pbr_fused_render(
         f.cam.data_ptr(), f.tri.data_ptr(), f.tri.shape[0], f.em.data_ptr(),
@@ -733,7 +762,8 @@ def fused_kernel(f: FusedFrame):
         f.quads.data_ptr(), f.quads.shape[0], f.width, f.height, f.spp,
         f.max_bounces, f.eps, 1.0 / f.width, 1.0 / f.height, seed0, seed1,
         int(f.has_em), int(f.has_dir), int(f.textured), hdr.data_ptr(),
-        count.data_ptr(), cuda_lib.stream_ptr(dev))
+        count.data_ptr(), samples.data_ptr(), arrivals.data_ptr(),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.check(rc, "pbr_fused_render")
     LAUNCHES += 1
     return hdr, count[0]

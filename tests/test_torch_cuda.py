@@ -172,6 +172,10 @@ K4_CASES = {
                                         max_bounces=2)),
     "cornell_ragged": ("cornell", dict(width=24, height=20, spp=2,
                                        max_bounces=2)),
+    "cornell_spp1": ("cornell", dict(width=64, height=64, spp=1,
+                                     max_bounces=3)),
+    "cornell_ggx_spp3": ("cornell_ggx", dict(width=40, height=36, spp=3,
+                                             max_bounces=2)),
 }
 
 
@@ -190,6 +194,39 @@ def test_k4_kernel_matches_plain(cuda_device, case):
     plain, count_p = fused.fused_plain(frame)
     assert hdr.shape == plain.shape == (kw["height"], kw["width"], 3)
     assert bool(torch.isfinite(hdr).all())
+    img, ref = hdr.cpu().numpy(), plain.cpu().numpy()
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+    assert abs(int(count) / int(count_p) - 1.0) <= COUNT_REL
+
+
+@pytest.mark.cuda
+def test_k4_beyond_the_checked_reciprocal(cuda_device):
+    """The triangle config with its one triangle moved half a unit below the
+    camera and grown to edges of 1e19: |det| = 1e38 |d.z| lies at or above
+    2^126, where the kernel's branch-free reciprocal is not checked, for
+    the camera rays with |d.z| > 0.85 and below it for the others.  The
+    kernel's groups that meet such a det divide, so the frame equals the
+    plain version's, and those rays hit (t = 0.5 / |d.z|; with a flushed
+    reciprocal they would miss)."""
+    bc = config.get("triangle")
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    frame = fused.fused_frame(scene, cam, rng.key(0, cuda_device),
+                              dataclasses.replace(bc.render, width=32,
+                                                  height=32, spp=1))
+    tri = frame.tri.clone()
+    tri[0, 0:9] = torch.tensor([-1.0, -1.0, 2.5, 1e19, 0.0, 0.0, 0.0, 1e19,
+                                0.0], device=cuda_device)
+    frame = dataclasses.replace(frame, tri=tri)
+    eye, fv = frame.cam[0:3], frame.cam[9:12]
+    assert eye.tolist() == [0.0, 0.0, 3.0] and fv.tolist() == [0.0, 0.0,
+                                                              -1.0]
+    hdr, count = fused.fused_kernel(frame)
+    plain, count_p = fused.fused_plain(frame)
+    torch.cuda.synchronize()
+    # Every camera ray hits the plane, lit from straight above.
+    assert bool((plain > 0.0).all())
     img, ref = hdr.cpu().numpy(), plain.cpu().numpy()
     frac, _ = render_agreement(img, ref)
     assert frac >= PIXEL_FRAC
@@ -217,22 +254,47 @@ def test_fused_path_matches_golden(cuda_device):
     assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
 
 
+def _k5_indices(pattern, t, n, dtype, g, device):
+    """Indices of one K5b case, -1 and T among them: uniform random;
+    sorted (long runs of equal indices); alternating 0, 1, ..., T - 1
+    (runs of one); runs of 37 rows (runs that cross the 32-row warp batch
+    and the 64-row run edges)."""
+    if pattern == "alternating":
+        idx = torch.arange(n, device=device) % t
+    elif pattern == "runs37":
+        idx = (torch.arange(n, device=device) // 37) % t
+    else:
+        idx = torch.randint(-1, t + 1, (n,), device=device, generator=g)
+        if pattern == "sorted":
+            idx = torch.sort(idx).values
+    idx = idx.to(dtype)
+    idx[n // 2] = -1
+    idx[n // 3] = t
+    return idx
+
+
+# K5b's accumulators (csrc/gather.cu, chosen there from T x W): a table a
+# warp (sixteen T x W tables fit the opt-in shared memory: [32, 86], [2,
+# 20], [32, 20]), one a block ([600, 86], 206 KB), global atomics
+# ([100,352, 86], [174,762, 16]).  N: a multiple of the 64-row run and not.
 @pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "sorted", "alternating",
+                                     "runs37"])
 @pytest.mark.parametrize("t,w,n,dtype", [(32, 86, 262_144, torch.int32),
                                          (2, 20, 1_000_003, torch.int64),
+                                         (32, 20, 262_147, torch.int32),
+                                         (600, 86, 262_147, torch.int64),
                                          (100_352, 86, 262_144, torch.int32),
                                          (174_762, 16, 4_097, torch.int64)])
-def test_k5_kernels_match_plain(cuda_device, t, w, n, dtype):
-    """K5a bit-equal to its plain version; K5b within 1e-5 * max|plain|
-    (atomics sum in a varying order; the cotangents are multiples of 2^-10,
-    whose sums are exact in any order, so that a row that takes 500,000
-    of them does not turn float rounding into a failure); indices -1 and T
-    included."""
+def test_k5_kernels_match_plain(cuda_device, t, w, n, dtype, pattern):
+    """K5a bit-equal to its plain version; K5b equal to its plain version:
+    the cotangents are multiples of 2^-10 below 8, whose sums are exact in
+    any order (every partial sum stays far below 2^14), so the kernel's
+    other order of the sums changes no bit, even where a row takes 500,000
+    of them; indices -1 and T included."""
     g = torch.Generator(device=cuda_device).manual_seed(t + w)
     table = torch.randn((t, w), device=cuda_device, generator=g)
-    idx = torch.randint(-1, t + 1, (n,), device=cuda_device, generator=g,
-                        dtype=dtype)
-    idx[:2] = torch.tensor([-1, t])
+    idx = _k5_indices(pattern, t, n, dtype, g, cuda_device)
     ct = torch.round(torch.randn((n, w), device=cuda_device, generator=g)
                      .clamp(-7.9, 7.9) * 1024.0) / 1024.0
     before = (gather.LAUNCHES_FWD, gather.LAUNCHES_BWD)
@@ -243,8 +305,21 @@ def test_k5_kernels_match_plain(cuda_device, t, w, n, dtype):
     assert (gather.LAUNCHES_FWD, gather.LAUNCHES_BWD) == (before[0] + 1,
                                                           before[1] + 1)
     assert torch.equal(out.detach(), gather.take_rows_plain(table, idx))
+    assert torch.equal(tab.grad, gather.take_rows_bwd_plain(idx, ct, t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["random", "sorted", "alternating"])
+def test_k5b_float_cotangents_match_plain(cuda_device, pattern):
+    """K5b on real-valued cotangents at cornell's shape: within K5B_REL =
+    1e-5 of max|plain| (the order of the sums differs)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    t, n, w = 32, 262_147, 86
+    idx = _k5_indices(pattern, t, n, torch.int32, g, cuda_device)
+    ct = torch.randn((n, w), device=cuda_device, generator=g)
+    got = gather.gather_bwd(idx, ct, t)
     plain = gather.take_rows_bwd_plain(idx, ct, t)
-    assert (tab.grad - plain).abs().max() <= 1e-5 * plain.abs().max()
+    assert (got - plain).abs().max() <= 1e-5 * plain.abs().max()
 
 
 # K5a's routes (csrc/gather.cu, chosen there from W and the table's
@@ -459,8 +534,9 @@ def test_k1_groups_beyond_the_reciprocal_divide(cuda_device, b):
 
 @pytest.mark.cuda
 def test_k1_reciprocal_equals_division(cuda_device):
-    """The kernel's branch-free reciprocal equals 1.0f / x on every float
-    with |x| in [1e-9, 2^126), the range it serves."""
+    """The branch-free reciprocal of K1 and K4 (csrc/rcp.cuh) equals
+    1.0f / x on every float with |x| in [1e-9, 2^126), the range it
+    serves."""
     assert trace_blocks.rcp_mismatches(cuda_device) == 0
 
 

@@ -349,6 +349,19 @@ def test_wrapper_runs_plain_on_cpu_and_raises_elsewhere():
         fused.fused_kernel(fused.fused_frame(scene, cam, rng.key(1), cfg))
 
 
+def test_kernel_wrapper_checks_what_the_kernel_cannot_take():
+    """K4's wrapper refuses a frame without samples (the kernel sums a
+    pixel's samples when the last one arrives) before anything else, and
+    tables on the CPU."""
+    _, _, scene, cam = _both("triangle")
+    cfg = path.RenderConfig(width=8, height=6, spp=1, max_bounces=1)
+    frame = fused.fused_frame(scene, cam, rng.key(1), cfg)
+    with pytest.raises(ValueError, match="spp must be at least 1"):
+        fused.fused_kernel(dataclasses.replace(frame, spp=0))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fused.fused_kernel(frame)
+
+
 @pytest.fixture
 def on_cuda(monkeypatch):
     """Scenes report a CUDA device, and K4's wrapper records its calls
