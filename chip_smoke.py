@@ -10,14 +10,23 @@ of which raises on failure (an uncaught exception exits non-zero):
   1. build the CUDA kernels from physically_based_renderer_tpu_torch/csrc/;
   2. K2 (resident tracer) against its plain-torch version on the card:
      Cornell soup with 512x512 camera rays and random interior rays, closest
-     and any-hit, t_min 0 and 1e-3, per-ray t_max; a random 2048-triangle
-     soup (dynamic shared memory above 48 KB); a ragged ray count;
+     and any-hit, t_min 0 and 1e-3, per-ray t_max; dead lanes (t_max 0,
+     NaN, equal to t_min, negative) among live ones; a 1e19 triangle inside
+     a group, whose |det| reaches 2^126 on some rays (the group's division
+     fallback), at an odd ray count; 1, 1,001 and a ragged number of rays;
+     one triangle, and a random 2048-triangle soup (dynamic shared memory
+     above 48 KB); the camera closest-hit call timed beside its bound; then
+     every K2 call of one dense cornell frame (512x512, 4 spp, 4 bounces,
+     logged by tools/work.py), each held to its plain version, and each
+     (kind, bounce) timed on its own calls beside the bound from the work
+     its data needs: the frame's device ms, bound and launches x (time -
+     bound);
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
-  4. the branch-free reciprocal of K1 and K4 (csrc/rcp.cuh) against
+  4. the branch-free reciprocal of K1, K2 and K4 (csrc/rcp.cuh) against
      1.0f / x on every float with |x| in [1e-9, 2^126); the registers and
-     spill bytes of K1's, K4's, K5a's and K5b's instantiations (cuobjdump
-     -res-usage); K1 (block-stream tracer)
+     spill bytes of K1's, K2's, K4's, K5a's, K5b's and P1's instantiations
+     (cuobjdump -res-usage); K1 (block-stream tracer)
      against its plain-torch version on
      `helmet_proc` (100,352 triangles, 1,024 clusters, ray blocks of 256)
      and on `helmet` (the 99,400-triangle .glb, ray blocks of 512): 512x512
@@ -81,9 +90,11 @@ of which raises on failure (an uncaught exception exits non-zero):
      step under torch.profiler: device busy time, idle share and launches;
  10. the probes P1-P4 (`ops/probes.py`, `csrc/probes.cu`) against their
      plain versions at every shape of the probe tool (exact), with device,
-     wrapper, plain and library times and bounds; then the probe tool
-     itself (`tools/probe2.py all`), whose launches the kernels line
-     reports;
+     wrapper, plain and library times and bounds; P1 also on trees of
+     5,001 (pass rates 1.0 and 0.9) and 8,191 nodes, each timed beside an
+     empty kernel's device time and its byte and depth bounds; then the
+     probe tool itself (`tools/probe2.py all`), whose launches the kernels
+     line reports;
  11. one `helmet` frame and one `helmet_proc` frame under torch.profiler:
      launches, device idle share and K1's and K5a's shares of the device
      time;
@@ -251,10 +262,11 @@ PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 33.5e12
 # 3, u: 6, q = s x e1: 9, v: 6, t: 6, u + v: 1); compares and the
 # reciprocal's refinement are not counted, so the bound stays low.
 MT_FLOPS = 46
-# P1 is a chain of dependent shared-memory loads (the stack top, then the
-# node's box), which neither peak describes: beside the contract's bound it
-# gets a latency bound of one shared-memory load per visited node, taken as
-# 30 cycles at the card's 1.98 GHz boost clock (15.2 ns).
+# P1 and P6 are chains of dependent shared-memory loads, which neither peak
+# describes: beside the contract's bound each gets a latency bound, P6's
+# walk one shared-memory load per visited node, P1's level-parallel search
+# one per level of the tree, taken as 30 cycles at the card's 1.98 GHz
+# boost clock (15.2 ns).
 SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
 # The small .glb of the by-path run: the helmet at this tessellation scale
 # (1,880 triangles), at the CLI's default RenderConfig (256x256, 4 spp, 1
@@ -391,6 +403,7 @@ class TraceStats:
         self.rays = 0
         self.mismatch = 0
         self.max_abs_err = 0.0
+        self.frame = None
 
     def closest(self, label, kern, plain):
         import torch
@@ -511,7 +524,58 @@ def phase_k2(dev):
     st.any_hit("cornell ragged any-hit",
                *both(soup, o_r, d_r, tm_r, 1e-3, True))
 
-    # Random 2048-triangle soup: 72 KB of dynamic shared memory per block.
+    # Dead lanes among live ones: t_max 0, NaN, equal to t_min, negative
+    # (the kernel answers them without a test, the plain version by its
+    # tests).
+    n = w * h
+    tm = torch.from_numpy(rng.uniform(0.05, 4.0, n).astype(np.float32))
+    pick = torch.from_numpy(rng.integers(0, 5, n))
+    for code, value in ((1, 0.0), (2, float("nan")), (3, 1e-3), (4, -1.0)):
+        tm[pick == code] = value
+    tm = tm.to(dev)
+    for name, o, d in (("camera", o_cam, d_cam), ("bounce", o_bnc, d_bnc)):
+        st.closest(f"cornell {name} closest dead lanes",
+                   *both(soup, o, d, tm, 1e-3, False))
+        st.any_hit(f"cornell {name} any-hit dead lanes",
+                   *both(soup, o, d, tm, 1e-3, True))
+    # A triangle with edges of 1e19 inside a group (index 13 of 33): |det|
+    # reaches 2^126 on the rays nearly normal to it, where the group runs
+    # again with the division.
+    huge = torch.tensor([[-1.0, -1.0, -0.5, 1e19, 0.0, 0.0, 0.0, 1e19, 0.0]],
+                        device=dev)
+    soup_h = torch.cat([soup[:13], huge, soup[13:]]).contiguous()
+    n_h = 262_143                      # odd: the last thread has one ray
+    det = (torch.linalg.cross(d_bnc[:n_h], huge[:, 6:9].expand(n_h, 3))
+           * huge[:, 3:6]).sum(dim=1)
+    n_out = int((det.abs() >= 2.0 ** 126).sum())
+    if not 0 < n_out < n_h:
+        raise AssertionError(f"K2 huge triangle: {n_out} of {n_h} rays have "
+                             "|det| >= 2^126")
+    o_h, d_h = o_bnc[:n_h].contiguous(), d_bnc[:n_h].contiguous()
+    tm_h = torch.from_numpy(rng.uniform(0.05, 4.0, n_h).astype(
+        np.float32)).to(dev)
+    k, p = both(soup_h, o_h, d_h, torch.full((n_h,), BIG, device=dev), 1e-3,
+                False)
+    st.closest(f"cornell + a 1e19 triangle closest ({n_out} rays with "
+               f"|det| >= 2^126, {int((p[1] == 13).sum())} hit it)", k, p)
+    st.any_hit("cornell + a 1e19 triangle any-hit",
+               *both(soup_h, o_h, d_h, tm_h, 1e-3, True))
+    # Odd and tiny ray counts; one triangle.
+    for nr in (1, 1001):
+        st.closest(f"cornell {nr} rays closest",
+                   *both(soup, o_h[:nr].contiguous(), d_h[:nr].contiguous(),
+                         tm_h[:nr].contiguous(), 1e-3, False))
+        st.any_hit(f"cornell {nr} rays any-hit",
+                   *both(soup, o_h[:nr].contiguous(), d_h[:nr].contiguous(),
+                         tm_h[:nr].contiguous(), 1e-3, True))
+    soup_1 = soup[4:5].contiguous()
+    st.closest("one triangle closest",
+               *both(soup_1, o_bnc, d_bnc, torch.full((n,), BIG, device=dev),
+                     1e-3, False))
+    st.any_hit("one triangle any-hit",
+               *both(soup_1, o_bnc, d_bnc, rand_tm, 1e-3, True))
+
+    # Random 2048-triangle soup: 96 KB of dynamic shared memory per block.
     soup_r = torch.from_numpy(
         random_soup(resident.RESIDENT_MAX_TRIS, rng)).to(dev)
     nr = 100_003
@@ -537,7 +601,75 @@ def phase_k2(dev):
     n, n_tris = w * h, soup.shape[0]
     st.bound = bound(n * (12 + 12 + 4 + 4 + 4) + soup.numel() * 4,
                      n * n_tris * MT_FLOPS)
+    st.frame = k2_frame(dev, st)
     return st, ms, plain_ms
+
+
+def k2_frame(dev, st):
+    """K2 on the calls of one dense cornell frame (512x512, 4 spp, 4
+    bounces; tools/work.py::dense_frame_calls), each held to its plain
+    version; then the device time of each (kind, bounce) over its calls in
+    turn, beside the bound from the work its data needs
+    (tools/work.py::resident_work: a lane with t_max not above t_min tests
+    nothing and reads only its t_max; a closest-hit lane tests every
+    triangle; an any-hit lane up to its first occluder).  The frame's
+    totals: device ms, bound and launches x (time - bound)."""
+    import itertools
+
+    import torch
+
+    from physically_based_renderer_tpu_torch.ops import resident
+    from physically_based_renderer_tpu_torch.tools import work
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+
+    groups = {}
+    for sample, bounce, call in work.dense_frame_calls(dev):
+        any_hit = call[5]
+        kern, plain = resident.trace(*call), resident.trace_plain(*call)
+        torch.cuda.synchronize()
+        kind = "any-hit" if any_hit else "closest"
+        label = f"frame {kind} sample {sample} bounce {bounce}"
+        (st.any_hit if any_hit else st.closest)(label, kern, plain)
+        groups.setdefault((kind, bounce), []).append(call)
+    if sum(map(len, groups.values())) != EXPECTED_LAUNCHES[
+            "cornell_dense"]["resident"]:
+        raise AssertionError(f"K2 frame calls: {groups.keys()}")
+    rows = []
+    for (kind, bounce), group in sorted(groups.items()):
+        turn = itertools.cycle(group)
+        ms, _ = device_ms(lambda: resident.trace(*next(turn)),
+                          25 * len(group), "resident_kernel")
+        live = tests = 0
+        bounds = []
+        for soup, o, d, tm, t_min, any_hit in group:
+            n_live = int((tm > t_min).sum())
+            n_tests = work.resident_work(soup, o, d, tm, t_min, any_hit)
+            live += n_live
+            tests += n_tests
+            bounds.append(bound(o.shape[0] * (4 + (1 if any_hit else 8))
+                                + n_live * 24 + soup.numel() * 4,
+                                n_tests * MT_FLOPS)[0])
+        n_rays = sum(c[1].shape[0] for c in group)
+        row = {"kind": kind, "bounce": bounce, "calls": len(group), "ms": ms,
+               "bound_ms": sum(bounds) / len(bounds),
+               "live_share": live / n_rays, "tests_a_call": tests / len(group),
+               "tests_a_live_lane": tests / max(live, 1)}
+        row["ratio_to_bound"] = ms / row["bound_ms"]
+        rows.append(row)
+        print(f"K2 frame {kind} bounce {bounce} ({len(group)} calls, "
+              f"{row['live_share']:.4f} of the lanes live, "
+              f"{row['tests_a_live_lane']:.2f} tests a live lane): device "
+              f"{ms:.4f} ms, bound {row['bound_ms']:.4f} ms, "
+              f"{row['ratio_to_bound']:.2f}x [{card_line()}]")
+    out = {"calls": rows,
+           "ms": sum(r["ms"] * r["calls"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] * r["calls"] for r in rows)}
+    out["gap_ms"] = out["ms"] - out["bound_ms"]
+    print(f"K2 dense cornell frame (512x512, 4 spp, 4 bounces), "
+          f"{sum(r['calls'] for r in rows)} calls: device {out['ms']:.4f} ms,"
+          f" bound {out['bound_ms']:.4f} ms, launches x (time - bound) "
+          f"{out['gap_ms']:.4f} ms [{card_line()}]")
+    return out
 
 
 def phase_k3(dev):
@@ -1472,29 +1604,31 @@ def cuobjdump(flag):
 
 
 def kernel_resources():
-    """Registers and local-memory (spill) bytes a thread of each K1, K4,
-    K5a and K5b instantiation, as ptxas allotted them (`cuobjdump
+    """Registers and local-memory (spill) bytes a thread of each K1, K2,
+    K4, K5a, K5b and P1 instantiation, as ptxas allotted them (`cuobjdump
     -res-usage` on the built library), keyed by the mangled name up to its
     parameters: trace_blocks_kernelILb<any hit>ELi<rays a thread>E,
-    fused_kernel, gather_fwd_kernel_<route>I<index type><flat index
-    type>E, gather_bwd_kernelI<index type><accumulator><column groups>E."""
+    resident_kernelILb<any hit>E, fused_kernel, gather_fwd_kernel_<route>
+    I<index type><flat index type>E, gather_bwd_kernelI<index
+    type><accumulator><column groups>E, probe_scalar_stack_kernel."""
     import re
 
     usage = cuobjdump("-res-usage")
     if usage is None:
-        print("K1/K4/K5 registers: not measured (no cuobjdump)")
+        print("K1/K2/K4/K5/P1 registers: not measured (no cuobjdump)")
         return None
     out = {}
     for name, line in re.findall(r"Function (\S+):\s*\n([^\n]*)", usage):
-        short = re.search(r"(trace_blocks_kernel|fused_kernel|"
-                          r"gather_fwd_kernel_\w+?|gather_bwd_kernel)"
+        short = re.search(r"(trace_blocks_kernel|resident_kernel|fused_kernel|"
+                          r"gather_fwd_kernel_\w+?|gather_bwd_kernel|"
+                          r"probe_scalar_stack_kernel)"
                           r"(I\w*?E)?(?:E|v)", name)
         if short:
             res = dict(re.findall(r"(\w+):(\d+)", line))
             out[short.group(1) + (short.group(2) or "")] = {
                 "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
                 "local_bytes": int(res["LOCAL"])}
-    print(f"K1/K4/K5 registers a thread (cuobjdump -res-usage) "
+    print(f"K1/K2/K4/K5/P1 registers a thread (cuobjdump -res-usage) "
           f"[{card_line()}]: {out}")
     return out
 
@@ -1550,26 +1684,44 @@ def phase_probes(dev):
                                      "differ")
         print(f"{label}: equal to its plain version")
 
-    # P1: the three data sets; timed on the one where every box passes.
-    for data in probe2.STACK_DATA:
-        boxes = t(probe2.scalar_stack_boxes(data))
+    # P1: the tool's three data sets and trees of other sizes and pass
+    # rates (tools/probe2.py::tree_boxes), each equal to its plain version
+    # and timed, beside an empty kernel's device time (the launch floor).
+    # Bounds: the bytes (boxes in, out and leaves out), and the depth
+    # chain, one shared-memory round trip a level.
+    sets = {f"[{data}]": probe2.scalar_stack_boxes(data)
+            for data in probe2.STACK_DATA}
+    sets.update({f"[n={n} pass {rate}]": probe2.tree_boxes(n, rate)
+                 for n, rate in ((5001, 1.0), (5001, 0.9), (8191, 1.0))})
+    empty_ms, _ = device_ms(lambda: probes.empty_kernel(dev), 200,
+                            "probe_empty_kernel")
+    by_set = {}
+    for label, boxes_np in sets.items():
+        boxes = t(boxes_np)
         kern = probes.scalar_stack(boxes)
-        same(f"P1 scalar_stack[{data}] visited={int(kern[0][0])} "
-             f"leaves={int(kern[0][1])}", kern,
-             probes.scalar_stack_plain(boxes), "probe_scalar_stack")
-    boxes = t(probe2.scalar_stack_boxes("all"))
-    visited = int(probes.scalar_stack(boxes)[0][0])
+        visited, leaves = (int(v) for v in kern[0].cpu())
+        same(f"P1 scalar_stack{label} visited={visited} leaves={leaves}",
+             kern, probes.scalar_stack_plain(boxes), "probe_scalar_stack")
+        n = boxes.numel() // 6
+        ms, _ = device_ms(lambda: probes.scalar_stack(boxes), 100,
+                          "probe_scalar_stack_kernel")
+        row = by_set[label] = {
+            "nodes": n, "visited": visited, "leaves": leaves, "ms": ms,
+            "bound": bound(n * 24 + 8 + probes.leaf_capacity(n) * 4, 0),
+            "depth_bound_ms": (n.bit_length() * SMEM_LOAD_CYCLES
+                               / SM_CLOCK_HZ * 1e3)}
+        print(f"P1 {label}: {n} nodes, {visited} visited, {leaves} leaves: "
+              f"device {ms * 1e3:.2f} us, empty kernel {empty_ms * 1e3:.2f} "
+              f"us, depth bound {row['depth_bound_ms'] * 1e3:.3f} us "
+              f"({n.bit_length()} levels), byte bound "
+              f"{row['bound'][0] * 1e3:.4f} us [{card_line()}]")
+    boxes = t(sets["[all]"])
     call = lambda: probes.scalar_stack(boxes)
-    ms, _ = device_ms(call, 100, "probe_scalar_stack_kernel")
     out["probe_scalar_stack"] = {
-        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        **by_set["[all]"], "wrapper_ms": time_ms(call, 100),
         "plain_ms": time_ms(lambda: probes.scalar_stack_plain(boxes), 3,
                             warmup=1),
-        "bound": bound(boxes.numel() * 4 + 8 + probes.leaf_capacity(
-            probe2.N_NODES) * 4, 0),
-        "latency_bound_ms": visited * SMEM_LOAD_CYCLES / SM_CLOCK_HZ * 1e3,
-        "library_ms": None, "visited": visited,
-        "ns_per_node": ms * 1e6 / visited,
+        "library_ms": None, "empty_kernel_ms": empty_ms, "by_set": by_set,
         "shape": "2,047 boxes, every box passes"}
 
     # P2
@@ -2175,15 +2327,17 @@ def main() -> int:
     # 2-3. kernels against their plain versions
     k2, k2_ms, k2_plain_ms = phase_k2(dev)
     k3, k3_ms, k3_plain_ms = phase_k3(dev)
-    print(f"K2 262144 rays x 32 tris: kernel {k2_ms:.4f} ms (wrapper "
-          f"{k2.wrapper_ms:.4f}), plain {k2_plain_ms:.4f} ms")
+    print(f"K2 262144 camera rays x 32 tris: kernel {k2_ms:.4f} ms (wrapper "
+          f"{k2.wrapper_ms:.4f}), bound {k2.bound[0]:.4f} ms, "
+          f"{k2_ms / k2.bound[0]:.2f}x, plain {k2_plain_ms:.4f} ms "
+          f"[{card_line()}]")
     print(f"K3 512x512: kernel {k3_ms:.4f} ms (wrapper "
           f"{k3['wrapper_ms']:.4f}), plain {k3_plain_ms:.4f} ms")
 
-    # 4. K1 against its plain version; the reciprocal of K1 and K4
+    # 4. K1 against its plain version; the reciprocal of K1, K2 and K4
     # (csrc/rcp.cuh) against division
     rcp_bad = trace_blocks.rcp_mismatches(dev)
-    print(f"K1/K4 reciprocal: {rcp_bad} floats with |x| in [1e-9, 2^126) "
+    print(f"K1/K2/K4 reciprocal: {rcp_bad} floats with |x| in [1e-9, 2^126) "
           "differ from 1.0f / x")
     if rcp_bad:
         raise AssertionError("the reciprocal differs from 1.0f / x")
@@ -2353,9 +2507,11 @@ def main() -> int:
                 "library_ms": library_ms}
 
     print(json.dumps({"kernels": [
-        entry("resident", "resident.cu", "ops/resident.py:54",
-              k2.max_abs_err, k2_ms, k2.wrapper_ms, k2_plain_ms, k2.bound,
-              None),
+        {**entry("resident", "resident.cu", "ops/resident.py:54",
+                 k2.max_abs_err, k2_ms, k2.wrapper_ms, k2_plain_ms, k2.bound,
+                 None),
+         "frame_ms": k2.frame["ms"], "frame_bound_ms": k2.frame["bound_ms"],
+         "frame_gap_ms": k2.frame["gap_ms"]},
         entry("tonemap", "tonemap.cu", "ops/tonemap.py:52",
               k3["max_abs_err"], k3_ms, k3["wrapper_ms"], k3_plain_ms,
               k3["bound"], None),
@@ -2393,7 +2549,9 @@ def main() -> int:
         "card": card, "build_s": build_s,
         "k2": {"rays_compared": k2.rays, "winner_mismatches": k2.mismatch,
                "max_abs_err_t": k2.max_abs_err, "ms": k2_ms,
-               "wrapper_ms": k2.wrapper_ms, "plain_ms": k2_plain_ms, "shape": "262144 rays x 32 tris"},
+               "wrapper_ms": k2.wrapper_ms, "plain_ms": k2_plain_ms,
+               "bound_ms": k2.bound[0], "frame": k2.frame,
+               "shape": "262144 camera rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
         "k1_rcp_mismatches": rcp_bad, "kernel_resources": resources,

@@ -1,5 +1,6 @@
 // The branch-free reciprocal of the ray-triangle tests, shared by the block
-// tracer (K1, trace_blocks.cu) and the fused frame kernel (K4, fused.cu).
+// tracer (K1, trace_blocks.cu), the resident tracer (K2, resident.cu) and
+// the fused frame kernel (K4, fused.cu).
 //
 // rcp_rn(x) is 1.0f / x rounded as IEEE division rounds it, for |x| in
 // [kRcpLo, kRcpHi): an approximate reciprocal and one Newton step, three

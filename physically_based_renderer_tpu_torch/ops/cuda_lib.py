@@ -71,6 +71,8 @@ _SIGNATURES = {
     "pbr_gather_bwd_i64": [_P, _P, _L, _I, _I, _P, _P],
     # boxes, n_nodes, leaf capacity, out, leaves_out, stream
     "pbr_probe_scalar_stack": [_P, _I, _I, _P, _P, _P],
+    # stream
+    "pbr_probe_empty": [_P],
     # x, out, exchange, stream
     "pbr_probe_relayout": [_P, _P, _I, _P],
     # win, rows, n, r, l, out, stream

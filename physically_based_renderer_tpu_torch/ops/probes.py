@@ -2,8 +2,9 @@
 repository's `tools/probe2.py`, `tools/probe_mosaic.py` and
 `tools/exp_subtile_dma.py`): wrappers, plain versions, launch counts.
 
-  P1 `scalar_stack(boxes)`    one scalar walk of an implicit binary tree of
-                              boxes with a stack -> (visited, leaves), leaves
+  P1 `scalar_stack(boxes)`    what a scalar walk of an implicit binary tree
+                              of boxes with a stack finds -> (visited,
+                              leaves), the leaves in pop order
   P2 `relayout(x)`            an [8, 128] tile moved to a [1024, 1] column
                               ten times (x + i), summed, and moved back
   P3 `onehot_mm(win, rows)`   rows.T[win] as a one-hot product
@@ -26,6 +27,8 @@ plain versions repeat the kernels' arithmetic step by step and are used by
 the tests and by nothing on a card.  `LAUNCHES` counts kernel launches by
 probe name.  The tools that drive them are `tools/probe2.py`,
 `tools/probe_mosaic.py` and `tools/exp_subtile_dma.py` of this package.
+`empty_kernel` launches a kernel that does nothing, the floor under these
+kernels' times; it ports nothing and is counted nowhere.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0,
 
 TILE = (8, 128)        # P2's tile: eight sublanes by 128 lanes
 RELAYOUT_MOVES = 10
-MAX_NODES = 8191       # P1: boxes, stack and leaf list fit in 227 KB
+MAX_NODES = 8191       # P1: a flag a node in static shared memory;
+                       # P6: boxes and stack in 227 KB
 MAX_MM_ROWS = 32       # P3: attribute rows per CTA
 TILE_P8 = (16, 32)     # P8: one copied tile, 2 KB
 MAX_P8_CH = 32         # P8: ch x 32 threads a CTA
@@ -102,7 +106,8 @@ def scalar_stack_plain(boxes: torch.Tensor):
 
 def scalar_stack(boxes: torch.Tensor):
     """P1 -> (out i32[2] = (nodes visited, leaves found), leaves
-    i32[(n + 1) // 2]: the leaves in visiting order, then -1).
+    i32[(n + 1) // 2]: the leaves in the walk's pop order, then -1).  The
+    kernel finds them without a serial walk (`csrc/probes.cu`).
 
     boxes f32[n * 6], node i at [6 i : 6 i + 6] as lo xyz | hi xyz; n odd
     (a complete binary tree: every inner node has both children).
@@ -124,6 +129,16 @@ def scalar_stack(boxes: torch.Tensor):
     cuda_lib.check(rc, "pbr_probe_scalar_stack")
     LAUNCHES["scalar_stack"] += 1
     return out, leaves
+
+
+def empty_kernel(device) -> None:
+    """Launch a kernel of one warp that does nothing on the CUDA `device`:
+    the launch floor under every kernel this small."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_kernel: needs a CUDA device, got {device}")
+    cuda_lib.check(cuda_lib.library().pbr_probe_empty(
+        cuda_lib.stream_ptr(device)), "pbr_probe_empty")
 
 
 # --------------------------------------------------------------------- P2

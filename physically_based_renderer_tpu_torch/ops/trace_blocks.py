@@ -215,7 +215,7 @@ def trace_blocks(u_idx, o, d, t_max, soup, n_valid, entry, *,
 
 def rcp_mismatches(device) -> int:
     """Floats x with |x| in [1e-9, 2^126), both signs, for which the
-    branch-free reciprocal of K1 and K4 (`csrc/rcp.cuh`) and 1.0f / x
+    branch-free reciprocal of K1, K2 and K4 (`csrc/rcp.cuh`) and 1.0f / x
     differ in any bit, counted on the card over every such float (0 means
     the kernels' t and winners are those of a division)."""
     lo = int(np.float32(RCP_LO).view(np.uint32))

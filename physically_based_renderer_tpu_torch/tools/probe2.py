@@ -18,10 +18,12 @@ and the output's allocation included).  Most of these kernels are shorter
 than a launch, so the wrapper time is the launch floor and the device time
 is the kernel.
 
-`scalar_stack` walks three data sets: the reference probe's own
+`scalar_stack` runs on three data sets: the reference probe's own
 (`default_rng(1)`), on which the root box fails the slab test and the walk
 is one node long; boxes that all pass (2,047 nodes visited, 1,024 leaves);
-and a seed on which part of the tree passes.
+and a seed on which part of the tree passes.  The kernel finds what the
+walk finds without walking (level by level, `csrc/probes.cu`), so its time
+is not a time a node.
 """
 
 from __future__ import annotations
@@ -63,6 +65,20 @@ def scalar_stack_boxes(data: str = "probe") -> np.ndarray:
         lo = rng.uniform(-1, 0.4, (N_NODES, 3)).astype(np.float32)
         hi = lo + rng.uniform(width, width + 1.2,
                               (N_NODES, 3)).astype(np.float32)
+    return np.concatenate([lo, hi], 1).reshape(-1)
+
+
+def tree_boxes(n: int, rate: float) -> np.ndarray:
+    """Boxes f32[n * 6] of which each but the root passes the slab test
+    (max(lo) <= min(hi)) with probability `rate`, independently; the root
+    passes, so that the tree is walked.  A failing box has one hi
+    coordinate below its largest lo.  Drawn from default_rng(n)."""
+    rng = np.random.default_rng(n)
+    lo = rng.uniform(-1, 0, (n, 3)).astype(np.float32)
+    hi = rng.uniform(0.5, 1.5, (n, 3)).astype(np.float32)
+    fail = rng.random(n) >= rate
+    fail[0] = False
+    hi[fail, rng.integers(0, 3, n)[fail]] = np.float32(-2.0)
     return np.concatenate([lo, hi], 1).reshape(-1)
 
 
@@ -155,10 +171,8 @@ def probe_scalar_stack(device, iters: int) -> dict:
         call = lambda: probes.scalar_stack(boxes)
         dev_us = device_us(call, iters, "probe_scalar_stack_kernel", device)
         wrap = wrapper_us(call, iters, device)
-        per_node = (f" ({dev_us / max(visited, 1) * 1e3:.0f} ns/node)"
-                    if dev_us is not None else "")
         print(f"scalar_stack[{data}]: visited={visited} leaves={n_leaves} "
-              f"device {_us(dev_us)}{per_node}, wrapper {_us(wrap)} ok={ok} "
+              f"device {_us(dev_us)}, wrapper {_us(wrap)} ok={ok} "
               f"[{card_line(device)}]", flush=True)
         res[data] = {"visited": visited, "leaves": n_leaves, "ok": ok,
                      "device_us": dev_us, "wrapper_us": wrap}

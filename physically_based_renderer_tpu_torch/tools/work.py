@@ -1,4 +1,4 @@
-"""The work a main path's own data asks of two kernels, for their bounds.
+"""The work a main path's own data asks of three kernels, for their bounds.
 
 `fused_work(frame)` counts the ray-triangle tests K4 (`ops/fused.py`)
 needs on one frame, replayed from the plain version's own queries: a
@@ -7,7 +7,10 @@ in index order up to and including its first occluder, or all of them; a
 lane the kernel does not trace tests none.  `gather_bwd_calls` logs the
 (idx, ct, T) of every K5b launch of one backward pass, and
 `gradient_step_calls` those of a gradient step's `render()` backward, so
-that K5b is timed on a step's own indices.  All run on any device.
+that K5b is timed on a step's own indices.  `resident_calls` logs the
+(soup, o, d, t_max, t_min, any_hit) of every K2 launch, `dense_frame_calls`
+those of one dense cornell frame, and `resident_work` counts the tests one
+such call needs.  All run on any device.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import dataclasses
 
 import torch
 
-from ..ops import fused, gather
+from ..ops import fused, gather, resident
 
 
 def first_occluder_tests(tri, o, d, t_min, t_max, lanes) -> torch.Tensor:
@@ -126,3 +129,62 @@ def gradient_step_calls(device, size: int = 512, spp: int = 4,
     return gather_bwd_calls(lambda: inverse.pixel_loss(
         path.render(inverse.apply_params(scene, params), cam,
                     rng.key(0, device), cfg).mean(), target))
+
+
+def resident_calls(fn) -> list[tuple]:
+    """(soup, o, d, t_max, t_min, any_hit) of every K2 call while `fn()`
+    runs, in launch order (copies of the tensors): `resident.trace` is
+    wrapped for the call."""
+    calls = []
+    real = resident.trace
+
+    def logged(soup, o, d, t_max, t_min, any_hit):
+        calls.append((soup.clone(), o.clone(), d.clone(), t_max.clone(),
+                      t_min, any_hit))
+        return real(soup, o, d, t_max, t_min, any_hit)
+
+    resident.trace = logged
+    try:
+        fn()
+    finally:
+        resident.trace = real
+    return calls
+
+
+def dense_frame_calls(device, size: int = 512, spp: int = 4,
+                      bounces: int = 4) -> list[tuple]:
+    """`resident_calls` of one cornell frame on the dense path
+    (tracer="resident"), each with its sample and bounce: [(sample,
+    bounce, (soup, o, d, t_max, t_min, any_hit)), ...].  A sample makes
+    bounces + 1 closest-hit calls and one shadow call a bounce (cornell's
+    one light family is its area emitters)."""
+    from ..core import rng
+    from ..integrator import path
+    from ..utils import config
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, device)
+    cfg = dataclasses.replace(bc.render, width=size, height=size, spp=spp,
+                              max_bounces=bounces, tracer="resident")
+    calls = resident_calls(lambda: path.render_with_stats(
+        scene, cam, rng.key(0, device), cfg))
+    seen = {False: 0, True: 0}
+    out = []
+    for call in calls:
+        any_hit = call[5]
+        sample, bounce = divmod(seen[any_hit],
+                                bounces if any_hit else bounces + 1)
+        seen[any_hit] += 1
+        out.append((sample, bounce, call))
+    return out
+
+
+def resident_work(soup, o, d, t_max, t_min, any_hit) -> int:
+    """Ray-triangle tests one K2 call needs on these inputs: a lane whose
+    t_max is not above t_min (or NaN) tests none; a closest-hit lane tests
+    every triangle; an any-hit lane the triangles in index order up to and
+    including its first occluder, or all of them."""
+    live = t_max > t_min
+    if not any_hit:
+        return int(live.sum()) * soup.shape[0]
+    return int(first_occluder_tests(soup, o.unbind(1), d.unbind(1), t_min,
+                                    t_max, live).sum())

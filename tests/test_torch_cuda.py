@@ -75,6 +75,72 @@ def test_k2_kernel_matches_plain(cuda_device, n_tris, n_rays):
         assert torch.equal(occ_k, occ_p)
 
 
+def _k2_case(case, device):
+    """(soup, o, d, t_max) of a K2 card case on the cornell soup or a
+    random one; t_max per lane."""
+    g = np.random.default_rng(21)
+    bc = config.get("cornell")
+    scene, _ = config.build_scene(bc.scene, "cpu")
+    soup = resident.pack_resident_soup(scene.geometry)
+    n = {"odd_rays": 1001, "one_ray": 1}.get(case, 262_143)
+    o = g.uniform((-0.99, 0.01, -0.99), (0.99, 1.99, 0.99),
+                  (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = g.uniform(0.05, 4.0, n).astype(np.float32)
+    if case == "dead_lanes":
+        # t_max 0, NaN, equal to t_min, negative among live lanes
+        pick = g.integers(0, 5, n)
+        for code, value in ((1, 0.0), (2, np.nan), (3, 1e-3), (4, -1.0)):
+            tm[pick == code] = value
+    elif case == "huge_det":
+        # a 1e19 triangle inside a group: |det| >= 2^126 on some rays
+        huge = torch.tensor([[-1.0, -1.0, -0.5, 1e19, 0.0, 0.0, 0.0, 1e19,
+                              0.0]])
+        soup = torch.cat([soup[:13], huge, soup[13:]])
+    elif case == "one_tri":
+        soup = soup[4:5]
+    elif case == "max_tris":
+        v = (g.uniform(-1, 1, (resident.RESIDENT_MAX_TRIS, 1, 3))
+             + g.normal(0, 0.1, (resident.RESIDENT_MAX_TRIS, 3, 3))).astype(
+                 np.float32)
+        soup = torch.from_numpy(np.concatenate(
+            [v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], 1))
+    return [x.to(device).contiguous() for x in (
+        soup, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dead_lanes", "huge_det", "odd_rays",
+                                  "one_ray", "one_tri", "max_tris"])
+def test_k2_cases_match_plain(cuda_device, case):
+    """K2 equals its plain version exactly on what its design special-cases:
+    lanes it answers without a test, groups run again with the division,
+    a last thread with one ray, one triangle (three zero triangles pad its
+    group) and the 2048-triangle cap (96 KB of shared memory)."""
+    soup, o, d, tm = _k2_case(case, cuda_device)
+    if case == "huge_det":
+        det = (torch.linalg.cross(d, soup[13, 6:9].expand_as(d))
+               * soup[13, 3:6]).sum(dim=1).abs()
+        assert 0 < int((det >= 2.0 ** 126).sum()) < det.numel()
+    big = torch.full_like(tm, 1e30)
+    for t_min in (0.0, 1e-3):
+        before = resident.LAUNCHES
+        t_k, i_k = resident.trace(soup, o, d, big, t_min, False)
+        t_kt, i_kt = resident.trace(soup, o, d, tm, t_min, False)
+        occ_k = resident.trace(soup, o, d, tm, t_min, True)
+        torch.cuda.synchronize()
+        assert resident.LAUNCHES == before + 3
+        t_p, i_p = resident.trace_plain(soup, o, d, big, t_min, False)
+        t_pt, i_pt = resident.trace_plain(soup, o, d, tm, t_min, False)
+        occ_p = resident.trace_plain(soup, o, d, tm, t_min, True)
+        assert torch.equal(i_k, i_p) and torch.equal(t_k, t_p)
+        assert torch.equal(i_kt, i_pt) and torch.equal(t_kt, t_pt)
+        assert torch.equal(occ_k, occ_p)
+    if case == "huge_det":
+        assert bool((i_p == 13).any())
+
+
 @pytest.fixture(scope="module")
 def helmet_proc():
     bc = config.get("helmet_proc")
@@ -570,6 +636,27 @@ def test_p1_kernel_matches_plain(cuda_device, data):
     torch.cuda.synchronize()
     assert probes.LAUNCHES["scalar_stack"] == before + 1
     want_out, want_leaves = probes.scalar_stack_plain(boxes)
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(leaves.cpu(), want_leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [1.0, 0.9, 0.7])
+@pytest.mark.parametrize("n", [1, 3, 5, 1001, 2047, 5001, 8191])
+def test_p1_kernel_matches_plain_on_trees(cuda_device, n, rate):
+    """The level-parallel P1 on trees of every depth up to the cap: the
+    count, the leaves and their pop order equal the walk's."""
+    boxes = torch.from_numpy(probe2.tree_boxes(n, rate))
+    out, leaves = probes.scalar_stack(boxes.to(cuda_device))
+    want_out, want_leaves = probes.scalar_stack_plain(boxes)
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(leaves.cpu(), want_leaves)
+    # an unaligned view takes the kernel's scalar loads
+    padded = torch.zeros(6 * n + 1)
+    padded[1:] = boxes
+    view = padded.to(cuda_device)[1:]
+    assert view.data_ptr() % 16 != 0
+    out, leaves = probes.scalar_stack(view)
     assert torch.equal(out.cpu(), want_out)
     assert torch.equal(leaves.cpu(), want_leaves)
 

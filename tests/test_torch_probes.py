@@ -131,6 +131,46 @@ def test_scalar_stack_plain_other_seeds(seed, n):
     assert cand.tolist()[:len(want)] == want and cand.shape == ((n + 1) // 2,)
 
 
+def _level_parallel(boxes):
+    """P1 as its kernel computes it (csrc/probes.cu), in numpy: pass bits,
+    then a level at a time a node's flag = it passes and its parent's flag
+    is set, a node visited where its parent's flag is set; the flagged
+    leaves in the walk's pop order: with D = floor(log2 n), the leaves
+    above the last level, highest index first, then the last level's,
+    highest index first.  (visited, leaf list)."""
+    b = boxes.reshape(-1, 6)
+    n = b.shape[0]
+    flag = b[:, :3].max(axis=1) <= b[:, 3:].min(axis=1)
+    visited, lo, width = 1, 1, 2
+    while lo < n:
+        i = np.arange(lo, min(lo + width, n))
+        up = flag[(i - 1) // 2]
+        visited += int(up.sum())
+        flag[i] &= up
+        lo, width = lo + width, 2 * width
+    first_last = (1 << (n.bit_length() - 1)) - 1      # 2^D - 1
+    order = np.concatenate([np.arange(first_last - 1, (n - 1) // 2 - 1, -1),
+                            np.arange(n - 1, first_last - 1, -1)])
+    return visited, order[flag[order]].tolist()
+
+
+@pytest.mark.parametrize("rate", [1.0, 0.9, 0.7])
+@pytest.mark.parametrize("sizes", ["odd n to 399", "2047", "5001", "8191"])
+def test_scalar_stack_level_parallel_model_equals_the_walk(sizes, rate):
+    """The kernel's design needs no serial walk: its numpy model gives the
+    plain version's count, leaves and pop order on every odd n up to 399
+    and at the tool's sizes."""
+    ns = range(1, 400, 2) if sizes.startswith("odd") else [int(sizes)]
+    for n in ns:
+        boxes = probe2.tree_boxes(n, rate)
+        out, cand = probes.scalar_stack(torch.from_numpy(boxes))
+        visited, leaves = _level_parallel(boxes)
+        assert out.tolist() == [visited, len(leaves)], n
+        assert cand.tolist() == leaves + [-1] * (cand.shape[0] - len(leaves))
+    if rate == 1.0 and not sizes.startswith("odd"):
+        assert visited == n and len(leaves) == (n + 1) // 2
+
+
 def test_scalar_stack_rejects_bad_boxes():
     with pytest.raises(ValueError):
         probes.scalar_stack(torch.zeros(6 * 4))              # even node count

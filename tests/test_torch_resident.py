@@ -129,6 +129,39 @@ def test_miss_is_big_and_minus_one(cornell):
     assert bool(hit.miss[0])
 
 
+@pytest.mark.parametrize("t_min", [0.0, 1e-3])
+@pytest.mark.parametrize("geometry", ["cornell", "random", "huge"])
+def test_plain_dead_lanes_miss_whatever_the_geometry(cornell, geometry,
+                                                     t_min):
+    """A lane whose t_max is not above t_min (or NaN) gets (1e30, -1) and
+    false from the plain version: t > t_min and t < t_max exclude each
+    other.  The kernel writes these answers without a test."""
+    _, port = cornell
+    soup = resident.pack_resident_soup(port.geometry)
+    if geometry == "random":
+        soup = resident.pack_resident_soup(
+            _port_of(j_random_tris(300, seed=9)).geometry)
+    elif geometry == "huge":
+        soup = torch.cat([soup, torch.tensor(
+            [[-1.0, -1.0, -0.5, 1e19, 0.0, 0.0, 0.0, 1e19, 0.0]])])
+    o, d = _t(*_rays(500, 10, center=(0.0, 1.0, 0.0), spread=1.0))
+    rng = np.random.default_rng(11)
+    dead = torch.from_numpy(rng.choice(
+        np.array([0.0, np.nan, t_min, t_min - 1.0, -np.inf, np.nextafter(
+            np.float32(t_min), np.float32(-1.0))], np.float32), 500))
+    live = torch.from_numpy(rng.uniform(0.5, 4.0, 500).astype(np.float32))
+    is_dead = torch.from_numpy(rng.random(500) < 0.5)
+    tm = torch.where(is_dead, dead, live)
+    t, tri = resident.trace_plain(soup, o, d, tm, t_min, False)
+    occ = resident.trace_plain(soup, o, d, tm, t_min, True)
+    assert bool((t[is_dead] == np.float32(BIG)).all())
+    assert bool((tri[is_dead] == -1).all())
+    assert not bool(occ[is_dead].any())
+    # the live lanes do hit, so the dead ones would have had something to
+    # hit too
+    assert bool((tri[~is_dead] >= 0).any()) and bool(occ[~is_dead].any())
+
+
 def test_plain_chunks_rays(cornell, monkeypatch):
     _, port = cornell
     o, d = _t(*_rays(333, 6))

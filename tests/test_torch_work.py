@@ -3,8 +3,10 @@
 K4's work counter (`fused_work`) against a brute per-ray loop in numpy
 float32 over the same queries: every triangle for a closest hit, up to and
 including the first occluder for a shadow ray.  The K5b call logger
-against the launches a render's backward makes.  `cuda_lib.build_dir`
-against an edit of a header.  All on the CPU.
+against the launches a render's backward makes.  The K2 call logger
+against a dense frame's calls, and K2's work counter against the same
+brute loop.  `cuda_lib.build_dir` against an edit of a header.  All on the
+CPU.
 """
 
 import dataclasses
@@ -17,7 +19,8 @@ import torch
 from physically_based_renderer_tpu_torch.core import rng
 from physically_based_renderer_tpu_torch.grad import inverse
 from physically_based_renderer_tpu_torch.integrator import path
-from physically_based_renderer_tpu_torch.ops import cuda_lib, fused, gather
+from physically_based_renderer_tpu_torch.ops import (cuda_lib, fused, gather,
+                                                     resident)
 from physically_based_renderer_tpu_torch.tools import work
 from physically_based_renderer_tpu_torch.utils import config
 
@@ -148,6 +151,48 @@ def test_gather_bwd_calls_logs_every_launch():
         loss_again().backward()
     for (_, a), (_, b) in zip(params.items(), want.items()):
         assert torch.equal(a.grad, b.grad)
+
+
+def test_dense_frame_calls_log_every_k2_call():
+    """One dense cornell frame at 16x16, 2 spp, 2 bounces makes 2 x (3
+    closest + 2 shadow) K2 calls, as many as the kernel's counter counts a
+    frame on the card; the logger leaves the frame as it is; K2's work
+    counter equals a brute per-ray loop: every triangle for a live
+    closest-hit lane, up to the first occluder for a live shadow lane,
+    nothing for a lane whose t_max is not above t_min."""
+    spp, bounces = 2, 2
+    calls = work.dense_frame_calls(CPU, size=16, spp=spp, bounces=bounces)
+    assert resident.trace.__name__ == "trace"
+    assert len(calls) == spp * (2 * bounces + 1)
+    assert [(s, b, c[5]) for s, b, c in calls] == [
+        (s, b, any_hit) for s in range(spp) for b in range(bounces + 1)
+        for any_hit in (False, True) if not (any_hit and b == bounces)]
+    soup = resident.pack_resident_soup(config.build_scene(
+        config.get("cornell").scene, CPU)[0].geometry)
+    dead = 0
+    for _, _, (s, o, d, tm, t_min, any_hit) in calls:
+        assert torch.equal(s, soup) and o.shape == (256, 3)
+        tri, o_np, d_np, tm_np = (x.numpy() for x in (s, o, d, tm))
+        brute = 0
+        for i in range(o_np.shape[0]):
+            if not tm_np[i] > t_min:
+                dead += 1
+                continue
+            hits = _hits(tri, o_np[i], d_np[i], t_min, tm_np[i])
+            brute += (len(hits) if not any_hit or not any(hits)
+                      else hits.index(True) + 1)
+        assert work.resident_work(s, o, d, tm, t_min, any_hit) == brute
+    assert dead > 0    # shadow calls carry hopeless lanes (t_max = 0)
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, CPU)
+    cfg = dataclasses.replace(bc.render, width=16, height=16, spp=spp,
+                              max_bounces=bounces, tracer="resident")
+    film, _ = path.render_with_stats(scene, cam, rng.key(0, CPU), cfg)
+    frames = []
+    logged = work.resident_calls(lambda: frames.append(
+        path.render_with_stats(scene, cam, rng.key(0, CPU), cfg)))
+    assert len(logged) == len(calls)
+    assert torch.equal(frames[0][0].mean(), film.mean())
 
 
 def test_build_dir_covers_headers(monkeypatch, tmp_path):
