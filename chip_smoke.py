@@ -25,8 +25,8 @@ of which raises on failure (an uncaught exception exits non-zero):
      negatives, zeros and values above 100, and a ragged 37x53 image;
   4. the branch-free reciprocal of K1, K2 and K4 (csrc/rcp.cuh) against
      1.0f / x on every float with |x| in [1e-9, 2^126); the registers and
-     spill bytes of K1's, K2's, K4's, K5a's, K5b's and P1's instantiations
-     (cuobjdump -res-usage); K1 (block-stream tracer)
+     spill bytes of K1's, K2's, K4's, K5a's, K5b's, P1's, P5's and P6's
+     instantiations (cuobjdump -res-usage); K1 (block-stream tracer)
      against its plain-torch version on
      `helmet_proc` (100,352 triangles, 1,024 clusters, ray blocks of 256)
      and on `helmet` (the 99,400-triangle .glb, ray blocks of 512): 512x512
@@ -101,7 +101,13 @@ of which raises on failure (an uncaught exception exits non-zero):
  12. the probes P5-P8 (`ops/probes.py`, `csrc/mosaic.cu`) against their
      plain versions at every shape of their tools (P5-P7 exact, P8 within
      1e-6 relative and the reference's own check), with device, wrapper
-     and plain times and bounds; then the tools themselves
+     and plain times and bounds; P5 also on random floats with indices in
+     [-3 size, 3 size), at reps 0 and 1, where no slab fits shared memory
+     and at rows and lanes that are not multiples of 4, each shape with
+     its plan and the L2 bytes the plan moves, and at reps 1 beside
+     torch.gather (the kernels line's P5 entry: one call, [1024,512] axis
+     0 x1); P6 also at 8,191 nodes, beside an empty kernel and the depth
+     and byte bounds of its inner nodes; then the tools themselves
      (`tools/probe_mosaic.py`, `tools/exp_subtile_dma.py`), whose launches
      the kernels line reports;
  13. parallel/ on a world of one NCCL rank (a FileStore in a temporary
@@ -263,10 +269,9 @@ PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 33.5e12
 # reciprocal's refinement are not counted, so the bound stays low.
 MT_FLOPS = 46
 # P1 and P6 are chains of dependent shared-memory loads, which neither peak
-# describes: beside the contract's bound each gets a latency bound, P6's
-# walk one shared-memory load per visited node, P1's level-parallel search
-# one per level of the tree, taken as 30 cycles at the card's 1.98 GHz
-# boost clock (15.2 ns).
+# describes: beside the contract's bound each gets a latency bound, their
+# level-parallel search's one shared-memory load per level of the tree,
+# taken as 30 cycles at the card's 1.98 GHz boost clock (15.2 ns).
 SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
 # The small .glb of the by-path run: the helmet at this tessellation scale
 # (1,880 triangles), at the CLI's default RenderConfig (256x256, 4 spp, 1
@@ -1605,30 +1610,33 @@ def cuobjdump(flag):
 
 def kernel_resources():
     """Registers and local-memory (spill) bytes a thread of each K1, K2,
-    K4, K5a, K5b and P1 instantiation, as ptxas allotted them (`cuobjdump
-    -res-usage` on the built library), keyed by the mangled name up to its
-    parameters: trace_blocks_kernelILb<any hit>ELi<rays a thread>E,
-    resident_kernelILb<any hit>E, fused_kernel, gather_fwd_kernel_<route>
-    I<index type><flat index type>E, gather_bwd_kernelI<index
-    type><accumulator><column groups>E, probe_scalar_stack_kernel."""
+    K4, K5a, K5b, P1, P5 and P6 instantiation, as ptxas allotted them
+    (`cuobjdump -res-usage` on the built library), keyed by the mangled
+    name up to its parameters: trace_blocks_kernelILb<any hit>ELi<rays a
+    thread>E, resident_kernelILb<any hit>E, fused_kernel,
+    gather_fwd_kernel_<route>I<index type><flat index type>E,
+    gather_bwd_kernelI<index type><accumulator><column groups>E,
+    probe_scalar_stack_kernel, mosaic_gather_kernel_<route>ILi<axis>E,
+    mosaic_scalar_stack_kernel."""
     import re
 
     usage = cuobjdump("-res-usage")
     if usage is None:
-        print("K1/K2/K4/K5/P1 registers: not measured (no cuobjdump)")
+        print("K1/K2/K4/K5/P1/P5/P6 registers: not measured (no cuobjdump)")
         return None
     out = {}
     for name, line in re.findall(r"Function (\S+):\s*\n([^\n]*)", usage):
         short = re.search(r"(trace_blocks_kernel|resident_kernel|fused_kernel|"
                           r"gather_fwd_kernel_\w+?|gather_bwd_kernel|"
-                          r"probe_scalar_stack_kernel)"
+                          r"probe_scalar_stack_kernel|mosaic_gather_kernel_"
+                          r"\w+?|mosaic_scalar_stack_kernel)"
                           r"(I\w*?E)?(?:E|v)", name)
         if short:
             res = dict(re.findall(r"(\w+):(\d+)", line))
             out[short.group(1) + (short.group(2) or "")] = {
                 "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
                 "local_bytes": int(res["LOCAL"])}
-    print(f"K1/K2/K4/K5/P1 registers a thread (cuobjdump -res-usage) "
+    print(f"K1/K2/K4/K5/P1/P5/P6 registers a thread (cuobjdump -res-usage) "
           f"[{card_line()}]: {out}")
     return out
 
@@ -1837,65 +1845,142 @@ def phase_mosaic(dev):
     t = lambda a: torch.from_numpy(a).to(dev)
     out = {}
 
-    # P5: every shape of the tool; the kernels line carries the largest
-    # table, [1024, 512] x 4 reps (2 MB, read through L1/L2).
+    empty_ms, _ = device_ms(lambda: probes.empty_kernel(dev), 200,
+                            "probe_empty_kernel")
+
+    # P5: every shape of the tool on its own data (against the plain
+    # version and the probe's numpy check) and on random floats with
+    # indices in [-3 size, 3 size); then GATHER_EXTRA (reps 0 and 1, the
+    # direct route, rows and lanes not multiples of 4) on random floats.
+    # Each is timed beside its plan, the L2 bytes the plan moves, its bound
+    # and an empty kernel.  The kernels line carries the largest table at
+    # reps 1, [1024, 512] axis 0 (2 MB), where torch.gather computes the
+    # same function: its ms, bound and library_ms are of one call.
     shapes = {}
     p5_err = 0.0
-    for rows, lanes, axis, reps, _ in probe_mosaic.GATHER_CASES:
-        x_np, idx_np = probe_mosaic.gather_inputs(rows, lanes, axis)
+
+    def p5_case(rows, lanes, axis, reps, x_np, idx_np, probe_check):
+        nonlocal p5_err
         x, idx = t(x_np), t(idx_np)
         got = probes.mosaic_gather(x, idx, axis, reps)
         want = probes.mosaic_gather_plain(x, idx, axis, reps)
         torch.cuda.synchronize()
         p5_err = max(p5_err, float((got - want).abs().max()))
-        if not (torch.equal(got, want)
-                and np.array_equal(got.cpu().numpy(),
-                                   probe_mosaic.gather_expected(
-                                       x_np, idx_np, axis, reps))):
-            raise AssertionError(f"P5 [{rows},{lanes}] axis {axis}: kernel, "
-                                 "plain version and the probe's check differ")
+        if not torch.equal(got, want) or (probe_check and not np.array_equal(
+                got.cpu().numpy(), probe_mosaic.gather_expected(
+                    x_np, idx_np, axis, reps))):
+            raise AssertionError(f"P5 [{rows},{lanes}] axis {axis} x{reps}: "
+                                 "kernel, plain version and the probe's "
+                                 "check differ")
+        return x, idx
+
+    for rows, lanes, axis, reps, _ in probe_mosaic.GATHER_CASES:
+        p5_case(rows, lanes, axis, reps,
+                *probe_mosaic.gather_random_inputs(rows, lanes, axis), False)
+    for rows, lanes, axis, reps in (
+            *(c[:4] for c in probe_mosaic.GATHER_CASES),
+            *probe_mosaic.GATHER_EXTRA):
+        probe_data = (rows, lanes, axis, reps) in (
+            c[:4] for c in probe_mosaic.GATHER_CASES)
+        x, idx = p5_case(rows, lanes, axis, reps, *(
+            probe_mosaic.gather_inputs(rows, lanes, axis) if probe_data
+            else probe_mosaic.gather_random_inputs(rows, lanes, axis)),
+            probe_data)
         call = lambda: probes.mosaic_gather(x, idx, axis, reps)
         ms, _ = device_ms(call, 100, "mosaic_gather_kernel")
-        shapes[f"{rows}x{lanes}_axis{axis}_x{reps}"] = {
+        plan = probes.mosaic_gather_plan(rows, lanes, axis, reps)
+        l2 = probes.mosaic_gather_l2_bytes(plan, rows, lanes, axis, reps)
+        row = shapes[f"{rows}x{lanes}_axis{axis}_x{reps}"] = {
             "ms": ms, "wrapper_ms": time_ms(call, 100),
             "plain_ms": time_ms(lambda: probes.mosaic_gather_plain(
                 x, idx, axis, reps), 10),
             # table, indices and output once; reps adds an element
             "bound": bound(3 * x.numel() * 4, reps * x.numel()),
-            "library_ms": None, "staged": x.numel() * 4 <= 227 * 1024,
+            "library_ms": None, "plan": dataclasses.asdict(plan),
+            "l2_bytes": l2, "empty_kernel_ms": empty_ms,
+            "data": "probe" if probe_data else "random",
             "shape": f"[{rows},{lanes}] axis {axis} x{reps}"}
-        print(f"P5 [{rows},{lanes}] axis={axis} x{reps}: equal to its plain "
-              f"version and the probe's check, device {ms * 1e3:.2f} us "
+        print(f"P5 [{rows},{lanes}] axis={axis} x{reps} ({row['data']} "
+              f"data): equal to its plain version, device {ms * 1e3:.2f} "
+              f"us, bound {row['bound'][0] * 1e3:.3f} us "
+              f"({row['bound'][1]}), L2 {l2['total']} B (x: "
+              f"{l2['stage']} B), empty kernel {empty_ms * 1e3:.2f} us, "
+              f"plan {probe_mosaic.plan_text(rows, lanes, axis, reps)} "
               f"[{card_line()}]")
-    out["probe_mosaic_gather"] = {**shapes["1024x512_axis0_x4"],
-                                  "by_shape": shapes, "max_abs_err": p5_err}
 
-    # P6: the three data sets of P1; timed where every box passes.
-    walks = {}
+    # P5 at reps = 1 is torch.gather: both on the probe's data (indices in
+    # range), the int64 index made outside the timed call.
+    library = {}
+    for rows, lanes, axis in ((1024, 512, 0), (4096, 128, 0),
+                              (256, 512, 1)):
+        x_np, idx_np = probe_mosaic.gather_inputs(rows, lanes, axis)
+        x, idx = t(x_np), t(idx_np)
+        idx64 = idx.long()
+        got = probes.mosaic_gather(x, idx, axis, 1)
+        if not torch.equal(got, torch.gather(x, axis, idx64)):
+            raise AssertionError(f"P5 [{rows},{lanes}] axis {axis} x1 is "
+                                 "not torch.gather")
+        call = lambda: probes.mosaic_gather(x, idx, axis, 1)
+        ms, _ = device_ms(call, 100, "mosaic_gather_kernel")
+        lib_ms, _ = device_ms(lambda: torch.gather(x, axis, idx64), 100,
+                              None)
+        row = library[f"{rows}x{lanes}_axis{axis}"] = {
+            "ms": ms, "library_ms": lib_ms, "wrapper_ms": time_ms(call, 100),
+            "plain_ms": time_ms(lambda: probes.mosaic_gather_plain(
+                x, idx, axis, 1), 10),
+            "bound": bound(3 * x.numel() * 4, x.numel()),
+            "shape": f"[{rows},{lanes}] axis {axis} x1"}
+        print(f"P5 [{rows},{lanes}] axis={axis} x1: device {ms * 1e3:.2f} "
+              f"us, torch.gather device {lib_ms * 1e3:.2f} us, bound "
+              f"{row['bound'][0] * 1e3:.3f} us [{card_line()}]")
+    out["probe_mosaic_gather"] = {
+        **library["1024x512_axis0"], "by_shape": shapes,
+        "max_abs_err": p5_err, "reps1": library,
+        "library": "torch.gather (device time), the same call"}
+
+    # P6: the three data sets of P1 and 8,191 nodes that all pass, each
+    # equal to its plain version and timed beside an empty kernel, its
+    # byte bound and P1's depth bound (one shared-memory round trip a
+    # level).  The count needs the inner nodes alone (a leaf's test never
+    # changes it), so both bounds are the inner tree's: (n - 1) / 2 boxes
+    # and their levels.
+    sets = {f"[{data}]": probe2.scalar_stack_boxes(data)
+            for data in probe2.STACK_DATA}
+    sets["[n=8191 pass 1.0]"] = probe2.tree_boxes(8191, 1.0)
+    by_set = {}
     p6_err = 0
-    for data in probe2.STACK_DATA:
-        boxes = t(probe2.scalar_stack_boxes(data))
+    for label, boxes_np in sets.items():
+        boxes = t(boxes_np)
         got = probes.mosaic_scalar_stack(boxes)
         want = probes.mosaic_scalar_stack_plain(boxes)
         torch.cuda.synchronize()
         p6_err = max(p6_err, int((got - want).abs().max()))
         if not torch.equal(got, want):
-            raise AssertionError(f"P6 [{data}]: kernel and plain differ")
-        walks[data] = int(got[0])
-        print(f"P6 scalar_stack[{data}]: visited {walks[data]}, equal to "
-              "its plain version")
-    boxes = t(probe2.scalar_stack_boxes("all"))
+            raise AssertionError(f"P6 {label}: kernel and plain differ")
+        n = boxes.numel() // 6
+        inner = (n - 1) // 2
+        levels = max(1, inner.bit_length())
+        ms, _ = device_ms(lambda: probes.mosaic_scalar_stack(boxes), 100,
+                          "mosaic_scalar_stack_kernel")
+        row = by_set[label] = {
+            "nodes": n, "inner_nodes": inner, "visited": int(got[0]),
+            "ms": ms, "bound": bound(inner * 24 + 4, 0),
+            "latency_bound_ms": (levels * SMEM_LOAD_CYCLES
+                                 / SM_CLOCK_HZ * 1e3)}
+        print(f"P6 scalar_stack{label}: {n} nodes, visited {row['visited']}, "
+              f"equal to its plain version, device {ms * 1e3:.2f} us, empty "
+              f"kernel {empty_ms * 1e3:.2f} us, depth bound "
+              f"{row['latency_bound_ms'] * 1e3:.3f} us ({levels} levels of "
+              f"{inner} inner nodes), byte bound {row['bound'][0] * 1e3:.4f} "
+              f"us [{card_line()}]")
+    boxes = t(sets["[all]"])
     call = lambda: probes.mosaic_scalar_stack(boxes)
-    ms, _ = device_ms(call, 100, "mosaic_scalar_stack_kernel")
     out["probe_mosaic_stack"] = {
-        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        **by_set["[all]"], "wrapper_ms": time_ms(call, 100),
         "plain_ms": time_ms(lambda: probes.mosaic_scalar_stack_plain(boxes),
                             3, warmup=1),
-        "bound": bound(boxes.numel() * 4 + 4, 0),
-        "latency_bound_ms": walks["all"] * SMEM_LOAD_CYCLES / SM_CLOCK_HZ
-        * 1e3, "library_ms": None, "visited": walks,
-        "ns_per_node": ms * 1e6 / walks["all"], "max_abs_err": p6_err,
-        "shape": "2,047 boxes, every box passes"}
+        "library_ms": None, "empty_kernel_ms": empty_ms, "by_set": by_set,
+        "max_abs_err": p6_err, "shape": "2,047 boxes, every box passes"}
 
     # P7: the probe's data (all ones: every test masked) and random data
     # where the mask passes; timed on the random data.
@@ -1967,8 +2052,8 @@ def phase_mosaic(dev):
         print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
               f"{e['wrapper_ms'] * 1e3:.2f} us, plain "
               f"{e['plain_ms'] * 1e3:.2f} us, bound "
-              f"{e['bound'][0] * 1e3:.3f} us ({e['bound'][1]}), library none "
-              f"[{card_line()}]")
+              f"{e['bound'][0] * 1e3:.3f} us ({e['bound'][1]}), library "
+              f"{e['library_ms']} [{card_line()}]")
 
     # The tools' own runs: every shape through their entry points; their
     # launches are the ones the kernels line reports.

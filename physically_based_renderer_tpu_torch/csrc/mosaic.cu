@@ -17,49 +17,73 @@
 // this card; none of the kernels is carried over block by block.
 //
 // What bounds them on the H100:
-//   P5  bytes (table, indices, output once each); the tables are small, so
-//       at most shapes the launch.  Where the table fits in shared memory
-//       (up to 227 KB: [8, 4096] is 128 KB and takes the opt-in) every CTA
-//       stages all of it and its threads gather from there; larger tables
-//       ([256, 512] and up, 512 KB to 2 MB) are read through L1/L2.
-//   P6  latency: every step depends on the pop before it (a shared-memory
-//       load of the stack top, then of the node's six floats); one lane.
+//   P5  bytes (table, indices, output once each); the tables are 4 KB to
+//       2 MB, so at most shapes the launch.  What costs is the gathered
+//       read: a warp's 32 lanes along axis 0 read 32 random rows, 32
+//       sectors of 32 bytes for 4 useful bytes each, so a gather through
+//       L1/L2 moves ~8x the table's bytes a rep at the L2's rate.  Staged
+//       slabs move the table's bytes a few times in all, in whole sectors.
+//   P6  latency: the count of visited nodes needs no chain (csrc/tree.cuh),
+//       so the bound is the tree's depth in shared-memory round trips,
+//       and at these sizes the launch.
 //   P7  operations: ten float adds, multiplies and a division per test.
 //   P8  bytes: each 2 KB tile read from device memory (8.4 MB of distinct
 //       tiles, 67.1 MB counting every copy; all of it fits in the 50 MB L2
 //       only as distinct tiles).
 //
-// Design.  P5: one thread per output element loops over the reps; the index
-// is reduced into range once (floor modulo, as jnp's %) and stepped by one
-// each rep, wrapping at the axis' size.  With arange data every partial sum
-// is an integer below 2^24, so the kernel is exact in any order.  P6: P1 of
-// csrc/probes.cu without the leaf list, with its own entry point: 256 threads
-// stage the boxes, thread 0 walks with the TPU kernel's LIFO order (push
-// left, left + 1; pop the top).  P7: one CTA per ray, its threads over the
-// columns; each keeps a running min and the CTA reduces it by warp shuffles
-// (min is exact in any order; the masked value is never NaN).  1/det is an
-// IEEE division (no fast math) and -fmad=false keeps every product and sum
-// rounded as in the plain version, so the two agree bit for bit.  P8: one CTA
-// per block g of ch x 32 threads; each step j issues ch copies of 2 KB as
-// 16-byte cp.async into one of two shared-memory slots, commits the group,
-// and waits for the previous group (wait_group 1) while the next one flies;
-// thread t sums lane t % 32 of tile t / 32 over its 16 rows in order and adds
-// that to its running sum.
+// Design.  P5: a CTA owns a tile of outputs and stages, once, the slab of x
+// those outputs can reach: along axis 0 an output reaches only its own
+// column (over all rows), along axis 1 only its own row.  Axis 0: the slab
+// is C columns (a power of two, 4 to 32) over all R rows, row pitch C
+// words; a thread owns one column and steps down the CTA's output rows, so
+// lane j of a warp reads bank j mod C (C = 32: no conflicts; the plan's 16
+// columns: two lanes a bank, for half the bytes restaged).  Several CTAs
+// split a slab's output rows to fill the SMs, each staging the slab again
+// from L2.  Axis 1: the slab is whole rows, and the CTAs of one slab split
+// its columns.  Staging is 16-byte cp.async where the rows allow it
+// (L % 4 == 0, x 16-byte aligned), else 4-byte cp.async; each thread's
+// first index is loaded while the copies fly.  The indices and outputs
+// are read and written a word a thread, coalesced along the columns: a
+// thread owning four outputs would have four lanes of a warp share a
+// column, and so a bank, on every gathered read.  The direct route reads x
+// through L1/L2, one thread an output: it takes the small calls, which
+// are as short as their launch and where a slab's staging round trip costs
+// more than it saves, and the tables no slab fits (an axis-0 table above
+// 14,528 rows, a row above 58,112 lanes).  The plan (route, C or rows a
+// slab, outputs a CTA, threads) is ops/probes.py::mosaic_gather_plan's.
+// Each index is reduced into range once (floor modulo, as jnp's %) and
+// stepped by one a rep, wrapping at the axis' size; the sum runs in rep
+// order from 0.0f, as the plain version's loop does, so the kernel equals
+// it on any float data.  P6: the open flags of the inner nodes only (a
+// leaf's own test never changes the count) by csrc/tree.cuh, shared with
+// P1, in one CTA of 512 threads; every open inner node pushes both
+// children, so the walk visits 1 + 2 x (open inner nodes), summed by one
+// block reduction.  P7: one CTA per ray, its
+// threads over the columns; each keeps a running min and the CTA reduces
+// it by warp shuffles (min is exact in any order; the masked value is
+// never NaN).  1/det is an IEEE division (no fast math) and -fmad=false
+// keeps every product and sum rounded as in the plain version, so the two
+// agree bit for bit.  P8: one CTA per block g of ch x 32 threads; each step
+// j issues ch copies of 2 KB as 16-byte cp.async into one of two
+// shared-memory slots, commits the group, and waits for the previous group
+// (wait_group 1) while the next one flies; thread t sums lane t % 32 of
+// tile t / 32 over its 16 rows in order and adds that to its running sum.
 
 #include <cuda_runtime.h>
 
+#include "tree.cuh"
+
 namespace {
 
-constexpr int kStack = 64;           // P6 stack entries (depth + 1 suffices)
-constexpr int kWalkThreads = 256;    // P6 staging threads
-constexpr int kStagedThreads = 1024;  // P5 with the table in shared memory
-constexpr int kDirectThreads = 256;   // P5 reading the table through L1/L2
+constexpr int kScalarThreads = 512;  // P6: one CTA
 constexpr int kChunkThreads = 128;   // P7 threads per ray
 constexpr int kTileRows = 16;        // P8 tile: 16 rows
 constexpr int kTileLanes = 32;       //          x 32 lanes = 2 KB
 constexpr int kTileFloats = kTileRows * kTileLanes;
 constexpr int kTileChunks = kTileFloats / 4;  // 16-byte pieces of a tile
 constexpr size_t kMaxSmem = 227 * 1024;
+// P5's routes: ops/probes.py::GATHER_ROUTES.
+constexpr int kRouteSlab = 0, kRouteDirect = 1;
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -69,25 +93,135 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 // ---------------------------------------------------------------- P5
-template <int kAxis, bool kStaged>
-__global__ void mosaic_gather_kernel(const float* __restrict__ x,
-                                     const int* __restrict__ idx, int rows,
-                                     int lanes, int reps,
-                                     float* __restrict__ out) {
-  extern __shared__ float4 staged4[];
-  const float* staged = reinterpret_cast<const float*>(staged4);
-  const unsigned total = unsigned(rows) * unsigned(lanes);
-  if (kStaged) {
-    float4* dst = staged4;
-    const float4* src = reinterpret_cast<const float4*>(x);
-    for (unsigned q = threadIdx.x; q < total / 4; q += blockDim.x)
-      dst[q] = __ldg(src + q);
-    float* dst1 = reinterpret_cast<float*>(staged4);
-    for (unsigned e = total / 4 * 4 + threadIdx.x; e < total; e += blockDim.x)
-      dst1[e] = __ldg(x + e);
-    __syncthreads();
+// Copies n_rows rows of w floats (source row pitch src_pitch floats) into
+// shared memory at row pitch dst_pitch, as one cp.async group: 16-byte
+// pieces where vec (w, both pitches and src 16-byte multiples), else
+// 4-byte ones.
+__device__ __forceinline__ void stage_rows(float* dst, int dst_pitch,
+                                           const float* __restrict__ src,
+                                           int src_pitch, int n_rows, int w,
+                                           bool vec) {
+  if (vec) {
+    const int q = w >> 2;
+    for (int p = threadIdx.x; p < n_rows * q; p += blockDim.x) {
+      const int r = p / q, k = p - r * q;
+      cp_async16(dst + r * dst_pitch + 4 * k,
+                 src + size_t(r) * src_pitch + 4 * k);
+    }
+  } else {
+    for (int p = threadIdx.x; p < n_rows * w; p += blockDim.x) {
+      const int r = p / w, k = p - r * w;
+      cp_async4(dst + r * dst_pitch + k, src + size_t(r) * src_pitch + k);
+    }
   }
+  cp_async_commit();
+}
+
+// sum over i < reps of slab[base + k_i * stride], k_0 = idx mod size
+// (floor modulo), k_{i+1} = k_i + 1 wrapping at size; in rep order.
+__device__ __forceinline__ float rep_sum(const float* slab, int base,
+                                         int stride, int idx, int size,
+                                         int reps) {
+  int k = idx % size;
+  if (k < 0) k += size;
+  float acc = 0.0f;
+  for (int i = 0; i < reps; ++i) {
+    acc = acc + slab[base + k * stride];
+    if (++k == size) k = 0;
+  }
+  return acc;
+}
+
+// Axis 0: CTA (bx, by) owns columns [bx C, bx C + C) and output rows
+// [by per, by per + per); its slab is those columns over all rows.
+// Axis 1: CTA (bx, by) owns rows [bx tile, bx tile + tile) and output
+// columns [by per, by per + per); its slab is those rows.  tile is C for
+// axis 0.
+template <int kAxis>
+__global__ void __launch_bounds__(1024)
+    mosaic_gather_kernel_slab(const float* __restrict__ x,
+                              const int* __restrict__ idx, int rows,
+                              int lanes, int reps, int tile, int per,
+                              int vec, float* __restrict__ out) {
+  extern __shared__ float4 slab4[];
+  float* slab = reinterpret_cast<float*>(slab4);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (kAxis == 0) {
+    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
+    const int j = tid & (tile - 1);       // this thread's column
+    const int step = nt / tile;
+    int r = blockIdx.y * per + tid / tile;
+    const bool live = j < w;
+    const int* src = idx + c0 + j;
+    float* dst = out + c0 + j;
+    int next = live && r < r1 ? __ldg(src + size_t(r) * lanes) : 0;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;
+    for (; r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }
+  } else {
+    const int q0 = blockIdx.x * tile, n_rows = min(tile, rows - q0);
+    const int c0 = blockIdx.y * per, width = min(per, lanes - c0);
+    stage_rows(slab, lanes, x + size_t(q0) * lanes, lanes, n_rows, lanes,
+               vec);
+    // Output e of the CTA: row e / width of the slab, column c0 + e % width.
+    const int n_out = n_rows * width;
+    const int dr = nt / width, dc = nt - dr * width;
+    int rr = tid / width, cc = tid - rr * width;
+    const size_t base = size_t(q0) * lanes + c0;
+    int next = tid < n_out ? __ldg(idx + base + size_t(rr) * lanes + cc) : 0;
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int e = tid; e < n_out; e += nt) {
+      const int k = next, r = rr, c = cc;
+      rr += dr;
+      cc += dc;
+      if (cc >= width) {
+        cc -= width;
+        ++rr;
+      }
+      if (e + nt < n_out) next = __ldg(idx + base + size_t(rr) * lanes + cc);
+      out[base + size_t(r) * lanes + c] =
+          rep_sum(slab, r * lanes, 1, k, lanes, reps);
+    }
+  }
+}
+
+// The L1/L2 route: one thread an output, x read through the caches.
+template <int kAxis>
+__global__ void mosaic_gather_kernel_direct(const float* __restrict__ x,
+                                            const int* __restrict__ idx,
+                                            int rows, int lanes, int reps,
+                                            float* __restrict__ out) {
+  const unsigned total = unsigned(rows) * unsigned(lanes);
   const unsigned e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= total) return;
   const unsigned row = e / unsigned(lanes);
@@ -99,38 +233,28 @@ __global__ void mosaic_gather_kernel(const float* __restrict__ x,
   for (int i = 0; i < reps; ++i) {
     const unsigned at = kAxis == 0 ? unsigned(k) * unsigned(lanes) + col
                                    : row * unsigned(lanes) + unsigned(k);
-    acc = acc + (kStaged ? staged[at] : __ldg(x + at));
+    acc = acc + __ldg(x + at);
     if (++k == size) k = 0;
   }
   out[e] = acc;
 }
 
 // ---------------------------------------------------------------- P6
-__global__ void mosaic_scalar_stack_kernel(const float* __restrict__ boxes,
-                                           int n_nodes,
-                                           int* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  float* sb = reinterpret_cast<float*>(smem);
-  int* stack = reinterpret_cast<int*>(sb + size_t(n_nodes) * 6);
-  for (int i = threadIdx.x; i < n_nodes * 6; i += blockDim.x) sb[i] = boxes[i];
+__global__ void __launch_bounds__(kScalarThreads)
+    mosaic_scalar_stack_kernel(const float* __restrict__ boxes, int n_nodes,
+                               int* __restrict__ out) {
+  __shared__ unsigned char s_open[pbr::kTreeMaxNodes / 2];
+  __shared__ int s_open_count;
+  const int m = (n_nodes - 1) / 2;  // inner nodes: both children exist
+  pbr::tree_pass_bits(boxes, m, s_open);
+  if (threadIdx.x == 0) s_open_count = 0;
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  int sp = 1, visited = 0;
-  stack[0] = 0;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    const float* b = sb + node * 6;
-    const float t_near = fmaxf(fmaxf(b[0], b[1]), b[2]);
-    const float t_far = fminf(fminf(b[3], b[4]), b[5]);
-    const int left = 2 * node + 1;
-    if (t_near <= t_far && left < n_nodes) {
-      stack[sp] = left;
-      stack[sp + 1] = left + 1;
-      sp += 2;
-    }
-    ++visited;
-  }
-  out[0] = visited;
+  pbr::tree_levels(m, s_open);
+  int open = 0;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) open += s_open[i];
+  pbr::block_add(open, &s_open_count);
+  __syncthreads();
+  if (threadIdx.x == 0) out[0] = 1 + 2 * s_open_count;
 }
 
 // ---------------------------------------------------------------- P7
@@ -169,21 +293,6 @@ __global__ void mosaic_chunk_kernel(const float* __restrict__ o,
 }
 
 // ---------------------------------------------------------------- P8
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = unsigned(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 __global__ void subtile_copy_kernel(const float* __restrict__ src,
                                     const int* __restrict__ idx, int n_src,
                                     int n_iters, int ch,
@@ -233,53 +342,65 @@ __global__ void subtile_copy_kernel(const float* __restrict__ src,
 
 // x f32[rows, lanes], idx i32[rows, lanes] -> out f32[rows, lanes],
 // out[r, c] = sum over i < reps of x[(idx[r, c] + i) mod rows, c] (axis 0) or
-// x[r, (idx[r, c] + i) mod lanes] (axis 1), the modulo a floor modulo.
+// x[r, (idx[r, c] + i) mod lanes] (axis 1), the modulo a floor modulo.  The
+// plan (ops/probes.py::mosaic_gather_plan): route (kRouteSlab, kRouteDirect),
+// tile (slab: C columns for axis 0, a power of two in [4, 32]; rows for
+// axis 1), per (slab: output rows a CTA for axis 0, columns for axis 1) and
+// threads a CTA (a multiple of 32 up to 1024).
 extern "C" int pbr_mosaic_gather(const float* x, const int* idx, int rows,
-                                 int lanes, int axis, int reps, float* out,
+                                 int lanes, int axis, int reps, int route,
+                                 int tile, int per, int threads, float* out,
                                  void* stream) {
   const long long total = (long long)rows * lanes;
   if (total <= 0) return 0;
-  if (total >= (1LL << 31) || (axis != 0 && axis != 1) || reps < 0)
+  if (total >= (1LL << 31) || (axis != 0 && axis != 1) || reps < 0 ||
+      threads < 32 || threads > 1024 || threads % 32)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * size_t(total);
-  if (smem <= kMaxSmem) {
-    const unsigned blocks = unsigned((total + kStagedThreads - 1) /
-                                     kStagedThreads);
-    cudaError_t err;
-    if (axis == 0) {
-      err = allow_smem(mosaic_gather_kernel<0, true>, smem);
-      if (err != cudaSuccess) return int(err);
-      mosaic_gather_kernel<0, true><<<blocks, kStagedThreads, smem, s>>>(
-          x, idx, rows, lanes, reps, out);
-    } else {
-      err = allow_smem(mosaic_gather_kernel<1, true>, smem);
-      if (err != cudaSuccess) return int(err);
-      mosaic_gather_kernel<1, true><<<blocks, kStagedThreads, smem, s>>>(
-          x, idx, rows, lanes, reps, out);
-    }
-  } else {
-    const unsigned blocks = unsigned((total + kDirectThreads - 1) /
-                                     kDirectThreads);
+  if (route == kRouteDirect) {
+    const unsigned blocks = unsigned((total + threads - 1) / threads);
     if (axis == 0)
-      mosaic_gather_kernel<0, false><<<blocks, kDirectThreads, 0, s>>>(
+      mosaic_gather_kernel_direct<0><<<blocks, threads, 0, s>>>(
           x, idx, rows, lanes, reps, out);
     else
-      mosaic_gather_kernel<1, false><<<blocks, kDirectThreads, 0, s>>>(
+      mosaic_gather_kernel_direct<1><<<blocks, threads, 0, s>>>(
           x, idx, rows, lanes, reps, out);
+    return int(cudaGetLastError());
+  }
+  if (route != kRouteSlab || tile < 1 || per < 1 ||
+      (axis == 0 && (tile < 4 || tile > 32 || (tile & (tile - 1)))))
+    return int(cudaErrorInvalidValue);
+  const bool aligned = (reinterpret_cast<size_t>(x) & 15) == 0;
+  const int vec = aligned && lanes % 4 == 0;
+  const dim3 grid(axis == 0 ? (lanes + tile - 1) / tile
+                            : (rows + tile - 1) / tile,
+                  axis == 0 ? (rows + per - 1) / per
+                            : (lanes + per - 1) / per);
+  const size_t smem = sizeof(float) * (axis == 0
+      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);
+  if (grid.y > 65535) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (axis == 0) {
+    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
+    if (err != cudaSuccess) return int(err);
+    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out);
+  } else {
+    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
+    if (err != cudaSuccess) return int(err);
+    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out);
   }
   return int(cudaGetLastError());
 }
 
-// boxes f32[n_nodes * 6] (lo xyz | hi xyz per node) -> out i32[1]: the
-// nodes the walk visits.
+// boxes f32[n_nodes * 6] (lo xyz | hi xyz per node; n_nodes odd, at most
+// pbr::kTreeMaxNodes) -> out i32[1]: the nodes the walk visits.
 extern "C" int pbr_mosaic_scalar_stack(const float* boxes, int n_nodes,
                                        int* out, void* stream) {
-  const size_t smem = sizeof(float) * 6 * size_t(n_nodes) +
-                      sizeof(int) * size_t(kStack);
-  const cudaError_t err = allow_smem(mosaic_scalar_stack_kernel, smem);
-  if (err != cudaSuccess) return int(err);
-  mosaic_scalar_stack_kernel<<<1, kWalkThreads, smem,
+  if (n_nodes < 1 || n_nodes > pbr::kTreeMaxNodes || n_nodes % 2 == 0)
+    return int(cudaErrorInvalidValue);
+  mosaic_scalar_stack_kernel<<<1, kScalarThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       boxes, n_nodes, out);
   return int(cudaGetLastError());

@@ -24,7 +24,8 @@
 //       operations at the probe's shape), against 4 KB + 64 KB of input.
 //   P4  bytes: one index read, one gathered read, one write per element.
 //
-// Design.  P1: one CTA of 512 threads, no serial walk.  A thread takes
+// Design.  P1: one CTA of 512 threads, no serial walk; its first two
+// stages are csrc/tree.cuh's, shared with P6.  A thread takes
 // two nodes at a time (48 bytes: three 16-byte loads where the boxes are
 // 16-byte aligned) and writes their pass bits (max(lo) <= min(hi)) to shared
 // memory; then, a level at a time with a barrier a level, each node's flag
@@ -51,9 +52,11 @@
 
 #include <cuda_runtime.h>
 
+#include "tree.cuh"
+
 namespace {
 
-constexpr int kMaxNodes = 8191;     // P1: ops/probes.py::MAX_NODES
+constexpr int kMaxNodes = pbr::kTreeMaxNodes;
 constexpr int kStackThreads = 512;  // P1 threads (one CTA)
 constexpr int kTileRows = 8;        // P2 tile: 8 sublanes
 constexpr int kTileLanes = 128;     //          x 128 lanes
@@ -66,12 +69,6 @@ constexpr int kGatherThreads = 256;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // ---------------------------------------------------------------- P1
-__device__ __forceinline__ unsigned char box_passes(float l0, float l1,
-                                                    float l2, float h0,
-                                                    float h1, float h2) {
-  return fmaxf(fmaxf(l0, l1), l2) <= fminf(fminf(h0, h1), h2);
-}
-
 __global__ void __launch_bounds__(kStackThreads)
     probe_scalar_stack_kernel(const float* __restrict__ boxes, int n_nodes,
                               int cap, int* __restrict__ out,
@@ -82,43 +79,12 @@ __global__ void __launch_bounds__(kStackThreads)
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
 
-  // Pass bits, two nodes (twelve floats) a thread at a time, with 16-byte
-  // loads where the boxes are 16-byte aligned; node n - 1 (n is odd) alone.
-  if ((reinterpret_cast<size_t>(boxes) & 15) == 0) {
-    const float4* q = reinterpret_cast<const float4*>(boxes);
-    for (int p = tid; p < n_nodes / 2; p += nt) {
-      const float4 x = q[3 * p], y = q[3 * p + 1], z = q[3 * p + 2];
-      s_open[2 * p] = box_passes(x.x, x.y, x.z, x.w, y.x, y.y);
-      s_open[2 * p + 1] = box_passes(y.z, y.w, z.x, z.y, z.z, z.w);
-    }
-  } else {
-    for (int p = tid; p < n_nodes / 2; p += nt) {
-      const float* b = boxes + 12 * p;
-      s_open[2 * p] = box_passes(b[0], b[1], b[2], b[3], b[4], b[5]);
-      s_open[2 * p + 1] = box_passes(b[6], b[7], b[8], b[9], b[10], b[11]);
-    }
-  }
-  if (tid == 0) {
-    const float* b = boxes + 6 * (n_nodes - 1);
-    s_open[n_nodes - 1] = box_passes(b[0], b[1], b[2], b[3], b[4], b[5]);
-    s_visited = 0;
-  }
+  // The open flags of every node and the count of the visited ones
+  // (csrc/tree.cuh).
+  pbr::tree_pass_bits(boxes, n_nodes, s_open);
+  if (tid == 0) s_visited = 0;
   __syncthreads();
-
-  // Level by level: open(i) = pass(i) && open(parent); i is visited when its
-  // parent is open.  Level l holds nodes [2^l - 1, 2^(l+1) - 1).
-  int visited = tid == 0;   // the root
-  for (int lo = 1, width = 2; lo < n_nodes; lo += width, width *= 2) {
-    const int hi = min(lo + width, n_nodes);
-    for (int i = lo + tid; i < hi; i += nt) {
-      const unsigned char up = s_open[(i - 1) >> 1];
-      visited += up;
-      s_open[i] &= up;
-    }
-    __syncthreads();
-  }
-  visited = __reduce_add_sync(0xffffffffu, visited);
-  if (lane == 0 && visited) atomicAdd(&s_visited, visited);
+  pbr::block_add(pbr::tree_levels(n_nodes, s_open), &s_visited);
 
   // The open leaves in pop order.  Slot j < upper holds leaf f - 1 - j (the
   // leaves above the last level, descending), slot j >= upper leaf

@@ -79,8 +79,9 @@ _SIGNATURES = {
     "pbr_probe_onehot_mm": [_P, _P, _I, _I, _I, _P, _P],
     # x, idx, rows, lanes, axis, out, stream
     "pbr_probe_gather": [_P, _P, _I, _I, _I, _P, _P],
-    # x, idx, rows, lanes, axis, reps, out, stream
-    "pbr_mosaic_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # x, idx, rows, lanes, axis, reps, route, tile, per, threads, out,
+    # stream
+    "pbr_mosaic_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # boxes, n_nodes, out, stream
     "pbr_mosaic_scalar_stack": [_P, _I, _P, _P],
     # o, t, b, w, n_chunks, out, stream

@@ -33,6 +33,9 @@ kernels' times; it ports nothing and is counted nowhere.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from . import cuda_lib
@@ -44,8 +47,7 @@ LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0,
 
 TILE = (8, 128)        # P2's tile: eight sublanes by 128 lanes
 RELAYOUT_MOVES = 10
-MAX_NODES = 8191       # P1: a flag a node in static shared memory;
-                       # P6: boxes and stack in 227 KB
+MAX_NODES = 8191       # P1, P6: a flag a node in static shared memory
 MAX_MM_ROWS = 32       # P3: attribute rows per CTA
 TILE_P8 = (16, 32)     # P8: one copied tile, 2 KB
 MAX_P8_CH = 32         # P8: ch x 32 threads a CTA
@@ -253,10 +255,182 @@ def _aligned16(t: torch.Tensor, name: str) -> None:
 
 # --------------------------------------------------------------------- P5
 
+# P5's routes (csrc/mosaic.cu: kRouteSlab, kRouteDirect).
+GATHER_ROUTES = {"slab": 0, "direct": 1}
+P5_SMEM = 227 * 1024      # bytes of shared memory a CTA may take
+P5_SMS = 132              # the H100's SMs: the CTAs of one wave
+# Axis 0: the widest slab.  16 columns (a 2-way bank conflict a gathered
+# read) beat 32 (none, twice the bytes restaged) at [32, 512], [256, 512]
+# and [1024, 512] (PERF.md, PR 10).
+P5_COLUMNS = 16
+# The bytes all CTAs together may restage: a slab is split among at most
+# P5_RESTAGE / (table bytes) CTAs.  At [4096, 128] four restages of the
+# 2 MiB table beat eight, at [16, 16384] eight of 1 MiB beat four
+# (PERF.md, PR 10).
+P5_RESTAGE = 8 << 20
+P5_MIN_OUTPUTS = 256      # outputs a CTA at least, where the table allows
+P5_THREADS = 1024         # threads a CTA at most
+P5_DIRECT_THREADS = 256   # the direct route's threads a CTA
+# The route: the one whose time, modelled from the bytes it moves, is less.
+# The direct route moves its gathered sectors (`mosaic_gather_l2_bytes`)
+# at P5_L2_RATE; a slab costs a round trip before the first gather and its
+# bytes at one CTA's staging rate.  Rates from the card ("NVIDIA H100 80GB
+# HBM3, 700.00 W"; PERF.md, PR 10): the direct route at [4096, 128] x 2
+# moved 33.5 MB in ~8 us above its launch; a CTA staged 128 KB in ~5 us
+# and 64 KB in ~2.5 us, the SMs' slabs at once.  The model picks the
+# faster route at all 18 calls `tools/sweep.py --cases p5` times.  A slab
+# is priced by what one CTA stages, not by all CTAs' bytes at the L2's
+# rate: [4096, 128] x 1 and [1024, 512] x 1 move the same bytes on each
+# route, yet the first is faster direct and the second on 64 KB slabs.
+P5_L2_RATE = 4.0e6        # bytes a microsecond
+P5_STAGE_RATE = 2.6e4     # bytes a microsecond, one CTA
+P5_STAGE_US = 0.3         # microseconds
+SECTOR = 32               # bytes the L2 moves at a time
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """How P5's kernel cuts [rows, lanes] (csrc/mosaic.cu).  Route "slab":
+    along axis 0 CTA (bx, by) owns columns [bx tile, bx tile + tile) and
+    output rows [by per, by per + per), and stages those columns over all
+    rows; along axis 1 it owns rows [bx tile, bx tile + tile) and output
+    columns [by per, by per + per), and stages those rows.  Route
+    "direct": one thread an output, x read through L1/L2."""
+    route: str
+    tile: int
+    per: int
+    threads: int
+
+    def grid(self, rows: int, lanes: int, axis: int) -> tuple[int, int]:
+        if self.route == "direct":
+            return -(-rows * lanes // self.threads), 1
+        if axis == 0:
+            return -(-lanes // self.tile), -(-rows // self.per)
+        return -(-rows // self.tile), -(-lanes // self.per)
+
+    def slab_bytes(self, rows: int, lanes: int, axis: int) -> int:
+        if self.route == "direct":
+            return 0
+        return 4 * (rows * self.tile if axis == 0
+                    else min(self.tile, rows) * lanes)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def direct_reach(rows: int, lanes: int, axis: int, threads: int) -> int:
+    """The bytes of x that one CTA of the direct route (`threads`
+    consecutive outputs) can gather from: its columns over all rows along
+    axis 0, about its row along axis 1."""
+    if axis == 0:
+        return 4 * rows * min(lanes, threads)
+    return 4 * max(lanes, threads)
+
+
+def slab_plan(rows: int, lanes: int, axis: int) -> GatherPlan | None:
+    """P5's slab plan for x [rows, lanes] along `axis`, or None where no
+    slab fits P5_SMEM.  Axis 0: the widest slab of at most P5_COLUMNS
+    columns (a power of two from 32 down to 4, and no wider than the
+    table) that fits.  Axis 1: enough whole rows a slab for P5_MIN_OUTPUTS
+    outputs.  The CTAs of a slab split its outputs (rows along axis 0,
+    columns along axis 1) so that all CTAs come to about P5_SMS (one wave
+    on the SMs), each keeping at least P5_MIN_OUTPUTS outputs, and all of
+    them restage at most P5_RESTAGE bytes.  Threads: one an output up to
+    P5_THREADS.  (The constants are read at each call, so that
+    `tools/sweep.py` can time other values.)"""
+    restages = max(1, P5_RESTAGE // (4 * rows * lanes))
+    if axis == 0:
+        c = min(P5_COLUMNS, max(4, 1 << (lanes - 1).bit_length()))
+        while c > 4 and rows * c * 4 > P5_SMEM:
+            c //= 2
+        if rows * c * 4 > P5_SMEM:
+            return None
+        groups = -(-lanes // c)
+        most = max(1, rows // max(1, P5_MIN_OUTPUTS // c))
+        split = max(1, min(P5_SMS // groups, most, restages))
+        per = -(-rows // split)
+        return GatherPlan("slab", c, per,
+                          min(P5_THREADS, _round_up(per * c, 32)))
+    if lanes * 4 > P5_SMEM:
+        return None
+    tile = max(1, min(P5_SMEM // (lanes * 4), -(-P5_MIN_OUTPUTS // lanes),
+                      rows))
+    groups = -(-rows // tile)
+    most = max(1, tile * lanes // P5_MIN_OUTPUTS)
+    split = max(1, min(P5_SMS // groups, most, restages))
+    per = -(-lanes // split)
+    return GatherPlan("slab", tile, per,
+                      min(P5_THREADS, _round_up(tile * per, 32)))
+
+
+def modelled_us(plan: GatherPlan, rows: int, lanes: int, axis: int,
+                reps: int) -> float:
+    """A plan's time above its launch, modelled from the bytes it moves
+    (P5_L2_RATE, P5_STAGE_RATE, P5_STAGE_US)."""
+    if plan.route == "direct":
+        return mosaic_gather_l2_bytes(plan, rows, lanes, axis,
+                                      reps)["stage"] / P5_L2_RATE
+    return P5_STAGE_US + plan.slab_bytes(rows, lanes, axis) / P5_STAGE_RATE
+
+
+def direct_plan() -> GatherPlan:
+    """P5's direct route: one thread an output, P5_DIRECT_THREADS a
+    CTA."""
+    return GatherPlan("direct", 0, 0, P5_DIRECT_THREADS)
+
+
+def mosaic_gather_plan(rows: int, lanes: int, axis: int,
+                       reps: int) -> GatherPlan:
+    """P5's plan for x [rows, lanes] along `axis`, `reps` gathers an
+    output: `slab_plan`'s slabs or the direct route, whichever
+    `modelled_us` finds faster (the direct route where no slab fits)."""
+    direct, tiled = direct_plan(), slab_plan(rows, lanes, axis)
+    if tiled is not None and (modelled_us(tiled, rows, lanes, axis, reps)
+                              < modelled_us(direct, rows, lanes, axis,
+                                            reps)):
+        return tiled
+    return direct
+
+
+def _sectors(start, length) -> np.ndarray:
+    """32-byte sectors spanned by byte ranges [start, start + length)."""
+    return (start + length + SECTOR - 1) // SECTOR - start // SECTOR
+
+
+def mosaic_gather_l2_bytes(plan: GatherPlan, rows: int, lanes: int,
+                           axis: int, reps: int) -> dict:
+    """The bytes a plan reads from and writes to L2, in whole 32-byte
+    sectors: {"stage": the slabs, every CTA its own (direct: a CTA's
+    gathered reads, a sector each, or the bytes it can reach where that is
+    less: L1 holds them after the first miss), "idx", "out", "total"}."""
+    n = rows * lanes
+    if plan.route == "direct":
+        per_cta = min(plan.threads * reps * SECTOR,
+                      _round_up(direct_reach(rows, lanes, axis,
+                                             plan.threads), SECTOR))
+        stage = plan.grid(rows, lanes, axis)[0] * per_cta
+    elif axis == 0:
+        gx, gy = plan.grid(rows, lanes, axis)
+        c0 = np.arange(gx) * plan.tile
+        w = np.minimum(plan.tile, lanes - c0)
+        starts = (np.arange(rows)[:, None] * lanes + c0[None, :]) * 4
+        stage = int(_sectors(starts, w[None, :] * 4).sum()) * SECTOR * gy
+    else:
+        gx, gy = plan.grid(rows, lanes, axis)
+        q0 = np.arange(gx) * plan.tile
+        nr = np.minimum(plan.tile, rows - q0)
+        stage = int(_sectors(q0 * lanes * 4, nr * lanes * 4).sum()) \
+            * SECTOR * gy
+    io = int(_sectors(0, n * 4)) * SECTOR
+    return {"stage": int(stage), "idx": io, "out": io,
+            "total": int(stage) + 2 * io}
+
+
 def mosaic_gather_plain(x: torch.Tensor, idx: torch.Tensor, axis: int,
                         reps: int) -> torch.Tensor:
     """Plain P5: the sum over i < reps of the gathers at (idx + i) mod
-    size, the modulo a floor modulo, as jnp's %."""
+    size, the modulo a floor modulo, as jnp's %; in rep order from 0."""
     size = x.shape[axis]
     acc = torch.zeros_like(x)
     for i in range(reps):
@@ -268,8 +442,9 @@ def mosaic_gather(x: torch.Tensor, idx: torch.Tensor, axis: int,
                   reps: int) -> torch.Tensor:
     """P5: x f32[R, L], idx i32[R, L] -> out[r, c] = sum over i < reps of
     x[(idx[r, c] + i) mod R, c] (axis 0) or x[r, (idx[r, c] + i) mod L]
-    (axis 1).  The kernel stages x in shared memory where it fits (227
-    KB)."""
+    (axis 1).  The kernel stages, a CTA at a time, the slab of x its
+    outputs can reach, or reads x through L1/L2, as `mosaic_gather_plan`
+    chooses."""
     _require(x, "x", torch.float32, 2)
     _require(idx, "idx", torch.int32, 2)
     _same_device(x, idx)
@@ -285,8 +460,11 @@ def mosaic_gather(x: torch.Tensor, idx: torch.Tensor, axis: int,
     if x.numel() == 0:
         return out
     _aligned16(x, "x")
+    rows, lanes = x.shape
+    plan = mosaic_gather_plan(rows, lanes, axis, reps)
     rc = cuda_lib.library().pbr_mosaic_gather(
-        x.data_ptr(), idx.data_ptr(), x.shape[0], x.shape[1], axis, reps,
+        x.data_ptr(), idx.data_ptr(), rows, lanes, axis, reps,
+        GATHER_ROUTES[plan.route], plan.tile, plan.per, plan.threads,
         out.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "pbr_mosaic_gather")
     LAUNCHES["mosaic_gather"] += 1

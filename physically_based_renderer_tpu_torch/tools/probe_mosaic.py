@@ -7,11 +7,11 @@ the reference repository's `tools/probe_mosaic.py`): P5, P6, P7.
   P5 `gather`: sum over i < reps of take_along_axis(x, (idx + i) % size,
      axis) for the reference probe's ten shapes (x = arange, idx from
      `default_rng(0)`), held exactly to the probe's own numpy check;
-  P6 `scalar_stack`: a walk of an implicit tree of 2,047 boxes counting the
-     nodes visited, on the probe's own boxes (`default_rng(1)`: the root box
-     fails the slab test, so the walk is one node long, as for P1) and on
-     the sets of `tools/probe2.py` where the tree really is walked, held to
-     the plain version;
+  P6 `scalar_stack`: the nodes a walk of an implicit tree of 2,047 boxes
+     visits, found level by level, on the probe's own boxes
+     (`default_rng(1)`: the root box fails the slab test, so the walk is
+     one node long, as for P1) and on the sets of `tools/probe2.py` where
+     the tree really is walked, held to the plain version;
   P7 `chunk`: the block tracer's per-chunk arithmetic on 256 rays x 512
      columns x 8 chunks, on the probe's data (all ones: every test fails
      the mask and every output is 1e30) and on seeded random data where the
@@ -40,6 +40,16 @@ GATHER_CASES = (
     (256, 512, 0, 16, 50), (1024, 512, 0, 4, 50), (4096, 128, 0, 2, 10),
     (8, 128, 1, 16, 50), (8, 512, 1, 16, 50), (256, 512, 1, 16, 50),
     (8, 4096, 1, 4, 50))
+# P5 beyond the reference's calls, (rows, lanes, axis, reps), each on
+# random floats with indices in [-3 size, 3 size) (`gather_random_inputs`):
+# reps 0 and 1; tables no slab of shared memory holds (the direct route);
+# rows and lanes that are not multiples of 4 (4-byte staging, ragged
+# slabs; the last two take axis-1 slabs).
+GATHER_EXTRA = (
+    (1024, 512, 0, 0), (1024, 512, 0, 1), (8, 4096, 1, 0), (8, 4096, 1, 1),
+    (16384, 64, 0, 3), (2, 65536, 1, 3),
+    (37, 515, 0, 5), (37, 515, 1, 5), (1023, 130, 0, 3), (5, 4097, 1, 4),
+    (33, 4097, 1, 8), (16, 16384, 1, 4))
 # P7's shape: b rays, w columns, chunks.
 CHUNK = (256, 512, 8)
 # P7 data: the probe's own (all ones) and seeded random data whose tests
@@ -54,6 +64,17 @@ def gather_inputs(rows: int, lanes: int, axis: int):
     rng = np.random.default_rng(0)
     idx = rng.integers(0, rows if axis == 0 else lanes,
                        (rows, lanes)).astype(np.int32)
+    return x, idx
+
+
+def gather_random_inputs(rows: int, lanes: int, axis: int, seed: int = 0):
+    """(x f32[rows, lanes] from a normal distribution, so that no partial
+    sum is exact in another order, idx i32[rows, lanes] in [-3 size,
+    3 size)): the floor modulo's negative and wrapped cases."""
+    rng = np.random.default_rng(seed)
+    size = rows if axis == 0 else lanes
+    x = rng.normal(size=(rows, lanes)).astype(np.float32)
+    idx = rng.integers(-3 * size, 3 * size, (rows, lanes)).astype(np.int32)
     return x, idx
 
 
@@ -82,6 +103,19 @@ def chunk_inputs(data: str):
     return o, t
 
 
+def plan_text(rows: int, lanes: int, axis: int, reps: int) -> str:
+    """P5's plan at a call's shape, in words."""
+    from ..ops import probes
+    plan = probes.mosaic_gather_plan(rows, lanes, axis, reps)
+    gx, gy = plan.grid(rows, lanes, axis)
+    if plan.route == "direct":
+        return f"direct, {gx} CTAs of {plan.threads}"
+    slab = (f"{plan.tile} columns" if axis == 0 else f"{plan.tile} rows")
+    return (f"slab of {slab} ({plan.slab_bytes(rows, lanes, axis)} B), "
+            f"{gx} x {gy} CTAs of {plan.threads}, {plan.per} "
+            f"{'rows' if axis == 0 else 'columns'} a CTA")
+
+
 def probe_gather(case, device, iters: int) -> dict:
     import torch
 
@@ -100,7 +134,8 @@ def probe_gather(case, device, iters: int) -> dict:
             if dev_us is not None else "")
     print(f"P5 gather axis={axis} [{rows},{lanes}] x{reps}: device "
           f"{_us(dev_us)}{rate}, wrapper {_us(wrap)} ok={ok} "
-          f"[{card_line(device)}]", flush=True)
+          f"({plan_text(rows, lanes, axis, reps)}) [{card_line(device)}]",
+          flush=True)
     return {"ok": ok, "device_us": dev_us, "wrapper_us": wrap}
 
 
@@ -118,10 +153,8 @@ def probe_scalar_stack(device, iters: int) -> dict:
         call = lambda: probes.mosaic_scalar_stack(boxes)
         dev_us = device_us(call, iters, "mosaic_scalar_stack_kernel", device)
         wrap = wrapper_us(call, iters, device)
-        per_node = (f" ({dev_us / max(visited, 1) * 1e3:.0f} ns/node)"
-                    if dev_us is not None else "")
         print(f"P6 scalar_stack[{data}]: visited {visited} nodes, device "
-              f"{_us(dev_us)}{per_node}, wrapper {_us(wrap)} ok={ok} "
+              f"{_us(dev_us)}, wrapper {_us(wrap)} ok={ok} "
               f"[{card_line(device)}]", flush=True)
         res[data] = {"visited": visited, "ok": ok, "device_us": dev_us,
                      "wrapper_us": wrap}

@@ -1,20 +1,27 @@
-"""Time variants of K4, K5b, K2 and P1 against the tree's own kernels, on
-the card.
+"""Time variants of K4, K5b, K2, P1, P5 and P6 against the tree's own
+kernels, on the card.
 
     python -m physically_based_renderer_tpu_torch.tools.sweep \
         [--other NAME=DIR:fused.cu,gather.cu ...] [--variants ...] \
-        [--cases k4,k5b,k2,p1]
+        [--cases k4,k5b,k2,p1,p5,p6]
 
 A variant is one source of `csrc/` with named textual edits (VARIANTS; an
-edit must match the source exactly once, so a stale one fails), or the same
-source of another checkout (`--other`, e.g. the parent commit unpacked with
-`git archive` into the ignored `build/`; its C interface must be the
-tree's).  Each variant's source is compiled with `cuda_lib`'s flags into a
-library of its own, all `nvcc` processes started together; while a variant
-is timed, the wrappers of `ops/` call its functions in place of the tree's
-(`cuda_lib._lib` is swapped for an overlay).  Every variant is first held
-against the plain version on each case, at the tolerances of
-`chip_smoke.py`.  Times are device times per launch
+edit must match the source exactly once, so a stale one fails; a variant
+named for a case, `p5_...`, runs on that case alone), another plan of
+P5's (PLAN_VARIANTS: the tree's library with other values of
+`ops/probes.py`'s P5 plan constants, or another `mosaic_gather_plan`),
+or the same source of another
+checkout (`--other`, e.g. the parent commit unpacked with `git archive`
+into the ignored `build/`; its C interface must be the tree's, so it is
+not run on P5, whose entry point takes the plan).  Each variant's source
+is compiled with `cuda_lib`'s flags into a library of its own, all `nvcc`
+processes started together (a named variant that does not compile is
+reported and left out; another checkout's source that does not compile
+stops the sweep); while a variant is timed, the wrappers of `ops/` call its
+functions in place of the tree's (`cuda_lib._lib` is swapped for an
+overlay).  Every variant is first held against the plain version on each
+case, at the tolerances of `chip_smoke.py`.  Times are device times per
+launch
 (`tools/timing.py::device_ms`), taken in turns: the tree, each variant, the
 tree again.  Cases: K4 on the cornell and cornell_ggx frames (512x512, 4
 spp, 4 bounces); K5b on the calls of one gradient step's render()
@@ -24,7 +31,10 @@ calls of one dense cornell frame (512x512, 4 spp, 4 bounces;
 bounces' closest hits and the shadow rays' any hits, each kind's calls in
 turn (exact against the plain version); P1 on the tool's all-pass boxes
 and on trees of 5,001 and 8,191 nodes (`tools/probe2.py::tree_boxes`,
-exact).  Only the variants of the chosen cases' sources are built.
+exact); P5 at the ten shapes of `tools/probe_mosaic.py::GATHER_CASES` on
+random floats with indices in [-3 size, 3 size) (exact); P6 on the tool's
+all-pass boxes, the probe's own and 8,191 nodes that all pass (exact).
+Only the variants of the chosen cases' sources are built.
 Prints one line per (case, variant) and, last, one JSON object.  PERF.md
 names the variants whose numbers it keeps.
 """
@@ -33,8 +43,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import itertools
 import json
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -42,7 +54,7 @@ from pathlib import Path
 import torch
 
 from ..ops import cuda_lib, fused, gather, probes, resident
-from . import probe2, work
+from . import probe2, probe_mosaic, work
 from .probe2 import card_line
 from .timing import device_ms
 
@@ -104,6 +116,434 @@ _K2_UNTRIMMED = [
     ("occ[r] = occ[r] || (ok && tt < rtm[r]);", "occ[r] = occ[r] || ok;"),
     ("    lim[r] = fminf(rtm[r], kBig);", "    lim[r] = kBig;")]
 
+def _p6_threads(threads):
+    return [("constexpr int kScalarThreads = 512;",
+             f"constexpr int kScalarThreads = {threads};")]
+
+
+_P5_TMA = [(
+    """__device__ __forceinline__ void stage_rows(""",
+    """__shared__ unsigned long long s_stage_bar;
+
+__device__ __forceinline__ void stage_wait(bool vec) {
+  if (!vec) {
+    cp_async_wait<0>();
+    return;
+  }
+  const unsigned bar = unsigned(__cvta_generic_to_shared(&s_stage_bar));
+  asm volatile(
+      "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
+      " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void stage_rows("""), (
+    """  if (vec) {
+    const int q = w >> 2;
+    for (int p = threadIdx.x; p < n_rows * q; p += blockDim.x) {
+      const int r = p / q, k = p - r * q;
+      cp_async16(dst + r * dst_pitch + 4 * k,
+                 src + size_t(r) * src_pitch + 4 * k);
+    }
+  } else {""",
+    """  if (vec) {
+    const unsigned bar = unsigned(__cvta_generic_to_shared(&s_stage_bar));
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
+      asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
+              bar), "r"(unsigned(n_rows * w * 4)) : "memory");
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\\n" ::"r"(unsigned(
+              __cvta_generic_to_shared(dst + r * dst_pitch))),
+          "l"(src + size_t(r) * src_pitch), "r"(unsigned(w * 4)), "r"(bar)
+          : "memory");
+  } else {"""), (
+    """    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;""",
+    """    stage_wait(vec);
+    __syncthreads();
+    if (!live) return;"""), (
+    """    cp_async_wait<0>();
+    __syncthreads();
+    for (int e = tid; e < n_out; e += nt) {""",
+    """    stage_wait(vec);
+    __syncthreads();
+    for (int e = tid; e < n_out; e += nt) {""")]
+
+_P6_CTAS = [(
+    """__global__ void __launch_bounds__(kScalarThreads)
+    mosaic_scalar_stack_kernel(const float* __restrict__ boxes, int n_nodes,
+                               int* __restrict__ out) {
+  __shared__ unsigned char s_open[pbr::kTreeMaxNodes / 2];
+  __shared__ int s_open_count;
+  const int m = (n_nodes - 1) / 2;  // inner nodes: both children exist
+  pbr::tree_pass_bits(boxes, m, s_open);
+  if (threadIdx.x == 0) s_open_count = 0;
+  __syncthreads();""",
+    """constexpr int kStackCtas = 8;
+__device__ unsigned char g_pass[pbr::kTreeMaxNodes / 2];
+__device__ unsigned int g_arrived;
+
+__global__ void __launch_bounds__(kScalarThreads)
+    mosaic_scalar_stack_kernel(const float* __restrict__ boxes, int n_nodes,
+                               int* __restrict__ out) {
+  __shared__ unsigned char s_open[pbr::kTreeMaxNodes / 2];
+  __shared__ int s_open_count;
+  __shared__ bool s_last;
+  const int m = (n_nodes - 1) / 2;  // inner nodes: both children exist
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += gridDim.x * blockDim.x) {
+    const float* b = boxes + 6 * i;
+    g_pass[i] = pbr::box_passes(b[0], b[1], b[2], b[3], b[4], b[5]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(&g_arrived, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const volatile unsigned char* pass = g_pass;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) s_open[i] = pass[i];
+  if (threadIdx.x == 0) {
+    s_open_count = 0;
+    g_arrived = 0;
+  }
+  __syncthreads();"""), (
+    "mosaic_scalar_stack_kernel<<<1, kScalarThreads, 0,",
+    "mosaic_scalar_stack_kernel<<<kStackCtas, kScalarThreads, 0,")]
+
+_P5_CLUSTER = [(
+    "#include <cuda_runtime.h>\n",
+    "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n"), (
+    """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
+    """    namespace cg = cooperative_groups;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    const int part = (rows + gridDim.y - 1) / gridDim.y;
+    const int k0 = int(cluster.block_rank()) * part;
+    stage_rows(slab, tile, x + size_t(k0) * lanes + c0, lanes,
+               max(0, min(part, rows - k0)), w, vec);"""), (
+    """    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;
+    for (; r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }""",
+    """    cp_async_wait<0>();
+    cluster.sync();
+    for (; live && r < r1; r += step) {
+      int k = next % rows;
+      if (k < 0) k += rows;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      int owner = k / part, local = k - owner * part;
+      const float* part_slab = cluster.map_shared_rank(slab, owner);
+      float acc = 0.0f;
+      for (int i = 0; i < reps; ++i) {
+        acc = acc + part_slab[local * tile + j];
+        if (++k == rows) {
+          k = local = owner = 0;
+          part_slab = cluster.map_shared_rank(slab, 0);
+        } else if (++local == part) {
+          local = 0;
+          part_slab = cluster.map_shared_rank(slab, ++owner);
+        }
+      }
+      dst[size_t(r) * lanes] = acc;
+    }
+    cluster.sync();  // no CTA leaves while another reads its part"""), (
+    """  const size_t smem = sizeof(float) * (axis == 0
+      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);""",
+    """  const size_t smem = sizeof(float) * (axis == 0
+      ? size_t((rows + (rows + per - 1) / per - 1) / ((rows + per - 1) / per))
+        * tile : size_t(tile < rows ? tile : rows) * lanes);"""), (
+    """    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out);""",
+    """    if (grid.y > 8) return int(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = grid.y;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, mosaic_gather_kernel_slab<0>, x, idx,
+                             rows, lanes, reps, tile, per, vec, out);
+    if (err != cudaSuccess) return int(err);""")]
+
+_P5_MULTICAST = [_P5_CLUSTER[0], (
+    """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
+    """    namespace cg = cooperative_groups;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    __shared__ unsigned long long s_bar;
+    const unsigned bar = unsigned(__cvta_generic_to_shared(&s_bar));
+    if (vec) {
+      if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
+        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
+                bar), "r"(unsigned(rows * w * 4)) : "memory");
+      }
+      cluster.sync();
+      const int part = (rows + gridDim.y - 1) / gridDim.y;
+      const int k0 = int(cluster.block_rank()) * part;
+      const int k1 = min(k0 + part, rows);
+      const unsigned short mask = (1u << gridDim.y) - 1;
+      for (int k = k0 + tid; k < k1; k += nt)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;\\n" ::"r"(
+                unsigned(__cvta_generic_to_shared(slab + k * tile))),
+            "l"(x + size_t(k) * lanes + c0), "r"(unsigned(w * 4)), "r"(bar),
+            "h"(mask) : "memory");
+    } else {
+      stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
+    }"""), (
+    """    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;
+    for (; r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }""",
+    """    if (vec)
+      asm volatile(
+          "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
+          " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
+          : "memory");
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    for (; live && r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }
+    cluster.sync();  // no CTA leaves while its copies fill another"""),
+    _P5_CLUSTER[-1]]
+
+# The tree's slab launch in pbr_mosaic_gather, which _p5_tma2d replaces.
+_P5_LAUNCH = '''  const size_t smem = sizeof(float) * (axis == 0
+      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);
+  if (grid.y > 65535) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (axis == 0) {
+    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
+    if (err != cudaSuccess) return int(err);
+    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out);
+  } else {
+    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
+    if (err != cudaSuccess) return int(err);
+    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out);
+  }
+'''
+
+
+def _p5_tma2d(multicast: bool):
+    """Edits that stage P5's axis-0 slab with 2-D TMA boxes of up to 256
+    rows x C columns (a tensor map of x, one cp.async.bulk.tensor a box,
+    completing on an mbarrier); with multicast, the CTAs of a slab form a
+    cluster and each fetches every split-th box into all of them."""
+    mc = "true" if multicast else "false"
+    return [(
+        "#include <cuda_runtime.h>\n",
+        "#include <cooperative_groups.h>\n#include <cudaTypedefs.h>\n"
+        f"#include <cuda_runtime.h>\nconstexpr bool kMulticast = {mc};\n"), (
+        """                              int vec, float* __restrict__ out) {
+  extern __shared__ float4 slab4[];""",
+        """                              int vec, float* __restrict__ out,
+                              const __grid_constant__ CUtensorMap tmap) {
+  extern __shared__ float4 slab4[];"""), (
+        """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
+        """    namespace cg = cooperative_groups;
+    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
+    const int r1 = min(int(blockIdx.y) * per + per, rows);
+    const int box_rows = min(rows, 256);
+    const int n_boxes = (rows + box_rows - 1) / box_rows;
+    const unsigned bar = unsigned(__cvta_generic_to_shared(
+        slab + size_t(n_boxes) * box_rows * tile));
+    if (vec) {
+      if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
+        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
+                bar), "r"(unsigned(n_boxes * box_rows * tile * 4))
+            : "memory");
+      }
+      if (kMulticast)
+        cg::this_cluster().sync();
+      else
+        __syncthreads();
+      const int cs = kMulticast ? int(gridDim.y) : 1;
+      const int rank =
+          kMulticast ? int(cg::this_cluster().block_rank()) : 0;
+      const unsigned long long map =
+          reinterpret_cast<unsigned long long>(&tmap);
+      for (int b = rank + cs * tid; b < n_boxes; b += cs * nt) {
+        const unsigned dst = unsigned(__cvta_generic_to_shared(
+            slab + size_t(b) * box_rows * tile));
+        if (kMulticast)
+          asm volatile(
+              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+              "complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3}],"
+              " [%4], %5;\\n" ::"r"(dst), "l"(map), "r"(c0),
+              "r"(b * box_rows), "r"(bar),
+              "h"((unsigned short)((1u << gridDim.y) - 1)) : "memory");
+        else
+          asm volatile(
+              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+              "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\\n" ::"r"(dst),
+              "l"(map), "r"(c0), "r"(b * box_rows), "r"(bar) : "memory");
+      }
+    } else {
+      stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
+    }"""), (
+        """    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;
+    for (; r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }""",
+        """    if (vec)
+      asm volatile(
+          "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
+          " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
+          : "memory");
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    for (; live && r < r1; r += step) {
+      const int k = next;
+      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
+      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
+    }
+    if (kMulticast) cg::this_cluster().sync();"""), (
+        _P5_LAUNCH,
+        """  const int box_rows = rows < 256 ? rows : 256;
+  const int n_boxes = (rows + box_rows - 1) / box_rows;
+  const size_t smem = axis == 0
+      ? sizeof(float) * size_t(n_boxes) * box_rows * tile + 8
+      : sizeof(float) * size_t(tile < rows ? tile : rows) * lanes;
+  if (grid.y > 65535 || (kMulticast && axis == 0 && grid.y > 8))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap tmap = {};
+  if (axis == 0 && vec) {
+    static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+    if (encode == nullptr) {
+      void* fn = nullptr;
+      cudaDriverEntryPointQueryResult found;
+      if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                           12000, cudaEnableDefault,
+                                           &found) != cudaSuccess ||
+          fn == nullptr)
+        return int(cudaErrorNotSupported);
+      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }
+    const cuuint64_t dims[2] = {cuuint64_t(lanes), cuuint64_t(rows)};
+    const cuuint64_t strides[1] = {cuuint64_t(lanes) * sizeof(float)};
+    const cuuint32_t box[2] = {cuuint32_t(tile), cuuint32_t(box_rows)};
+    const cuuint32_t unit[2] = {1, 1};
+    if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+               const_cast<float*>(x), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  if (axis == 0) {
+    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
+    if (err != cudaSuccess) return int(err);
+    if (kMulticast) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = grid;
+      cfg.blockDim = dim3(threads);
+      cfg.dynamicSmemBytes = smem;
+      cfg.stream = s;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = 1;
+      attr[0].val.clusterDim.y = grid.y;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, mosaic_gather_kernel_slab<0>, x, idx,
+                               rows, lanes, reps, tile, per, vec, out, tmap);
+      if (err != cudaSuccess) return int(err);
+    } else {
+      mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
+          x, idx, rows, lanes, reps, tile, per, vec, out, tmap);
+    }
+  } else {
+    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
+    if (err != cudaSuccess) return int(err);
+    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
+        x, idx, rows, lanes, reps, tile, per, vec, out, tmap);
+  }
+""")]
+
+
+def _slab_wherever_it_fits(rows, lanes, axis, reps):
+    return probes.slab_plan(rows, lanes, axis) or probes.direct_plan()
+
+
+# P5 plans other than the tree's: name -> the attributes of ops/probes.py
+# set while the variant runs.
+PLAN_VARIANTS = {
+    # the L1/L2 route at every shape
+    "p5_direct": {"mosaic_gather_plan": lambda *_: probes.direct_plan()},
+    # a slab wherever one fits (the direct route for no small call)
+    "p5_slab": {"mosaic_gather_plan": _slab_wherever_it_fits},
+    # axis 0: wider and narrower slabs (bytes restaged against bank
+    # conflicts)
+    "p5_columns32": {"P5_COLUMNS": 32},
+    "p5_columns8": {"P5_COLUMNS": 8},
+    "p5_columns4": {"P5_COLUMNS": 4},
+    # twice and half the bytes restaged
+    "p5_restage16": {"P5_RESTAGE": 16 << 20},
+    "p5_restage4": {"P5_RESTAGE": 4 << 20},
+    # threads a CTA at most
+    "p5_threads256": {"P5_THREADS": 256},
+    "p5_threads512": {"P5_THREADS": 512},
+    # CTAs the plan aims at: half a wave (fewer slabs restaged), two waves
+    "p5_ctas66": {"P5_SMS": 66},
+    "p5_ctas264": {"P5_SMS": 264},
+}
+
 # name -> (source, [(text, replacement), ...]).
 VARIANTS = {
     # K2, the steps in order: 1 rcp_rn in groups of four; 2 float4
@@ -134,16 +574,7 @@ VARIANTS = {
     # P1: each node's reach from its own ancestors, every node at once,
     # in place of a level at a time with a barrier a level.
     "p1_ancestors": ("probes.cu", [(
-        """  int visited = tid == 0;   // the root
-  for (int lo = 1, width = 2; lo < n_nodes; lo += width, width *= 2) {
-    const int hi = min(lo + width, n_nodes);
-    for (int i = lo + tid; i < hi; i += nt) {
-      const unsigned char up = s_open[(i - 1) >> 1];
-      visited += up;
-      s_open[i] &= up;
-    }
-    __syncthreads();
-  }""",
+        """  pbr::block_add(pbr::tree_levels(n_nodes, s_open), &s_visited);""",
         """  __shared__ unsigned char s_reach[kMaxNodes];
   int visited = 0;
   for (int i = tid; i < n_nodes; i += nt) {
@@ -157,17 +588,37 @@ VARIANTS = {
   }
   __syncthreads();
   for (int i = tid; i < n_nodes; i += nt) s_open[i] &= s_reach[i];
-  __syncthreads();""")]),
-    # P1: the pass bits' loop unrolled by eight.
-    "p1_unroll8": ("probes.cu", [(
-        "    const float4* q = reinterpret_cast<const float4*>(boxes);\n",
-        "    const float4* q = reinterpret_cast<const float4*>(boxes);\n"
-        "#pragma unroll 8\n")]),
+  __syncthreads();
+  pbr::block_add(visited, &s_visited);""")]),
     # P1: threads of its one CTA.
     "p1_threads256": ("probes.cu", [("constexpr int kStackThreads = 512;",
                                      "constexpr int kStackThreads = 256;")]),
     "p1_threads1024": ("probes.cu", [("constexpr int kStackThreads = 512;",
                                       "constexpr int kStackThreads = 1024;")]),
+    # P5: the slab staged by the TMA, one bulk copy a row (cp.async.bulk
+    # completing on an mbarrier), in place of 16-byte cp.async.
+    "p5_tma": ("mosaic.cu", _P5_TMA),
+    # P5 along axis 0: the CTAs of a slab (a column group) form a thread
+    # block cluster; each stages 1/split of the slab's rows and gathers
+    # from all of them over distributed shared memory, so the table is
+    # read from L2 once.
+    "p5_cluster": ("mosaic.cu", _P5_CLUSTER),
+    # P5 along axis 0: the CTAs of a slab form a cluster, each fetches
+    # 1/split of the slab's rows by TMA multicast into every CTA of the
+    # cluster (cp.async.bulk ... multicast::cluster on an mbarrier), so
+    # the table is read from L2 once and the gathers stay local.
+    "p5_multicast": ("mosaic.cu", _P5_MULTICAST),
+    # P5 along axis 0: the slab staged by 2-D TMA boxes of a tensor map (up
+    # to 256 rows a box), alone and multicast over the slab's cluster.
+    "p5_tma2d": ("mosaic.cu", _p5_tma2d(False)),
+    "p5_tma2d_multicast": ("mosaic.cu", _p5_tma2d(True)),
+    # P6: threads of its one CTA.
+    "p6_threads256": ("mosaic.cu", _p6_threads(256)),
+    "p6_threads1024": ("mosaic.cu", _p6_threads(1024)),
+    # P6: the pass bits spread over 8 CTAs, written to global memory; the
+    # last CTA to finish (a global counter after a __threadfence) runs the
+    # levels.
+    "p6_ctas8": ("mosaic.cu", _P6_CTAS),
     # K5b: rows a warp takes at a time.
     "k5b_run64": ("gather.cu", [("constexpr int kBwdRun = 32;",
                                  "constexpr int kBwdRun = 64;")]),
@@ -227,7 +678,8 @@ PIXEL_FRAC, ATOL, RTOL, MEAN_REL, COUNT_REL = 0.99, 1e-4, 1e-3, 5e-3, 5e-3
 
 def build_variants(names, others, out_dir: Path) -> dict:
     """{name: (source, library path)} of every variant, all compiled at
-    once with cuda_lib's flags."""
+    once with cuda_lib's flags.  A named variant that does not compile is
+    left out; another checkout's source must compile."""
     jobs = {}
     for name in names:
         src, edits = VARIANTS[name]
@@ -253,7 +705,21 @@ def build_variants(names, others, out_dir: Path) -> dict:
         cmds.append([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(inc),
                      "-shared", "-o", str(lib), str(path)])
         libs[name] = (src, lib)
-    cuda_lib._run(cmds)
+    procs = [(name, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+             for name, c in zip(libs, cmds)]
+    failed = []
+    for name, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode == 0:
+            continue
+        if name not in VARIANTS:
+            failed.append(name)
+        print(f"variant {name} does not compile:\n{out}")
+        del libs[name]
+    if failed:
+        raise RuntimeError(f"another checkout's sources do not compile: "
+                           f"{failed}")
     return libs
 
 
@@ -363,9 +829,60 @@ def p1_check(boxes):
         raise AssertionError("P1 differs from its plain version")
 
 
-CASES = ("k4", "k5b", "k2", "p1")
+# P5 calls beside the tool's: rows of 64 KB and 16 KB along axis 1, where
+# a direct CTA's gathers reach beyond what it reuses; the large tables at
+# fewer and more reps.
+P5_SWEEP_SHAPES = ((16, 16384, 1, 4), (64, 4096, 1, 8), (4096, 128, 0, 1),
+                   (4096, 128, 0, 4), (1024, 512, 0, 1), (1024, 512, 0, 2),
+                   (256, 512, 0, 1), (256, 512, 1, 1))
+
+
+def p5_cases(dev):
+    """{label: (x, idx, axis, reps)}: the tool's ten shapes and
+    P5_SWEEP_SHAPES on random floats, indices in [-3 size, 3 size)."""
+    out = {}
+    for rows, lanes, axis, reps, *_ in (*probe_mosaic.GATHER_CASES,
+                                        *P5_SWEEP_SHAPES):
+        x, idx = probe_mosaic.gather_random_inputs(rows, lanes, axis)
+        out[f"P5 [{rows},{lanes}] axis {axis} x{reps}"] = (
+            torch.from_numpy(x).to(dev), torch.from_numpy(idx).to(dev),
+            axis, reps)
+    return out
+
+
+def p5_check(case):
+    if not torch.equal(probes.mosaic_gather(*case),
+                       probes.mosaic_gather_plain(*case)):
+        raise AssertionError("P5 differs from its plain version")
+
+
+def p5_info(case) -> dict:
+    """The plan P5 takes at the case's shape and the L2 bytes it moves."""
+    x, _, axis, reps = case
+    rows, lanes = x.shape
+    plan = probes.mosaic_gather_plan(rows, lanes, axis, reps)
+    return {"plan": dataclasses.asdict(plan),
+            "l2_bytes": probes.mosaic_gather_l2_bytes(
+                plan, rows, lanes, axis, reps)["total"]}
+
+
+def p6_cases(dev):
+    """{label: boxes}: the tool's all-pass and own boxes, and 8,191 nodes
+    that all pass."""
+    return {"P6 2047 all pass": probe2.scalar_stack_boxes("all"),
+            "P6 2047 probe": probe2.scalar_stack_boxes("probe"),
+            "P6 8191 all pass": probe2.tree_boxes(8191, 1.0)}
+
+
+def p6_check(boxes):
+    if not torch.equal(probes.mosaic_scalar_stack(boxes).cpu(),
+                       probes.mosaic_scalar_stack_plain(boxes).cpu()):
+        raise AssertionError("P6 differs from its plain version")
+
+
+CASES = ("k4", "k5b", "k2", "p1", "p5", "p6")
 CASE_SOURCES = {"k4": "fused.cu", "k5b": "gather.cu", "k2": "resident.cu",
-                "p1": "probes.cu"}
+                "p1": "probes.cu", "p5": "mosaic.cu", "p6": "mosaic.cu"}
 
 
 def main(argv=None) -> int:
@@ -374,8 +891,10 @@ def main(argv=None) -> int:
                     metavar="NAME=DIR:SOURCES",
                     help="time SOURCES (comma-separated) of the checkout "
                     "DIR as the variants NAME_<source>")
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names of VARIANTS (or none)")
+    ap.add_argument("--variants",
+                    default=",".join([*VARIANTS, *PLAN_VARIANTS]),
+                    help="comma-separated names of VARIANTS and "
+                    "PLAN_VARIANTS (or none)")
     ap.add_argument("--cases", default=",".join(CASES),
                     help=f"comma-separated cases of {', '.join(CASES)}")
     args = ap.parse_args(argv)
@@ -389,8 +908,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = card_line(dev)
     print(card)
-    names = [n for n in args.variants.split(",")
-             if n and VARIANTS[n][0] in sources]
+    picked = [n for n in args.variants.split(",") if n]
+    names = [n for n in picked if n in VARIANTS and VARIANTS[n][0] in sources]
+    plans = {n: PLAN_VARIANTS[n] for n in picked if n in PLAN_VARIANTS}
     base = cuda_lib.library()
     with tempfile.TemporaryDirectory(dir=cuda_lib.build_dir()) as d:
         libs = build_variants(names, args.other, Path(d))
@@ -398,44 +918,70 @@ def main(argv=None) -> int:
                     in libs.items()}
         cases = []
         if "k4" in chosen:
-            cases += [(label, "fused.cu", frame, k4_check,
+            cases += [("k4", label, "fused.cu", frame, k4_check,
                        lambda f=frame: fused.fused_kernel(f), 20,
                        "fused_kernel")
                       for label, frame in k4_cases(dev).items()]
         turns = []
         if "k5b" in chosen:
-            turns += [(label, "gather.cu", calls, k5b_check,
+            turns += [("k5b", label, "gather.cu", calls, k5b_check,
                        gather.gather_bwd, "gather_bwd_")
                       for label, calls in k5b_cases(dev).items()]
         if "k2" in chosen:
-            turns += [(label, "resident.cu", calls, k2_check, resident.trace,
+            turns += [("k2", label, "resident.cu", calls, k2_check,
+                       resident.trace,
                        "resident_kernel")
                       for label, calls in k2_cases(dev).items()]
-        for label, src, calls, check, fn, kernel in turns:
+        for key, label, src, calls, check, fn, kernel in turns:
             turn = itertools.cycle(calls)
-            cases.append((label, src, calls, check,
+            cases.append((key, label, src, calls, check,
                           lambda t=turn, f=fn: f(*next(t)),
                           len(calls) * max(1, 200 // len(calls)), kernel))
         if "p1" in chosen:
             for label, boxes in p1_cases(dev).items():
                 b = torch.from_numpy(boxes).to(dev)
-                cases.append((label, "probes.cu", b, p1_check,
+                cases.append(("p1", label, "probes.cu", b, p1_check,
                               lambda b=b: probes.scalar_stack(b), 200,
                               "probe_scalar_stack_kernel"))
+        if "p5" in chosen:
+            cases += [("p5", label, "mosaic.cu", case, p5_check,
+                       lambda c=case: probes.mosaic_gather(*c), 200,
+                       "mosaic_gather_kernel")
+                      for label, case in p5_cases(dev).items()]
+        if "p6" in chosen:
+            for label, boxes in p6_cases(dev).items():
+                b = torch.from_numpy(boxes).to(dev)
+                cases.append(("p6", label, "mosaic.cu", b, p6_check,
+                              lambda b=b: probes.mosaic_scalar_stack(b), 200,
+                              "mosaic_scalar_stack_kernel"))
         results = []
-        for label, src, data, check, call, iters, kernel in cases:
-            runs = [("tree", base)] + [
-                (name, lib) for name, (s, lib) in overlays.items()
-                if s == src] + [("tree", base)]
-            for name, lib in runs:
+        for key, label, src, data, check, call, iters, kernel in cases:
+            # a named variant runs on its own case; another checkout's
+            # source on every case of that source but P5's
+            mine = lambda n: (n.startswith(f"{key}_") if n in VARIANTS
+                              else key != "p5")
+            runs = [("tree", base, None)] + [
+                (name, lib, None) for name, (s, lib) in overlays.items()
+                if s == src and mine(name)] + [
+                (name, base, kw) for name, kw in plans.items()
+                if name.startswith(f"{key}_")] + [("tree", base, None)]
+            for name, lib, kw in runs:
                 cuda_lib._lib = lib
+                saved = {k: getattr(probes, k) for k in kw or {}}
+                for k, v in (kw or {}).items():
+                    setattr(probes, k, v)
                 try:
                     check(data)
                     ms, _ = device_ms(call, iters, kernel)
+                    info = p5_info(data) if key == "p5" else {}
                 finally:
                     cuda_lib._lib = base
-                print(f"{label} {name}: {ms:.4f} ms [{card}]")
-                results.append({"case": label, "variant": name, "ms": ms})
+                    for k, v in saved.items():
+                        setattr(probes, k, v)
+                extra = "".join(f" {k}={v}" for k, v in info.items())
+                print(f"{label} {name}: {ms:.4f} ms{extra} [{card}]")
+                results.append({"case": label, "variant": name, "ms": ms,
+                                **info})
     print(json.dumps({"card": card, "results": results}))
     return 0
 

@@ -723,6 +723,27 @@ def test_p5_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", [c[:4] for c in probe_mosaic.GATHER_CASES]
+    + list(probe_mosaic.GATHER_EXTRA),
+    ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}-x{c[3]}")
+def test_p5_kernel_matches_plain_on_random_floats(cuda_device, case):
+    """Every slab plan, the direct route, reps 0 and 1 and ragged shapes,
+    on floats whose sums round (so only the rep order gives the plain
+    version's bits) and indices in [-3 size, 3 size)."""
+    rows, lanes, axis, reps = case
+    x, idx = (torch.from_numpy(a) for a in
+              probe_mosaic.gather_random_inputs(rows, lanes, axis, seed=2))
+    before = probes.LAUNCHES["mosaic_gather"]
+    got = probes.mosaic_gather(x.to(cuda_device), idx.to(cuda_device), axis,
+                               reps)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["mosaic_gather"] == before + 1
+    assert torch.equal(got.cpu(), probes.mosaic_gather_plain(x, idx, axis,
+                                                             reps))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("data", sorted(probe2.STACK_DATA))
 def test_p6_kernel_matches_plain(cuda_device, data):
     boxes = torch.from_numpy(probe2.scalar_stack_boxes(data))
@@ -731,6 +752,23 @@ def test_p6_kernel_matches_plain(cuda_device, data):
     torch.cuda.synchronize()
     assert probes.LAUNCHES["mosaic_scalar_stack"] == before + 1
     assert torch.equal(got.cpu(), probes.mosaic_scalar_stack_plain(boxes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [1.0, 0.9, 0.7])
+@pytest.mark.parametrize("n", [1, 3, 5, 1001, 2047, 5001, 8191])
+def test_p6_kernel_matches_plain_on_trees(cuda_device, n, rate):
+    """The level-parallel P6 on trees of every depth up to the cap, and on
+    an unaligned view (the scalar loads)."""
+    boxes = torch.from_numpy(probe2.tree_boxes(n, rate))
+    want = probes.mosaic_scalar_stack_plain(boxes)
+    got = probes.mosaic_scalar_stack(boxes.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+    padded = torch.zeros(6 * n + 1)
+    padded[1:] = boxes
+    view = padded.to(cuda_device)[1:]
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(probes.mosaic_scalar_stack(view).cpu(), want)
 
 
 @pytest.mark.cuda

@@ -360,6 +360,185 @@ def test_mosaic_gather_floor_modulo_and_checks():
         probes.mosaic_gather(x.double(), idx, 0, 3)
 
 
+def _plan_ctas(plan, rows, lanes, axis):
+    """The CTAs of a slab plan as csrc/mosaic.cu's kernel cuts them: per
+    CTA ((output rows), (output columns), (slab rows), (slab columns)),
+    each a half-open range."""
+    gx, gy = plan.grid(rows, lanes, axis)
+    out = []
+    for bx in range(gx):
+        for by in range(gy):
+            if axis == 0:
+                cols = (bx * plan.tile, min(bx * plan.tile + plan.tile,
+                                            lanes))
+                out_rows = (by * plan.per, min(by * plan.per + plan.per,
+                                               rows))
+                out.append((out_rows, cols, (0, rows), cols))
+            else:
+                slab_rows = (bx * plan.tile, min(bx * plan.tile + plan.tile,
+                                                 rows))
+                cols = (by * plan.per, min(by * plan.per + plan.per, lanes))
+                out.append((slab_rows, cols, slab_rows, (0, lanes)))
+    return out
+
+
+# Calls beside the tool's: ragged, tiny, and the edges of the slab route.
+_PLAN_CASES = ((3, 6, 0, 2), (1, 1, 1, 1), (1, 1, 0, 1), (14_528, 8, 0, 3),
+               (14_529, 8, 0, 3), (2, 58_112, 1, 3), (2, 58_113, 1, 3),
+               (300, 700, 1, 2), (64, 4096, 1, 8))
+
+
+@pytest.mark.parametrize(
+    "case", [c[:4] for c in probe_mosaic.GATHER_CASES]
+    + list(probe_mosaic.GATHER_EXTRA) + list(_PLAN_CASES),
+    ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}-x{c[3]}")
+def test_mosaic_gather_plan_covers_every_output_once(case):
+    """P5's plan: slabs or the direct route, whichever its model finds
+    faster (the direct route where no slab fits).  Cut into CTAs as the
+    kernel cuts it (the wrapper's plan, and the slab plan wherever one
+    fits), every output is some CTA's exactly once, every index an output
+    can reach (its column over all rows along axis 0, its row along axis
+    1) lies in its CTA's slab, every slab fits the shared memory a CTA may
+    take, and the slabs' CTAs restage no more than the plan allows."""
+    rows, lanes, axis, reps = case
+    fits = (rows * 4 * 4 if axis == 0 else lanes * 4) <= probes.P5_SMEM
+    plan = probes.mosaic_gather_plan(rows, lanes, axis, reps)
+    direct = probes.GatherPlan("direct", 0, 0, probes.P5_DIRECT_THREADS)
+    assert probes.direct_plan() == direct
+    slab = probes.slab_plan(rows, lanes, axis)
+    assert (slab is not None) == fits
+    slab = slab or direct
+    assert plan == min(slab, direct, key=lambda p: probes.modelled_us(
+        p, rows, lanes, axis, reps))
+    for plan in {plan, slab}:
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+        if plan.route == "direct":
+            assert (plan.grid(rows, lanes, axis)[0] * plan.threads
+                    >= rows * lanes)
+            continue
+        assert plan.slab_bytes(rows, lanes, axis) <= probes.P5_SMEM
+        if axis == 0:
+            assert plan.tile in (4, 8, 16, 32)
+            assert plan.threads % plan.tile == 0
+        assert plan.grid(rows, lanes, axis)[1] <= 65_535
+        count = np.zeros((rows, lanes), np.int32)
+        for out_r, out_c, slab_r, slab_c in _plan_ctas(plan, rows, lanes,
+                                                       axis):
+            assert out_r[0] < out_r[1] and out_c[0] < out_c[1]
+            count[slice(*out_r), slice(*out_c)] += 1
+            if axis == 0:
+                assert slab_r == (0, rows)
+                assert slab_c[0] <= out_c[0] and out_c[1] <= slab_c[1]
+            else:
+                assert slab_c == (0, lanes)
+                assert slab_r[0] <= out_r[0] and out_r[1] <= slab_r[1]
+            assert ((slab_r[1] - slab_r[0]) * (slab_c[1] - slab_c[0]) * 4
+                    <= plan.slab_bytes(rows, lanes, axis))
+        assert (count == 1).all()
+        restages = plan.grid(rows, lanes, axis)[1]
+        assert restages == 1 or (restages * rows * lanes * 4
+                                 <= probes.P5_RESTAGE)
+
+
+def test_sweep_plan_variants_set_what_the_plan_reads():
+    """Every P5 plan variant of `tools/sweep.py` names attributes the plan
+    reads from `ops/probes.py`, and with them set gives a plan that covers
+    the table: the direct route or a slab that fits."""
+    from physically_based_renderer_tpu_torch.tools import sweep
+    for name, attrs in sweep.PLAN_VARIANTS.items():
+        saved = {k: getattr(probes, k) for k in attrs}
+        try:
+            for k, v in attrs.items():
+                setattr(probes, k, v)
+            for rows, lanes, axis, reps, *_ in probe_mosaic.GATHER_CASES:
+                plan = probes.mosaic_gather_plan(rows, lanes, axis, reps)
+                gx, gy = plan.grid(rows, lanes, axis)
+                assert plan.slab_bytes(rows, lanes, axis) <= probes.P5_SMEM
+                if plan.route == "direct":
+                    assert gx * plan.threads >= rows * lanes, name
+                elif axis == 0:
+                    assert gx * plan.tile >= lanes and gy * plan.per >= rows
+                else:
+                    assert gx * plan.tile >= rows and gy * plan.per >= lanes
+        finally:
+            for k, v in saved.items():
+                setattr(probes, k, v)
+    assert probes.mosaic_gather_plan(1024, 512, 0, 4).tile == 16
+
+
+def test_mosaic_gather_route_follows_a_ctas_slab_not_the_bytes():
+    """[4096, 128] and [1024, 512] along axis 0 at reps 1 move the same
+    bytes on each route, yet the card ran the first faster direct and the
+    second faster on slabs (PERF.md, PR 10): the plan prices a slab by
+    what one CTA stages (128 KB against 64 KB), not by all CTAs' bytes."""
+    tall, wide = (4096, 128, 0, 1), (1024, 512, 0, 1)
+    for route in (probes.slab_plan(*tall[:3]), probes.direct_plan()):
+        assert (probes.mosaic_gather_l2_bytes(route, *tall)
+                == probes.mosaic_gather_l2_bytes(
+                    probes.slab_plan(*wide[:3]) if route.route == "slab"
+                    else route, *wide))
+    assert probes.slab_plan(*tall[:3]).slab_bytes(*tall[:3]) == 128 << 10
+    assert probes.slab_plan(*wide[:3]).slab_bytes(*wide[:3]) == 64 << 10
+    assert probes.mosaic_gather_plan(*tall).route == "direct"
+    assert probes.mosaic_gather_plan(*wide).route == "slab"
+
+
+@pytest.mark.parametrize(
+    "case", [c[:4] for c in probe_mosaic.GATHER_CASES]
+    + list(probe_mosaic.GATHER_EXTRA),
+    ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}-x{c[3]}")
+def test_mosaic_gather_plain_is_a_rep_order_float32_sum(case):
+    """On random floats (whose partial sums round) and indices in [-3 size,
+    3 size), the plain version is numpy's float32 sum in rep order from 0,
+    bit for bit: the order the kernel keeps."""
+    rows, lanes, axis, reps = case
+    x, idx = probe_mosaic.gather_random_inputs(rows, lanes, axis, seed=3)
+    size = x.shape[axis]
+    want = np.zeros_like(x)
+    for i in range(reps):
+        want = want + np.take_along_axis(x, (idx.astype(np.int64) + i) % size,
+                                         axis=axis)
+    got = probes.mosaic_gather(torch.from_numpy(x), torch.from_numpy(idx),
+                               axis, reps).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if reps > 2:      # the data is not exact in every order
+        other = np.zeros_like(x)
+        for i in reversed(range(reps)):
+            other = other + np.take_along_axis(
+                x, (idx.astype(np.int64) + i) % size, axis=axis)
+        assert not np.array_equal(other, want)
+
+
+def _inner_open_count(boxes):
+    """P6 as its kernel computes it (csrc/mosaic.cu on csrc/tree.cuh), in
+    numpy: the pass bits of the inner nodes (both children exist), then a
+    level at a time a node is open where it passes and its parent is open;
+    the walk visits the root and both children of every open inner node."""
+    b = boxes.reshape(-1, 6)
+    m = (b.shape[0] - 1) // 2
+    flag = b[:m, :3].max(axis=1) <= b[:m, 3:].min(axis=1)
+    lo, width = 1, 2
+    while lo < m:
+        i = np.arange(lo, min(lo + width, m))
+        flag[i] &= flag[(i - 1) // 2]
+        lo, width = lo + width, 2 * width
+    return 1 + 2 * int(flag.sum())
+
+
+@pytest.mark.parametrize("rate", [1.0, 0.9, 0.7])
+@pytest.mark.parametrize("sizes", ["odd n to 399", "2047", "5001", "8191"])
+def test_mosaic_stack_level_parallel_model_equals_the_walk(sizes, rate):
+    """P6 needs no serial walk: its numpy model and P1's (the nodes with an
+    open parent) give the plain version's count on every odd n up to 399
+    and at the tools' sizes."""
+    ns = range(1, 400, 2) if sizes.startswith("odd") else [int(sizes)]
+    for n in ns:
+        boxes = probe2.tree_boxes(n, rate)
+        got = int(probes.mosaic_scalar_stack(torch.from_numpy(boxes))[0])
+        assert _inner_open_count(boxes) == _level_parallel(boxes)[0] == got, n
+
+
 @pytest.mark.parametrize("data", sorted(probe2.STACK_DATA))
 def test_mosaic_stack_counts_the_walk(data):
     """P6 counts the nodes P1's walk visits (an independent numpy walk
