@@ -92,9 +92,15 @@ of which raises on failure (an uncaught exception exits non-zero):
      plain versions at every shape of the probe tool (exact), with device,
      wrapper, plain and library times and bounds; P1 also on trees of
      5,001 (pass rates 1.0 and 0.9) and 8,191 nodes, each timed beside an
-     empty kernel's device time and its byte and depth bounds; then the
-     probe tool itself (`tools/probe2.py all`), whose launches the kernels
-     line reports;
+     empty kernel's device time and its byte and depth bounds; P3 also on
+     rows with +-0.0, inf, -inf and NaN (NaN for NaN, the rest bit for
+     bit), its byte bound beside the empty kernel and the product's
+     operations bound; P4 also on -0.0 and indices outside the axis (bit
+     for bit), each shape timed with its route, byte bound and
+     torch.gather's device time, beside the card's random-sector read
+     ceiling (2,097,152 reads at random rows of an 8 MiB table, the
+     addresses precomputed); then the probe tool itself
+     (`tools/probe2.py all`), whose launches the kernels line reports;
  11. one `helmet` frame and one `helmet_proc` frame under torch.profiler:
      launches, device idle share and K1's and K5a's shares of the device
      time;
@@ -1610,25 +1616,28 @@ def cuobjdump(flag):
 
 def kernel_resources():
     """Registers and local-memory (spill) bytes a thread of each K1, K2,
-    K4, K5a, K5b, P1, P5 and P6 instantiation, as ptxas allotted them
+    K4, K5a, K5b, P1, P3, P4, P5 and P6 instantiation, as ptxas allotted them
     (`cuobjdump -res-usage` on the built library), keyed by the mangled
     name up to its parameters: trace_blocks_kernelILb<any hit>ELi<rays a
     thread>E, resident_kernelILb<any hit>E, fused_kernel,
     gather_fwd_kernel_<route>I<index type><flat index type>E,
     gather_bwd_kernelI<index type><accumulator><column groups>E,
-    probe_scalar_stack_kernel, mosaic_gather_kernel_<route>ILi<axis>E,
-    mosaic_scalar_stack_kernel."""
+    probe_scalar_stack_kernel, probe_onehot_mm_kernel,
+    probe_gather_kernel_<route>ILi<axis>E[Lb<vector>E],
+    mosaic_gather_kernel_<route>ILi<axis>E, mosaic_scalar_stack_kernel."""
     import re
 
     usage = cuobjdump("-res-usage")
     if usage is None:
-        print("K1/K2/K4/K5/P1/P5/P6 registers: not measured (no cuobjdump)")
+        print("K1/K2/K4/K5/P1/P3/P4/P5/P6 registers: not measured (no "
+              "cuobjdump)")
         return None
     out = {}
     for name, line in re.findall(r"Function (\S+):\s*\n([^\n]*)", usage):
         short = re.search(r"(trace_blocks_kernel|resident_kernel|fused_kernel|"
                           r"gather_fwd_kernel_\w+?|gather_bwd_kernel|"
-                          r"probe_scalar_stack_kernel|mosaic_gather_kernel_"
+                          r"probe_scalar_stack_kernel|probe_onehot_mm_kernel|"
+                          r"probe_gather_kernel_\w+?|mosaic_gather_kernel_"
                           r"\w+?|mosaic_scalar_stack_kernel)"
                           r"(I\w*?E)?(?:E|v)", name)
         if short:
@@ -1636,7 +1645,8 @@ def kernel_resources():
             out[short.group(1) + (short.group(2) or "")] = {
                 "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
                 "local_bytes": int(res["LOCAL"])}
-    print(f"K1/K2/K4/K5/P1/P5/P6 registers a thread (cuobjdump -res-usage) "
+    print(f"K1/K2/K4/K5/P1/P3/P4/P5/P6 registers a thread (cuobjdump "
+          f"-res-usage) "
           f"[{card_line()}]: {out}")
     return out
 
@@ -1763,25 +1773,51 @@ def phase_probes(dev):
     if not np.array_equal(probes.onehot_mm(lane, rows).cpu().numpy(),
                           rows_np.T[lane_np[:, 0]]):
         raise AssertionError("P3 onehot_mm: not rows.T[lane] bit for bit")
+    # the product's arithmetic: NaN from 0 * inf, +0.0 from -0.0, win
+    # outside the lanes
+    edge = tuple(map(t, probe2.onehot_edge_inputs()))
+    if not probes.same_or_both_nan(probes.onehot_mm(*edge),
+                                   probes.onehot_mm_plain(*edge)):
+        raise AssertionError("P3 onehot_mm on non-finite rows: not its plain "
+                             "version (NaN for NaN, the rest bit for bit)")
+    print("P3 onehot_mm on rows with +-0.0, inf, -inf and NaN: NaN where its "
+          "plain version is, every other value bit for bit")
     call = lambda: probes.onehot_mm(lane, rows)
     ms, _ = device_ms(call, 200, "probe_onehot_mm_kernel")
+    edge_ms, _ = device_ms(lambda: probes.onehot_mm(*edge), 200,
+                           "probe_onehot_mm_kernel")
     onehot = (torch.arange(rows.shape[1], device=dev)[None, :]
               == lane).to(torch.float32)
     rows_t = rows.t().contiguous()
     flat_lane = lane[:, 0]
+    n_out = lane.shape[0] * rows.shape[0]
     out["probe_onehot_mm"] = {
-        "ms": ms, "wrapper_ms": time_ms(call, 200),
+        "ms": ms, "edge_ms": edge_ms, "wrapper_ms": time_ms(call, 200),
         "plain_ms": time_ms(lambda: probes.onehot_mm_plain(lane, rows), 20),
-        "bound": bound((lane.numel() + rows.numel() + 1024 * 32) * 4,
-                       1024 * 32 * 512 * 2),
+        # the function is a gather: win and the rows read once, the output
+        # written once; the product the parent computed needed 2 N R L
+        # operations
+        "bound": bound((lane.numel() + rows.numel() + n_out) * 4, 0),
+        "bound_product": bound(0, n_out * rows.shape[1] * 2),
+        "empty_kernel_ms": empty_ms,
         # the same function as one library call each way: the product of
         # the materialised one-hot, and a direct row gather
         "library_ms": time_ms(lambda: torch.matmul(onehot, rows_t), 200),
         "library_index_select_ms": time_ms(
             lambda: torch.index_select(rows_t, 0, flat_lane), 200),
         "shape": "i32[1024,1], f32[32,512]"}
+    e = out["probe_onehot_mm"]
+    print(f"P3 onehot_mm [1024,512]x[32,512]: device {ms * 1e3:.2f} us (edge "
+          f"data {edge_ms * 1e3:.2f} us), byte bound "
+          f"{e['bound'][0] * 1e3:.4f} us, empty kernel {empty_ms * 1e3:.2f} "
+          f"us, the product's operations bound "
+          f"{e['bound_product'][0] * 1e3:.3f} us, torch.matmul "
+          f"{e['library_ms'] * 1e3:.2f} us, index_select "
+          f"{e['library_index_select_ms'] * 1e3:.2f} us [{card_line()}]")
 
-    # P4: every shape of the tool; timed at gather_tex and gather_state.
+    # P4: every shape of the tool, on its data and with -0.0 in x and
+    # indices outside the axis; each timed with its route.  The kernels
+    # line carries gather_tex.
     gathers = {}
     for tag, (n_rows, lanes, axis) in probe2.GATHER_SHAPES.items():
         x_np, idx_np = probe2.gather_inputs(n_rows, lanes, axis)
@@ -1792,6 +1828,12 @@ def phase_probes(dev):
         if not np.array_equal(got.cpu().numpy(), np.take_along_axis(
                 x_np, idx_np, axis=axis)):
             raise AssertionError(f"P4 {tag}: not take_along_axis")
+        edge = tuple(map(t, probe2.gather_edge_inputs(n_rows, lanes, axis)))
+        if not probes.same_bits(probes.gather(*edge, axis),
+                                probes.gather_plain(*edge, axis)):
+            raise AssertionError(f"P4 {tag} with -0.0 and indices outside "
+                                 "the axis: not its plain version bit for "
+                                 "bit")
         call = lambda: probes.gather(xg, idx, axis)
         idx64 = idx.long()
         ms, _ = device_ms(call, 100, "probe_gather_kernel")
@@ -1804,8 +1846,37 @@ def phase_probes(dev):
             "bound": bound(3 * xg.numel() * 4, 0),
             "library_ms": time_ms(lambda: torch.gather(xg, axis, idx64), 100),
             "library_device_ms": lib_ms,
+            "route": probes.gather_plan(n_rows, lanes, axis).route,
             "shape": f"[{n_rows},{lanes}] axis {axis}"}
-    out["probe_gather"] = {**gathers["gather_tex"], "by_shape": gathers}
+        g = gathers[tag]
+        print(f"P4 {tag} [{n_rows},{lanes}] axis {axis} ({g['route']}): "
+              f"device {ms * 1e3:.2f} us, byte bound "
+              f"{g['bound'][0] * 1e3:.3f} us ({ms / g['bound'][0]:.2f}x), "
+              f"torch.gather device {lib_ms * 1e3:.2f} us [{card_line()}]")
+    # The random-sector read ceiling under gather_tex: its 2,097,152 reads
+    # at random rows of an 8 MiB table, each address precomputed (row * 128
+    # + column), four a thread from one int4, no clamp and no output row.
+    n_rows, lanes, _ = probe2.GATHER_SHAPES["gather_tex"]
+    x_np, idx_np = probe2.gather_inputs(n_rows, lanes, 0)
+    table = t(x_np)
+    addr = t((idx_np * lanes + np.arange(lanes)[None, :]).astype(
+        np.int32).reshape(-1))
+    if not torch.equal(probes.sector_read(table, addr),
+                       probes.sector_read_plain(table, addr)):
+        raise AssertionError("the sector-read kernel differs from its plain "
+                             "version")
+    ceiling_ms, _ = device_ms(lambda: probes.sector_read(table, addr), 100,
+                              "probe_sector_read_kernel")
+    out["probe_gather"] = {**gathers["gather_tex"], "by_shape": gathers,
+                           "sector_ceiling_ms": ceiling_ms,
+                           "sector_reads_per_s": addr.numel() / ceiling_ms
+                           * 1e3}
+    print(f"P4 random-sector read ceiling: {addr.numel()} reads at random "
+          f"rows of [{n_rows},{lanes}] f32 in {ceiling_ms * 1e3:.2f} us "
+          f"({addr.numel() / ceiling_ms / 1e6:.1f} G sectors/s, "
+          f"{addr.numel() * 32 / ceiling_ms / 1e9:.2f} TB/s of 32-byte "
+          f"sectors); gather_tex {gathers['gather_tex']['ms'] * 1e3:.2f} us "
+          f"[{card_line()}]")
     for name, e in out.items():
         e["max_abs_err"] = errs[name]
         print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
@@ -2617,9 +2688,14 @@ def main() -> int:
               e["wrapper_ms"], e["plain_ms"], e["bound"], e["library_ms"])
         for name, replaces in (("probe_scalar_stack", "tools/probe2.py:36"),
                                ("probe_relayout", "tools/probe2.py:103"),
-                               ("probe_onehot_mm", "tools/probe2.py:133"),
-                               ("probe_gather", "tools/probe2.py:166"))
+                               ("probe_onehot_mm", "tools/probe2.py:133"))
         for e in (probe_times[name],)
+    ] + [
+        {**entry("probe_gather", "probes.cu", "tools/probe2.py:166",
+                 e["max_abs_err"], e["ms"], e["wrapper_ms"], e["plain_ms"],
+                 e["bound"], e["library_ms"]),
+         "sector_ceiling_ms": e["sector_ceiling_ms"]}
+        for e in (probe_times["probe_gather"],)
     ] + [
         entry(name, "mosaic.cu", replaces, e["max_abs_err"], e["ms"],
               e["wrapper_ms"], e["plain_ms"], e["bound"], e["library_ms"])

@@ -31,26 +31,17 @@
 //       tiles, 67.1 MB counting every copy; all of it fits in the 50 MB L2
 //       only as distinct tiles).
 //
-// Design.  P5: a CTA owns a tile of outputs and stages, once, the slab of x
-// those outputs can reach: along axis 0 an output reaches only its own
-// column (over all rows), along axis 1 only its own row.  Axis 0: the slab
-// is C columns (a power of two, 4 to 32) over all R rows, row pitch C
-// words; a thread owns one column and steps down the CTA's output rows, so
-// lane j of a warp reads bank j mod C (C = 32: no conflicts; the plan's 16
-// columns: two lanes a bank, for half the bytes restaged).  Several CTAs
-// split a slab's output rows to fill the SMs, each staging the slab again
-// from L2.  Axis 1: the slab is whole rows, and the CTAs of one slab split
-// its columns.  Staging is 16-byte cp.async where the rows allow it
-// (L % 4 == 0, x 16-byte aligned), else 4-byte cp.async; each thread's
-// first index is loaded while the copies fly.  The indices and outputs
-// are read and written a word a thread, coalesced along the columns: a
-// thread owning four outputs would have four lanes of a warp share a
-// column, and so a bank, on every gathered read.  The direct route reads x
-// through L1/L2, one thread an output: it takes the small calls, which
-// are as short as their launch and where a slab's staging round trip costs
-// more than it saves, and the tables no slab fits (an axis-0 table above
-// 14,528 rows, a row above 58,112 lanes).  The plan (route, C or rows a
-// slab, outputs a CTA, threads) is ops/probes.py::mosaic_gather_plan's.
+// Design.  P5: the slab route of csrc/slab.cuh (shared with P4): a CTA
+// stages, once, the slab of x its outputs can reach, 16 columns over all
+// rows along axis 0 (two lanes a bank, for half the bytes a 32-column
+// slab restages) or whole rows along axis 1, with 16-byte cp.async where
+// the rows allow it (L % 4 == 0, x 16-byte aligned), else 4-byte cp.async.
+// The direct route reads x through L1/L2, one thread an output: it takes
+// the small calls, which are as short as their launch and where a slab's
+// staging round trip costs more than it saves, and the tables no slab fits
+// (an axis-0 table above 14,528 rows, a row above 58,112 lanes).  The plan
+// (route, C or rows a slab, outputs a CTA, threads) is
+// ops/probes.py::mosaic_gather_plan's.
 // Each index is reduced into range once (floor modulo, as jnp's %) and
 // stepped by one a rep, wrapping at the axis' size; the sum runs in rep
 // order from 0.0f, as the plain version's loop does, so the kernel equals
@@ -71,6 +62,7 @@
 
 #include <cuda_runtime.h>
 
+#include "slab.cuh"
 #include "tree.cuh"
 
 namespace {
@@ -81,138 +73,25 @@ constexpr int kTileRows = 16;        // P8 tile: 16 rows
 constexpr int kTileLanes = 32;       //          x 32 lanes = 2 KB
 constexpr int kTileFloats = kTileRows * kTileLanes;
 constexpr int kTileChunks = kTileFloats / 4;  // 16-byte pieces of a tile
-constexpr size_t kMaxSmem = 227 * 1024;
 // P5's routes: ops/probes.py::GATHER_ROUTES.
 constexpr int kRouteSlab = 0, kRouteDirect = 1;
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = unsigned(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = unsigned(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
+using pbr::allow_smem;
+using pbr::cp_async16;
+using pbr::cp_async_commit;
+using pbr::cp_async_wait;
 
 // ---------------------------------------------------------------- P5
-// Copies n_rows rows of w floats (source row pitch src_pitch floats) into
-// shared memory at row pitch dst_pitch, as one cp.async group: 16-byte
-// pieces where vec (w, both pitches and src 16-byte multiples), else
-// 4-byte ones.
-__device__ __forceinline__ void stage_rows(float* dst, int dst_pitch,
-                                           const float* __restrict__ src,
-                                           int src_pitch, int n_rows, int w,
-                                           bool vec) {
-  if (vec) {
-    const int q = w >> 2;
-    for (int p = threadIdx.x; p < n_rows * q; p += blockDim.x) {
-      const int r = p / q, k = p - r * q;
-      cp_async16(dst + r * dst_pitch + 4 * k,
-                 src + size_t(r) * src_pitch + 4 * k);
-    }
-  } else {
-    for (int p = threadIdx.x; p < n_rows * w; p += blockDim.x) {
-      const int r = p / w, k = p - r * w;
-      cp_async4(dst + r * dst_pitch + k, src + size_t(r) * src_pitch + k);
-    }
-  }
-  cp_async_commit();
-}
-
-// sum over i < reps of slab[base + k_i * stride], k_0 = idx mod size
-// (floor modulo), k_{i+1} = k_i + 1 wrapping at size; in rep order.
-__device__ __forceinline__ float rep_sum(const float* slab, int base,
-                                         int stride, int idx, int size,
-                                         int reps) {
-  int k = idx % size;
-  if (k < 0) k += size;
-  float acc = 0.0f;
-  for (int i = 0; i < reps; ++i) {
-    acc = acc + slab[base + k * stride];
-    if (++k == size) k = 0;
-  }
-  return acc;
-}
-
-// Axis 0: CTA (bx, by) owns columns [bx C, bx C + C) and output rows
-// [by per, by per + per); its slab is those columns over all rows.
-// Axis 1: CTA (bx, by) owns rows [bx tile, bx tile + tile) and output
-// columns [by per, by per + per); its slab is those rows.  tile is C for
-// axis 0.
+// The slab route: csrc/slab.cuh's body, summing reps with floor-modulo
+// indices.
 template <int kAxis>
 __global__ void __launch_bounds__(1024)
     mosaic_gather_kernel_slab(const float* __restrict__ x,
                               const int* __restrict__ idx, int rows,
                               int lanes, int reps, int tile, int per,
-                              int vec, float* __restrict__ out) {
-  extern __shared__ float4 slab4[];
-  float* slab = reinterpret_cast<float*>(slab4);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (kAxis == 0) {
-    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
-    const int j = tid & (tile - 1);       // this thread's column
-    const int step = nt / tile;
-    int r = blockIdx.y * per + tid / tile;
-    const bool live = j < w;
-    const int* src = idx + c0 + j;
-    float* dst = out + c0 + j;
-    int next = live && r < r1 ? __ldg(src + size_t(r) * lanes) : 0;
-    cp_async_wait<0>();
-    __syncthreads();
-    if (!live) return;
-    for (; r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }
-  } else {
-    const int q0 = blockIdx.x * tile, n_rows = min(tile, rows - q0);
-    const int c0 = blockIdx.y * per, width = min(per, lanes - c0);
-    stage_rows(slab, lanes, x + size_t(q0) * lanes, lanes, n_rows, lanes,
-               vec);
-    // Output e of the CTA: row e / width of the slab, column c0 + e % width.
-    const int n_out = n_rows * width;
-    const int dr = nt / width, dc = nt - dr * width;
-    int rr = tid / width, cc = tid - rr * width;
-    const size_t base = size_t(q0) * lanes + c0;
-    int next = tid < n_out ? __ldg(idx + base + size_t(rr) * lanes + cc) : 0;
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int e = tid; e < n_out; e += nt) {
-      const int k = next, r = rr, c = cc;
-      rr += dr;
-      cc += dc;
-      if (cc >= width) {
-        cc -= width;
-        ++rr;
-      }
-      if (e + nt < n_out) next = __ldg(idx + base + size_t(rr) * lanes + cc);
-      out[base + size_t(r) * lanes + c] =
-          rep_sum(slab, r * lanes, 1, k, lanes, reps);
-    }
-  }
+                              int piece, float* __restrict__ out) {
+  pbr::slab_gather<kAxis, false>(x, idx, rows, lanes, reps, tile, per, piece,
+                                 out);
 }
 
 // The L1/L2 route: one thread an output, x read through the caches.
@@ -344,7 +223,7 @@ __global__ void subtile_copy_kernel(const float* __restrict__ src,
 // out[r, c] = sum over i < reps of x[(idx[r, c] + i) mod rows, c] (axis 0) or
 // x[r, (idx[r, c] + i) mod lanes] (axis 1), the modulo a floor modulo.  The
 // plan (ops/probes.py::mosaic_gather_plan): route (kRouteSlab, kRouteDirect),
-// tile (slab: C columns for axis 0, a power of two in [4, 32]; rows for
+// tile (slab: C columns for axis 0, a power of two in [2, 32]; rows for
 // axis 1), per (slab: output rows a CTA for axis 0, columns for axis 1) and
 // threads a CTA (a multiple of 32 up to 1024).
 extern "C" int pbr_mosaic_gather(const float* x, const int* idx, int rows,
@@ -367,31 +246,24 @@ extern "C" int pbr_mosaic_gather(const float* x, const int* idx, int rows,
           x, idx, rows, lanes, reps, out);
     return int(cudaGetLastError());
   }
-  if (route != kRouteSlab || tile < 1 || per < 1 ||
-      (axis == 0 && (tile < 4 || tile > 32 || (tile & (tile - 1)))))
-    return int(cudaErrorInvalidValue);
+  dim3 grid;
+  size_t smem;
+  cudaError_t err = route == kRouteSlab
+      ? pbr::slab_shape(rows, lanes, axis, tile, per, &grid, &smem)
+      : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return int(err);
+  // 16-byte pieces where the rows allow them, else 4-byte ones.
   const bool aligned = (reinterpret_cast<size_t>(x) & 15) == 0;
-  const int vec = aligned && lanes % 4 == 0;
-  const dim3 grid(axis == 0 ? (lanes + tile - 1) / tile
-                            : (rows + tile - 1) / tile,
-                  axis == 0 ? (rows + per - 1) / per
-                            : (lanes + per - 1) / per);
-  const size_t smem = sizeof(float) * (axis == 0
-      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);
-  if (grid.y > 65535) return int(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (axis == 0) {
-    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
-    if (err != cudaSuccess) return int(err);
-    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out);
-  } else {
-    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
-    if (err != cudaSuccess) return int(err);
-    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out);
-  }
-  return int(cudaGetLastError());
+  const int piece = aligned && lanes % 4 == 0 ? 4 : 1;
+  if (axis == 0)
+    err = pbr::launch_slab(mosaic_gather_kernel_slab<0>, grid, threads, smem,
+                           s, x, idx, rows, lanes, reps, tile, per, piece,
+                           out);
+  else
+    err = pbr::launch_slab(mosaic_gather_kernel_slab<1>, grid, threads, smem,
+                           s, x, idx, rows, lanes, reps, tile, per, piece,
+                           out);
+  return int(err);
 }
 
 // boxes f32[n_nodes * 6] (lo xyz | hi xyz per node; n_nodes odd, at most

@@ -20,9 +20,13 @@
 //       levels at most), and at these sizes the launch itself.
 //   P2  latency of 11 shared-memory exchanges with a block barrier each; the
 //       data is 4 KB.
-//   P3  operations: N x R x L multiply-adds on the CUDA cores (33.5M single
-//       operations at the probe's shape), against 4 KB + 64 KB of input.
+//   P3  bytes: the product computes rows.T[win], so the work is one read
+//       of win and of the rows and one write of the output (200,704 bytes
+//       at the probe's shape, far below a launch); the product's N x R x L
+//       multiply-adds are not needed.
 //   P4  bytes: one index read, one gathered read, one write per element.
+//       What costs is the gathered read: along axis 0 a warp's 32 lanes
+//       read 32 random rows, a 32-byte sector for each useful 4 bytes.
 //
 // Design.  P1: one CTA of 512 threads, no serial walk; its first two
 // stages are csrc/tree.cuh's, shared with P6.  A thread takes
@@ -44,14 +48,35 @@
 // ownership thread t <-> flat element t; every move goes through shared
 // memory with a row pitch of 132 words so that neither side has bank
 // conflicts.  A second instantiation without the exchange gives the time
-// of everything else.  P3: a CTA of 32 x 32 threads computes 32 output rows;
-// `rows` is staged once per CTA with a pitch of L + 1 words, the mask is
-// built in registers, and with -fmad=false the sum of one value and L - 1
-// zeros is exact.  P4: one thread per output element, coalesced over the
-// last axis; indices are clamped into range, so no input can read outside x.
+// of everything else.  P3: the product without the product.  out[i, c] =
+// sum over lane of (lane == w) * rows[c, lane] is rows[c, w] + 0.0f (the
+// sum starts from +0.0, so -0.0 comes out as +0.0), except that 0 * inf
+// and 0 * NaN are NaN: out[i, c] is NaN where row c holds a non-finite
+// entry at any lane but w, and for a w outside [0, L) (every lane's mask
+// 0) it is NaN where row c holds one at all, else +0.0.  So a CTA counts
+// the non-finite entries of its 8 attribute rows once (16-byte loads, a
+// shared-memory atomic for each piece that holds one), gathers rows[c, w]
+// directly, and writes out[i, c] for 128 output rows x those 8 columns:
+// one 32-byte sector of each output row, a float4 a thread.  No CTA reads
+// more of the rows than its own 8.  P4: two routes, and
+// ops/probes.py::gather_plan picks one by P5's byte model.  The slab route
+// is csrc/slab.cuh's (shared with P5) at one gather an output: a CTA
+// stages the columns its outputs reach and gathers from shared memory.
+// The direct route is a thread an output, x read through L1/L2.  At
+// [16384, 128] no slab of 4 or more columns fits a CTA, and the direct
+// route runs at the card's random-sector read ceiling (a 32-byte sector
+// for each gathered value; `probe_sector_read_kernel` measures it):
+// four consecutive outputs a thread (an int4 index load, four gathers in
+// flight, a float4 store) gathers the same sectors in the same time and
+// touches four times the lines a warp load at the small tables, and
+// 2-column slabs stage a line for each 8-byte piece (tools/sweep.py,
+// `p4_direct4`, `p4_slab2`).  Indices are clamped into range, so no input
+// can read outside x, and a gathered value is copied as it is (-0.0
+// stays -0.0).
 
 #include <cuda_runtime.h>
 
+#include "slab.cuh"
 #include "tree.cuh"
 
 namespace {
@@ -63,10 +88,14 @@ constexpr int kTileLanes = 128;     //          x 128 lanes
 constexpr int kTileN = kTileRows * kTileLanes;
 constexpr int kTilePitch = kTileLanes + 4;  // words per sublane row in shared
 constexpr int kRelayoutMoves = 10;
-constexpr int kMmRows = 32;         // P3 outputs rows per CTA (threadIdx.y)
-constexpr int kMmCols = 32;         // P3 attribute rows per CTA (threadIdx.x)
-constexpr int kGatherThreads = 256;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kOhCols = 8;          // P3 attribute rows a CTA
+constexpr int kOhOuts = 128;        // P3 output rows a CTA, two threads a row
+constexpr int kOhThreads = 2 * kOhOuts;
+constexpr int kTakeThreads = 256;   // P4 direct route and sector reads
+
+__host__ __device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
 
 // ---------------------------------------------------------------- P1
 __global__ void __launch_bounds__(kStackThreads)
@@ -166,53 +195,119 @@ __global__ void probe_relayout_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- P3
-__global__ void probe_onehot_mm_kernel(const int* __restrict__ win,
-                                       const float* __restrict__ rows, int n,
-                                       int r, int l, float* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  float* rs = reinterpret_cast<float*>(smem);
-  const int pitch = l + 1;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int e = tid; e < r * l; e += blockDim.x * blockDim.y)
-    rs[(e / l) * pitch + (e % l)] = rows[e];
+__device__ __forceinline__ int non_finite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// CTA (bx, by) writes out[i, c] for c in [bx kOhCols, bx kOhCols + kOhCols)
+// and i in [by kOhOuts, by kOhOuts + kOhOuts); thread t the four columns
+// 4 (t % 2) + [0, 4) of the group at output row t / 2.  vec_rows: L % 4 ==
+// 0 and rows 16-byte aligned; vec_out: R % 4 == 0 and out 16-byte aligned.
+__global__ void __launch_bounds__(kOhThreads)
+    probe_onehot_mm_kernel(const int* __restrict__ win,
+                           const float* __restrict__ rows, int n, int r,
+                           int l, int vec_rows, int vec_out,
+                           float* __restrict__ out) {
+  __shared__ int s_bad[kOhCols];  // non-finite entries of each row
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kOhCols, nc = min(kOhCols, r - c0);
+  const int i = blockIdx.y * kOhOuts + tid / 2;
+  const int cq = (tid & 1) * 4;
+  const float* grp = rows + size_t(c0) * l;
+  if (tid < kOhCols) s_bad[tid] = 0;
+  const int w = i < n ? __ldg(win + i) : -1;
   __syncthreads();
-  const int i = blockIdx.x * kMmRows + threadIdx.y;
-  const int c = threadIdx.x;
-  if (i >= n || c >= r) return;
-  const int w = win[i];
-  const float* row = rs + c * pitch;
-  float acc = 0.0f;
-  for (int lane = 0; lane < l; ++lane) {
-    const float mask = (lane == w) ? 1.0f : 0.0f;
-    acc = acc + mask * row[lane];
+  if (vec_rows) {
+    const int q = l >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(grp);
+    for (int p = tid; p < nc * q; p += kOhThreads) {
+      const float4 v = __ldg(g4 + p);
+      const int bad = non_finite(v.x) + non_finite(v.y) + non_finite(v.z) +
+                      non_finite(v.w);
+      if (bad) atomicAdd(&s_bad[p / q], bad);
+    }
+  } else {
+    for (int p = tid; p < nc * l; p += kOhThreads)
+      if (non_finite(__ldg(grp + p))) atomicAdd(&s_bad[p / l], 1);
   }
-  out[i * r + c] = acc;
+  const bool in = unsigned(w) < unsigned(l);
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = in && cq + k < nc ? __ldg(grp + size_t(cq + k) * l + w) : 0.0f;
+  __syncthreads();
+  if (i >= n || cq >= nc) return;
+  float o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // non-finite entries of row cq + k at lanes other than w
+    const int others = s_bad[cq + k] - (in ? non_finite(v[k]) : 0);
+    o[k] = others > 0 ? __int_as_float(0x7fffffff) : v[k] + 0.0f;
+  }
+  float* dst = out + size_t(i) * r + c0 + cq;
+  if (vec_out) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+    for (int k = 0; k < 4 && cq + k < nc; ++k) dst[k] = o[k];
+  }
 }
 
 // ---------------------------------------------------------------- P4
+// The direct route: a thread an output, the lanes of a warp on consecutive
+// outputs (so the columns a warp gathers from a row share its lines), x
+// read through L1/L2.
 template <int kAxis>
-__global__ void probe_gather_kernel(const float* __restrict__ x,
-                                    const int* __restrict__ idx, int rows,
-                                    int lanes, float* __restrict__ out) {
+__global__ void __launch_bounds__(kTakeThreads)
+    probe_gather_kernel_direct(const float* __restrict__ x,
+                               const int* __restrict__ idx, int rows,
+                               int lanes, float* __restrict__ out) {
   const unsigned total = unsigned(rows) * unsigned(lanes);
-  const unsigned stride = gridDim.x * blockDim.x;
-  for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const unsigned row = e / unsigned(lanes);
-    const unsigned col = e - row * unsigned(lanes);
-    const int hi = (kAxis == 0 ? rows : lanes) - 1;
-    const int k = min(max(__ldg(idx + e), 0), hi);
-    out[e] = kAxis == 0 ? __ldg(x + unsigned(k) * unsigned(lanes) + col)
-                        : __ldg(x + row * unsigned(lanes) + unsigned(k));
-  }
+  const unsigned e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const unsigned row = e / unsigned(lanes);
+  const unsigned col = e - row * unsigned(lanes);
+  const int hi = (kAxis == 0 ? rows : lanes) - 1;
+  const unsigned k = unsigned(min(max(__ldg(idx + e), 0), hi));
+  out[e] = __ldg(x + (kAxis == 0 ? k * unsigned(lanes) + col
+                                 : row * unsigned(lanes) + k));
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+// The slab route: csrc/slab.cuh's body, one gather an output, the index
+// clamped.
+template <int kAxis>
+__global__ void __launch_bounds__(1024)
+    probe_gather_kernel_slab(const float* __restrict__ x,
+                             const int* __restrict__ idx, int rows,
+                             int lanes, int tile, int per, int piece,
+                             float* __restrict__ out) {
+  pbr::slab_gather<kAxis, true>(x, idx, rows, lanes, 1, tile, per, piece,
+                                out);
+}
+
+// The card's random-sector read ceiling (no port of a TPU kernel): out[t]
+// = ((table[a0] + table[a1]) + table[a2]) + table[a3], (a0..a3) = addr[4 t
+// .. 4 t + 3], the addresses read as one int4 and used as they are.
+__global__ void __launch_bounds__(kTakeThreads)
+    probe_sector_read_kernel(const float* __restrict__ table,
+                             const int* __restrict__ addr, int n4,
+                             float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n4) return;
+  const int4 a = __ldg(reinterpret_cast<const int4*>(addr) + t);
+  const float v0 = __ldg(table + a.x), v1 = __ldg(table + a.y);
+  const float v2 = __ldg(table + a.z), v3 = __ldg(table + a.w);
+  out[t] = ((v0 + v1) + v2) + v3;
+}
+
+// The widest cp.async piece, in floats (4, 2 or 1), that every staged row
+// of a slab of x allows: its width (tile columns along axis 0, a whole row
+// along axis 1), the row pitch and x's alignment.
+int slab_piece(const float* x, int lanes, int axis, int tile) {
+  const int w = axis == 0 ? tile : lanes;
+  const size_t at = reinterpret_cast<size_t>(x);
+  for (int p = 4; p > 1; p /= 2)
+    if (w % p == 0 && lanes % p == 0 && at % (4 * p) == 0) return p;
+  return 1;
 }
 
 }  // namespace
@@ -250,24 +345,23 @@ extern "C" int pbr_probe_relayout(const float* x, float* out, int exchange,
   return int(cudaGetLastError());
 }
 
-// win i32[n], rows f32[r, l] (r <= 32) -> out f32[n, r],
+// win i32[n], rows f32[r, l] -> out f32[n, r],
 // out[i, c] = sum over lane of (lane == win[i]) * rows[c, lane].
 extern "C" int pbr_probe_onehot_mm(const int* win, const float* rows, int n,
                                    int r, int l, float* out, void* stream) {
   if (n <= 0 || r <= 0) return 0;
-  if (r > kMmCols) return int(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * size_t(r) * size_t(l + 1);
-  const cudaError_t err = allow_smem(probe_onehot_mm_kernel, smem);
-  if (err != cudaSuccess) return int(err);
-  const dim3 block(kMmCols, kMmRows);
-  probe_onehot_mm_kernel<<<(n + kMmRows - 1) / kMmRows, block, smem,
+  const dim3 grid((r + kOhCols - 1) / kOhCols, (n + kOhOuts - 1) / kOhOuts);
+  if (l < 1 || grid.y > 65535) return int(cudaErrorInvalidValue);
+  probe_onehot_mm_kernel<<<grid, kOhThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      win, rows, n, r, l, out);
+      win, rows, n, r, l, l % 4 == 0 && aligned16(rows),
+      r % 4 == 0 && aligned16(out), out);
   return int(cudaGetLastError());
 }
 
 // x f32[rows, lanes], idx i32[rows, lanes] -> out f32[rows, lanes]:
-// out[r, c] = x[idx[r, c], c] (axis 0) or x[r, idx[r, c]] (axis 1).
+// out[r, c] = x[idx[r, c], c] (axis 0) or x[r, idx[r, c]] (axis 1), the
+// index clamped into range; the direct route.
 extern "C" int pbr_probe_gather(const float* x, const int* idx, int rows,
                                 int lanes, int axis, float* out,
                                 void* stream) {
@@ -275,14 +369,57 @@ extern "C" int pbr_probe_gather(const float* x, const int* idx, int rows,
   if (total <= 0) return 0;
   if (total >= (1LL << 31) || (axis != 0 && axis != 1))
     return int(cudaErrorInvalidValue);
-  const unsigned blocks = unsigned((total + kGatherThreads - 1) /
-                                   kGatherThreads);
+  const unsigned blocks = unsigned((total + kTakeThreads - 1) /
+                                   kTakeThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (axis == 0)
-    probe_gather_kernel<0><<<blocks, kGatherThreads, 0, s>>>(x, idx, rows,
-                                                             lanes, out);
+    probe_gather_kernel_direct<0><<<blocks, kTakeThreads, 0, s>>>(
+        x, idx, rows, lanes, out);
   else
-    probe_gather_kernel<1><<<blocks, kGatherThreads, 0, s>>>(x, idx, rows,
-                                                             lanes, out);
+    probe_gather_kernel_direct<1><<<blocks, kTakeThreads, 0, s>>>(
+        x, idx, rows, lanes, out);
+  return int(cudaGetLastError());
+}
+
+// The same function by the slab route, with a plan of
+// ops/probes.py::gather_plan: tile (C columns for axis 0, a power of two in
+// [2, 32]; rows for axis 1), per (output rows a CTA for axis 0, columns
+// for axis 1) and threads a CTA (a multiple of 32 up to 1024).
+extern "C" int pbr_probe_gather_slab(const float* x, const int* idx,
+                                     int rows, int lanes, int axis, int tile,
+                                     int per, int threads, float* out,
+                                     void* stream) {
+  const long long total = (long long)rows * lanes;
+  if (total <= 0) return 0;
+  if (total >= (1LL << 31) || (axis != 0 && axis != 1) || threads < 32 ||
+      threads > 1024 || threads % 32)
+    return int(cudaErrorInvalidValue);
+  dim3 grid;
+  size_t smem;
+  cudaError_t err = pbr::slab_shape(rows, lanes, axis, tile, per, &grid,
+                                    &smem);
+  if (err != cudaSuccess) return int(err);
+  const int piece = slab_piece(x, lanes, axis, tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (axis == 0)
+    err = pbr::launch_slab(probe_gather_kernel_slab<0>, grid, threads, smem,
+                           s, x, idx, rows, lanes, tile, per, piece, out);
+  else
+    err = pbr::launch_slab(probe_gather_kernel_slab<1>, grid, threads, smem,
+                           s, x, idx, rows, lanes, tile, per, piece, out);
+  return int(err);
+}
+
+// table f32[...], addr i32[n] (n % 4 == 0, 16-byte aligned, every entry an
+// index into table) -> out f32[n / 4]: the random-sector read ceiling.
+extern "C" int pbr_probe_sector_read(const float* table, const int* addr,
+                                     int n, float* out, void* stream) {
+  if (n <= 0) return 0;
+  if (n % 4 || !aligned16(addr)) return int(cudaErrorInvalidValue);
+  const int n4 = n / 4;
+  probe_sector_read_kernel<<<(n4 + kTakeThreads - 1) / kTakeThreads,
+                             kTakeThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      table, addr, n4, out);
   return int(cudaGetLastError());
 }

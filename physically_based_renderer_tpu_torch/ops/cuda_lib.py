@@ -79,6 +79,10 @@ _SIGNATURES = {
     "pbr_probe_onehot_mm": [_P, _P, _I, _I, _I, _P, _P],
     # x, idx, rows, lanes, axis, out, stream
     "pbr_probe_gather": [_P, _P, _I, _I, _I, _P, _P],
+    # x, idx, rows, lanes, axis, tile, per, threads, out, stream
+    "pbr_probe_gather_slab": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # table, addr, n, out, stream
+    "pbr_probe_sector_read": [_P, _P, _I, _P, _P],
     # x, idx, rows, lanes, axis, reps, route, tile, per, threads, out,
     # stream
     "pbr_mosaic_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -28,7 +28,9 @@ the tests and by nothing on a card.  `LAUNCHES` counts kernel launches by
 probe name.  The tools that drive them are `tools/probe2.py`,
 `tools/probe_mosaic.py` and `tools/exp_subtile_dma.py` of this package.
 `empty_kernel` launches a kernel that does nothing, the floor under these
-kernels' times; it ports nothing and is counted nowhere.
+kernels' times, and `sector_read` one that reads a table at precomputed
+random addresses, the card's random-sector read ceiling under P4's gather;
+they port nothing and are counted nowhere.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0,
 TILE = (8, 128)        # P2's tile: eight sublanes by 128 lanes
 RELAYOUT_MOVES = 10
 MAX_NODES = 8191       # P1, P6: a flag a node in static shared memory
-MAX_MM_ROWS = 32       # P3: attribute rows per CTA
+MAX_MM_ROWS = 32       # P3: attribute rows at most (the probe's chunk rows)
 TILE_P8 = (16, 32)     # P8: one copied tile, 2 KB
 MAX_P8_CH = 32         # P8: ch x 32 threads a CTA
 
@@ -56,6 +58,25 @@ MAX_P8_CH = 32         # P8: ch x 32 threads a CTA
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b (float32) hold the same bit patterns, the sign of zero
+    included."""
+    b = b.to(a.device)
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b (float32) are NaN at the same places and hold the same bit
+    patterns elsewhere, the sign of zero included (a NaN's own bits differ
+    between the CPU and the card)."""
+    b = b.to(a.device)
+    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
+        return False
+    ok = a.isnan()
+    return torch.equal(a.view(torch.int32)[~ok], b.view(torch.int32)[~ok])
 
 
 def _require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -188,7 +209,10 @@ def onehot_mm(win: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """P3: win i32[N, 1] (the winning lane of each output row), rows
     f32[R <= 32, L] -> f32[N, R], out[i, r] = sum over lane of
     (lane == win[i]) * rows[r, lane]: rows.T[win] as a contraction over the
-    lanes, on the CUDA cores."""
+    lanes.  The kernel computes it as the gather it is, without the
+    product: rows[r, win[i]] + 0.0, NaN where row r holds a non-finite
+    entry at another lane (0 * inf), +0.0 or that NaN for a win outside
+    [0, L) (`csrc/probes.cu`)."""
     _require(win, "win", torch.int32, 2)
     _require(rows, "rows", torch.float32, 2)
     _same_device(win, rows)
@@ -222,10 +246,20 @@ def gather_plain(x: torch.Tensor, idx: torch.Tensor,
     return x[torch.arange(rows, device=x.device)[:, None], k]
 
 
+def gather_plan(rows: int, lanes: int, axis: int) -> GatherPlan:
+    """P4's route for x [rows, lanes] along `axis`: P5's plan at reps 1
+    (`mosaic_gather_plan`), a slab a CTA stages or the direct route,
+    whichever its byte model finds faster.  (Read at each call, so that
+    `tools/sweep.py` can time other plans.)"""
+    return mosaic_gather_plan(rows, lanes, axis, 1)
+
+
 def gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """P4: take_along_axis.  x f32[R, L], idx i32[R, L] ->
     out[r, c] = x[idx[r, c], c] (axis 0) or x[r, idx[r, c]] (axis 1);
-    indices outside the axis are clamped to its ends."""
+    indices outside the axis are clamped to its ends.  The kernel takes
+    `gather_plan`'s route: the direct one (a thread an output, x read
+    through L1/L2) or P5's slab staged in shared memory."""
     _require(x, "x", torch.float32, 2)
     _require(idx, "idx", torch.int32, 2)
     _same_device(x, idx)
@@ -239,11 +273,52 @@ def gather(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rc = cuda_lib.library().pbr_probe_gather(
-        x.data_ptr(), idx.data_ptr(), x.shape[0], x.shape[1], axis,
-        out.data_ptr(), cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(rc, "pbr_probe_gather")
+    rows, lanes = x.shape
+    plan = gather_plan(rows, lanes, axis)
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(x.device)
+    if plan.route == "slab":
+        rc = lib.pbr_probe_gather_slab(
+            x.data_ptr(), idx.data_ptr(), rows, lanes, axis, plan.tile,
+            plan.per, plan.threads, out.data_ptr(), stream)
+    else:
+        rc = lib.pbr_probe_gather(x.data_ptr(), idx.data_ptr(), rows, lanes,
+                                  axis, out.data_ptr(), stream)
+    cuda_lib.check(rc, f"pbr_probe_gather ({plan.route})")
     LAUNCHES["gather"] += 1
+    return out
+
+
+def sector_read_plain(table: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
+    """Plain `sector_read`: each four reads summed in order."""
+    v = table.reshape(-1)[addr.long()].reshape(-1, 4)
+    return ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]
+
+
+def sector_read(table: torch.Tensor, addr: torch.Tensor) -> torch.Tensor:
+    """The card's random-sector read ceiling: table f32 (contiguous, any
+    shape), addr i32[n] (n % 4 == 0, each an index into the flattened
+    table) -> f32[n / 4], out[t] = ((table[a0] + table[a1]) + table[a2]) +
+    table[a3] over addr[4 t : 4 t + 4].  Each thread reads its four
+    addresses as one int4 and gathers without arithmetic or clamping: at
+    random rows of a table it times the gathered sectors alone.  Ports
+    nothing; counted nowhere."""
+    _require(addr, "addr", torch.int32, 1)
+    if table.dtype != torch.float32 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous float32 tensor")
+    _same_device(table, addr)
+    if addr.shape[0] % 4 or table.numel() >= 1 << 31:
+        raise ValueError(f"addr must hold a multiple of 4 indices into a "
+                         f"table below 2^31 floats, got {addr.shape[0]} "
+                         f"and {table.numel()}")
+    if table.device.type == "cpu":
+        return sector_read_plain(table, addr)
+    _aligned16(addr, "addr")
+    out = torch.empty((addr.shape[0] // 4,), dtype=torch.float32,
+                      device=table.device)
+    rc = cuda_lib.library().pbr_probe_sector_read(
+        table.data_ptr(), addr.data_ptr(), addr.shape[0], out.data_ptr(),
+        cuda_lib.stream_ptr(table.device))
+    cuda_lib.check(rc, "pbr_probe_sector_read")
     return out
 
 

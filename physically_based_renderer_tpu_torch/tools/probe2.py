@@ -99,12 +99,50 @@ def onehot_inputs(seed: int = 0):
     return lane, rows
 
 
+def onehot_edge_inputs(n: int = 1024, r: int = 32, l: int = 512,
+                       seed: int = 0):
+    """(win i32[n, 1], rows f32[r, l]) on which the product's arithmetic
+    shows: +0.0 and -0.0 (a tenth of the entries each); inf, -inf or NaN at
+    one lane of every third row (and a second lane of row 0); win at -1
+    (every seventh), at l (every seventh, shifted by 3), at a non-finite
+    entry's lane (every seventh, shifted by 5), else in range."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(r, l)).astype(np.float32)
+    rows[rng.random((r, l)) < 0.1] = 0.0
+    rows[rng.random((r, l)) < 0.1] = -0.0
+    bad = [(c, int(rng.integers(0, l))) for c in range(0, r, 3)]
+    bad.append((0, int(rng.integers(0, l))))
+    for k, (c, lane) in enumerate(bad):
+        rows[c, lane] = (np.inf, -np.inf, np.nan)[k % 3]
+    win = rng.integers(0, l, (n, 1)).astype(np.int32)
+    win[0::7] = -1
+    win[3::7] = l
+    lanes = np.array([lane for _, lane in bad], np.int32)
+    win[5::7, 0] = lanes[np.arange(len(win[5::7])) % len(lanes)]
+    return win, rows
+
+
 def gather_inputs(rows: int, lanes: int, axis: int, seed: int = 0):
     """(x f32[rows, lanes], idx i32[rows, lanes])."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(rows, lanes)).astype(np.float32)
     idx = rng.integers(0, rows if axis == 0 else lanes,
                        (rows, lanes)).astype(np.int32)
+    return x, idx
+
+
+def gather_edge_inputs(rows: int, lanes: int, axis: int, seed: int = 0):
+    """`gather_inputs` with +0.0 and -0.0 in x (a tenth of the entries
+    each) and indices outside the axis, which the kernel clamps: -1 and the
+    axis' size (a twentieth each) and the int32 extremes at two places."""
+    x, idx = gather_inputs(rows, lanes, axis, seed)
+    rng = np.random.default_rng(seed + 1)
+    x[rng.random(x.shape) < 0.1] = 0.0
+    x[rng.random(x.shape) < 0.1] = -0.0
+    u = rng.random(idx.shape)
+    idx[u < 0.05] = -1
+    idx[u > 0.95] = rows if axis == 0 else lanes
+    idx.flat[:2] = (np.iinfo(np.int32).min, np.iinfo(np.int32).max)
     return x, idx
 
 

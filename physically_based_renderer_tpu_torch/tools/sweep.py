@@ -1,19 +1,20 @@
-"""Time variants of K4, K5b, K2, P1, P5 and P6 against the tree's own
-kernels, on the card.
+"""Time variants of K4, K5b, K2, P1, P3, P4, P5 and P6 against the tree's
+own kernels, on the card.
 
     python -m physically_based_renderer_tpu_torch.tools.sweep \
         [--other NAME=DIR:fused.cu,gather.cu ...] [--variants ...] \
-        [--cases k4,k5b,k2,p1,p5,p6]
+        [--cases k4,k5b,k2,p1,p3,p4,p5,p6]
 
 A variant is one source of `csrc/` with named textual edits (VARIANTS; an
 edit must match the source exactly once, so a stale one fails; a variant
 named for a case, `p5_...`, runs on that case alone), another plan of
-P5's (PLAN_VARIANTS: the tree's library with other values of
-`ops/probes.py`'s P5 plan constants, or another `mosaic_gather_plan`),
-or the same source of another
-checkout (`--other`, e.g. the parent commit unpacked with `git archive`
-into the ignored `build/`; its C interface must be the tree's, so it is
-not run on P5, whose entry point takes the plan).  Each variant's source
+P4's or P5's (PLAN_VARIANTS: the tree's library with other values of
+`ops/probes.py`'s P5 plan constants, or another `mosaic_gather_plan` or
+`gather_plan`), or the same source of another checkout (`--other`, e.g.
+the parent commit unpacked with `git archive` into the ignored `build/`;
+its C interface must be the tree's; P5's entry point takes the tree's
+plan, and another checkout's P4 runs its direct route, `pbr_probe_gather`,
+at every shape: OTHER_PLANS).  Each variant's source
 is compiled with `cuda_lib`'s flags into a library of its own, all `nvcc`
 processes started together (a named variant that does not compile is
 reported and left out; another checkout's source that does not compile
@@ -31,7 +32,10 @@ calls of one dense cornell frame (512x512, 4 spp, 4 bounces;
 bounces' closest hits and the shadow rays' any hits, each kind's calls in
 turn (exact against the plain version); P1 on the tool's all-pass boxes
 and on trees of 5,001 and 8,191 nodes (`tools/probe2.py::tree_boxes`,
-exact); P5 at the ten shapes of `tools/probe_mosaic.py::GATHER_CASES` on
+exact); P3 on the probe's data and on `tools/probe2.py::onehot_edge_inputs`
+(exact, NaN for NaN); P4 at the five shapes of
+`tools/probe2.py::GATHER_SHAPES` on the probe's data, checked also with
+indices outside the axis and -0.0 in x (exact); P5 at the ten shapes of `tools/probe_mosaic.py::GATHER_CASES` on
 random floats with indices in [-3 size, 3 size) (exact); P6 on the tool's
 all-pass boxes, the probe's own and 8,191 nodes that all pass (exact).
 Only the variants of the chosen cases' sources are built.
@@ -121,63 +125,67 @@ def _p6_threads(threads):
              f"constexpr int kScalarThreads = {threads};")]
 
 
-_P5_TMA = [(
-    """__device__ __forceinline__ void stage_rows(""",
-    """__shared__ unsigned long long s_stage_bar;
+def _p4_threads(threads):
+    return [("constexpr int kTakeThreads = 256;   // P4 direct route and "
+             "sector reads",
+             f"constexpr int kTakeThreads = {threads};")]
 
-__device__ __forceinline__ void stage_wait(bool vec) {
-  if (!vec) {
-    cp_async_wait<0>();
+
+def _p4_consecutive(n):
+    """P4's direct route with n (a multiple of 4) consecutive outputs a
+    thread: where lanes % n == 0 and idx and out are 16-byte aligned, their
+    indices read as int4s, the n gathers in flight together, and float4
+    stores; else one at a time."""
+    return [(
+        """  const unsigned e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const unsigned row = e / unsigned(lanes);
+  const unsigned col = e - row * unsigned(lanes);
+  const int hi = (kAxis == 0 ? rows : lanes) - 1;
+  const unsigned k = unsigned(min(max(__ldg(idx + e), 0), hi));
+  out[e] = __ldg(x + (kAxis == 0 ? k * unsigned(lanes) + col
+                                 : row * unsigned(lanes) + k));""",
+        f"""  constexpr int kN = {n};
+  const unsigned e0 = (blockIdx.x * blockDim.x + threadIdx.x) * kN;
+  if (e0 >= total) return;
+  const int hi = (kAxis == 0 ? rows : lanes) - 1;
+  if (lanes % kN == 0 && aligned16(idx) && aligned16(out)) {{
+    const unsigned row = e0 / unsigned(lanes);
+    const unsigned col = e0 - row * unsigned(lanes);
+    int k[kN];
+    float v[kN];
+#pragma unroll
+    for (int q = 0; q < kN / 4; ++q) {{
+      const int4 t = __ldg(reinterpret_cast<const int4*>(idx + e0) + q);
+      k[4 * q] = t.x;
+      k[4 * q + 1] = t.y;
+      k[4 * q + 2] = t.z;
+      k[4 * q + 3] = t.w;
+    }}
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {{
+      const unsigned kk = unsigned(min(max(k[j], 0), hi));
+      v[j] = __ldg(x + (kAxis == 0 ? kk * unsigned(lanes) + col + j
+                                   : row * unsigned(lanes) + kk));
+    }}
+#pragma unroll
+    for (int q = 0; q < kN / 4; ++q)
+      reinterpret_cast<float4*>(out + e0)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
     return;
-  }
-  const unsigned bar = unsigned(__cvta_generic_to_shared(&s_stage_bar));
-  asm volatile(
-      "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
-      " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
-      : "memory");
-}
+  }}
+  for (unsigned e = e0; e < min(e0 + kN, total); ++e) {{
+    const unsigned row = e / unsigned(lanes);
+    const unsigned col = e - row * unsigned(lanes);
+    const unsigned k = unsigned(min(max(__ldg(idx + e), 0), hi));
+    out[e] = __ldg(x + (kAxis == 0 ? k * unsigned(lanes) + col
+                                   : row * unsigned(lanes) + k));
+  }}"""), (
+        """  const unsigned blocks = unsigned((total + kTakeThreads - 1) /
+                                   kTakeThreads);""",
+        f"""  const unsigned blocks = unsigned((total + {n} * kTakeThreads - 1) /
+                                   ({n} * kTakeThreads));""")]
 
-__device__ __forceinline__ void stage_rows("""), (
-    """  if (vec) {
-    const int q = w >> 2;
-    for (int p = threadIdx.x; p < n_rows * q; p += blockDim.x) {
-      const int r = p / q, k = p - r * q;
-      cp_async16(dst + r * dst_pitch + 4 * k,
-                 src + size_t(r) * src_pitch + 4 * k);
-    }
-  } else {""",
-    """  if (vec) {
-    const unsigned bar = unsigned(__cvta_generic_to_shared(&s_stage_bar));
-    if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
-      asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
-    }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
-              bar), "r"(unsigned(n_rows * w * 4)) : "memory");
-    for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\\n" ::"r"(unsigned(
-              __cvta_generic_to_shared(dst + r * dst_pitch))),
-          "l"(src + size_t(r) * src_pitch), "r"(unsigned(w * 4)), "r"(bar)
-          : "memory");
-  } else {"""), (
-    """    cp_async_wait<0>();
-    __syncthreads();
-    if (!live) return;""",
-    """    stage_wait(vec);
-    __syncthreads();
-    if (!live) return;"""), (
-    """    cp_async_wait<0>();
-    __syncthreads();
-    for (int e = tid; e < n_out; e += nt) {""",
-    """    stage_wait(vec);
-    __syncthreads();
-    for (int e = tid; e < n_out; e += nt) {""")]
 
 _P6_CTAS = [(
     """__global__ void __launch_bounds__(kScalarThreads)
@@ -222,303 +230,25 @@ __global__ void __launch_bounds__(kScalarThreads)
     "mosaic_scalar_stack_kernel<<<1, kScalarThreads, 0,",
     "mosaic_scalar_stack_kernel<<<kStackCtas, kScalarThreads, 0,")]
 
-_P5_CLUSTER = [(
-    "#include <cuda_runtime.h>\n",
-    "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n"), (
-    """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
-    """    namespace cg = cooperative_groups;
-    const cg::cluster_group cluster = cg::this_cluster();
-    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    const int part = (rows + gridDim.y - 1) / gridDim.y;
-    const int k0 = int(cluster.block_rank()) * part;
-    stage_rows(slab, tile, x + size_t(k0) * lanes + c0, lanes,
-               max(0, min(part, rows - k0)), w, vec);"""), (
-    """    cp_async_wait<0>();
-    __syncthreads();
-    if (!live) return;
-    for (; r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }""",
-    """    cp_async_wait<0>();
-    cluster.sync();
-    for (; live && r < r1; r += step) {
-      int k = next % rows;
-      if (k < 0) k += rows;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      int owner = k / part, local = k - owner * part;
-      const float* part_slab = cluster.map_shared_rank(slab, owner);
-      float acc = 0.0f;
-      for (int i = 0; i < reps; ++i) {
-        acc = acc + part_slab[local * tile + j];
-        if (++k == rows) {
-          k = local = owner = 0;
-          part_slab = cluster.map_shared_rank(slab, 0);
-        } else if (++local == part) {
-          local = 0;
-          part_slab = cluster.map_shared_rank(slab, ++owner);
-        }
-      }
-      dst[size_t(r) * lanes] = acc;
-    }
-    cluster.sync();  // no CTA leaves while another reads its part"""), (
-    """  const size_t smem = sizeof(float) * (axis == 0
-      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);""",
-    """  const size_t smem = sizeof(float) * (axis == 0
-      ? size_t((rows + (rows + per - 1) / per - 1) / ((rows + per - 1) / per))
-        * tile : size_t(tile < rows ? tile : rows) * lanes);"""), (
-    """    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out);""",
-    """    if (grid.y > 8) return int(cudaErrorInvalidValue);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = grid.y;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, mosaic_gather_kernel_slab<0>, x, idx,
-                             rows, lanes, reps, tile, per, vec, out);
-    if (err != cudaSuccess) return int(err);""")]
-
-_P5_MULTICAST = [_P5_CLUSTER[0], (
-    """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
-    """    namespace cg = cooperative_groups;
-    const cg::cluster_group cluster = cg::this_cluster();
-    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    __shared__ unsigned long long s_bar;
-    const unsigned bar = unsigned(__cvta_generic_to_shared(&s_bar));
-    if (vec) {
-      if (tid == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
-        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
-                bar), "r"(unsigned(rows * w * 4)) : "memory");
-      }
-      cluster.sync();
-      const int part = (rows + gridDim.y - 1) / gridDim.y;
-      const int k0 = int(cluster.block_rank()) * part;
-      const int k1 = min(k0 + part, rows);
-      const unsigned short mask = (1u << gridDim.y) - 1;
-      for (int k = k0 + tid; k < k1; k += nt)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;\\n" ::"r"(
-                unsigned(__cvta_generic_to_shared(slab + k * tile))),
-            "l"(x + size_t(k) * lanes + c0), "r"(unsigned(w * 4)), "r"(bar),
-            "h"(mask) : "memory");
-    } else {
-      stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
-    }"""), (
-    """    cp_async_wait<0>();
-    __syncthreads();
-    if (!live) return;
-    for (; r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }""",
-    """    if (vec)
-      asm volatile(
-          "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
-          " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
-          : "memory");
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    for (; live && r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }
-    cluster.sync();  // no CTA leaves while its copies fill another"""),
-    _P5_CLUSTER[-1]]
-
-# The tree's slab launch in pbr_mosaic_gather, which _p5_tma2d replaces.
-_P5_LAUNCH = '''  const size_t smem = sizeof(float) * (axis == 0
-      ? size_t(rows) * tile : size_t(tile < rows ? tile : rows) * lanes);
-  if (grid.y > 65535) return int(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (axis == 0) {
-    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
-    if (err != cudaSuccess) return int(err);
-    mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out);
-  } else {
-    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
-    if (err != cudaSuccess) return int(err);
-    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out);
-  }
-'''
-
-
-def _p5_tma2d(multicast: bool):
-    """Edits that stage P5's axis-0 slab with 2-D TMA boxes of up to 256
-    rows x C columns (a tensor map of x, one cp.async.bulk.tensor a box,
-    completing on an mbarrier); with multicast, the CTAs of a slab form a
-    cluster and each fetches every split-th box into all of them."""
-    mc = "true" if multicast else "false"
-    return [(
-        "#include <cuda_runtime.h>\n",
-        "#include <cooperative_groups.h>\n#include <cudaTypedefs.h>\n"
-        f"#include <cuda_runtime.h>\nconstexpr bool kMulticast = {mc};\n"), (
-        """                              int vec, float* __restrict__ out) {
-  extern __shared__ float4 slab4[];""",
-        """                              int vec, float* __restrict__ out,
-                              const __grid_constant__ CUtensorMap tmap) {
-  extern __shared__ float4 slab4[];"""), (
-        """    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    stage_rows(slab, tile, x + c0, lanes, rows, w, vec);""",
-        """    namespace cg = cooperative_groups;
-    const int c0 = blockIdx.x * tile, w = min(tile, lanes - c0);
-    const int r1 = min(int(blockIdx.y) * per + per, rows);
-    const int box_rows = min(rows, 256);
-    const int n_boxes = (rows + box_rows - 1) / box_rows;
-    const unsigned bar = unsigned(__cvta_generic_to_shared(
-        slab + size_t(n_boxes) * box_rows * tile));
-    if (vec) {
-      if (tid == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(bar));
-        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
-                bar), "r"(unsigned(n_boxes * box_rows * tile * 4))
-            : "memory");
-      }
-      if (kMulticast)
-        cg::this_cluster().sync();
-      else
-        __syncthreads();
-      const int cs = kMulticast ? int(gridDim.y) : 1;
-      const int rank =
-          kMulticast ? int(cg::this_cluster().block_rank()) : 0;
-      const unsigned long long map =
-          reinterpret_cast<unsigned long long>(&tmap);
-      for (int b = rank + cs * tid; b < n_boxes; b += cs * nt) {
-        const unsigned dst = unsigned(__cvta_generic_to_shared(
-            slab + size_t(b) * box_rows * tile));
-        if (kMulticast)
-          asm volatile(
-              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-              "complete_tx::bytes.multicast::cluster [%0], [%1, {%2, %3}],"
-              " [%4], %5;\\n" ::"r"(dst), "l"(map), "r"(c0),
-              "r"(b * box_rows), "r"(bar),
-              "h"((unsigned short)((1u << gridDim.y) - 1)) : "memory");
-        else
-          asm volatile(
-              "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-              "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\\n" ::"r"(dst),
-              "l"(map), "r"(c0), "r"(b * box_rows), "r"(bar) : "memory");
-      }
-    } else {
-      stage_rows(slab, tile, x + c0, lanes, rows, w, vec);
-    }"""), (
-        """    cp_async_wait<0>();
-    __syncthreads();
-    if (!live) return;
-    for (; r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }""",
-        """    if (vec)
-      asm volatile(
-          "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\\n"
-          " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar)
-          : "memory");
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-    for (; live && r < r1; r += step) {
-      const int k = next;
-      if (r + step < r1) next = __ldg(src + size_t(r + step) * lanes);
-      dst[size_t(r) * lanes] = rep_sum(slab, j, tile, k, rows, reps);
-    }
-    if (kMulticast) cg::this_cluster().sync();"""), (
-        _P5_LAUNCH,
-        """  const int box_rows = rows < 256 ? rows : 256;
-  const int n_boxes = (rows + box_rows - 1) / box_rows;
-  const size_t smem = axis == 0
-      ? sizeof(float) * size_t(n_boxes) * box_rows * tile + 8
-      : sizeof(float) * size_t(tile < rows ? tile : rows) * lanes;
-  if (grid.y > 65535 || (kMulticast && axis == 0 && grid.y > 8))
-    return int(cudaErrorInvalidValue);
-  CUtensorMap tmap = {};
-  if (axis == 0 && vec) {
-    static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-    if (encode == nullptr) {
-      void* fn = nullptr;
-      cudaDriverEntryPointQueryResult found;
-      if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
-                                           12000, cudaEnableDefault,
-                                           &found) != cudaSuccess ||
-          fn == nullptr)
-        return int(cudaErrorNotSupported);
-      encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-    }
-    const cuuint64_t dims[2] = {cuuint64_t(lanes), cuuint64_t(rows)};
-    const cuuint64_t strides[1] = {cuuint64_t(lanes) * sizeof(float)};
-    const cuuint32_t box[2] = {cuuint32_t(tile), cuuint32_t(box_rows)};
-    const cuuint32_t unit[2] = {1, 1};
-    if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-               const_cast<float*>(x), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return int(cudaErrorInvalidValue);
-  }
-  cudaError_t err;
-  if (axis == 0) {
-    err = allow_smem(mosaic_gather_kernel_slab<0>, smem);
-    if (err != cudaSuccess) return int(err);
-    if (kMulticast) {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = grid;
-      cfg.blockDim = dim3(threads);
-      cfg.dynamicSmemBytes = smem;
-      cfg.stream = s;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = 1;
-      attr[0].val.clusterDim.y = grid.y;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, mosaic_gather_kernel_slab<0>, x, idx,
-                               rows, lanes, reps, tile, per, vec, out, tmap);
-      if (err != cudaSuccess) return int(err);
-    } else {
-      mosaic_gather_kernel_slab<0><<<grid, threads, smem, s>>>(
-          x, idx, rows, lanes, reps, tile, per, vec, out, tmap);
-    }
-  } else {
-    err = allow_smem(mosaic_gather_kernel_slab<1>, smem);
-    if (err != cudaSuccess) return int(err);
-    mosaic_gather_kernel_slab<1><<<grid, threads, smem, s>>>(
-        x, idx, rows, lanes, reps, tile, per, vec, out, tmap);
-  }
-""")]
-
-
-def _slab_wherever_it_fits(rows, lanes, axis, reps):
+def _slab_wherever_it_fits(rows, lanes, axis, reps=1):
     return probes.slab_plan(rows, lanes, axis) or probes.direct_plan()
+
+
+def _two_column_slab(split: bool):
+    """P4's plan with a slab of 2 columns (at [16384, 128] 128 KiB a CTA,
+    staged in 8-byte pieces) where no slab of P5's plan fits along axis 0,
+    the tree's plan elsewhere.  With split, the CTAs of a slab split its
+    output rows to fill the SMs (P5_SMS), whatever they restage; without,
+    each slab is staged once."""
+    def plan(rows, lanes, axis):
+        if (axis != 0 or probes.slab_plan(rows, lanes, axis) is not None
+                or rows * 2 * 4 > probes.P5_SMEM):
+            return probes.mosaic_gather_plan(rows, lanes, axis, 1)
+        n = max(1, probes.P5_SMS // -(-lanes // 2)) if split else 1
+        per = -(-rows // n)
+        return probes.GatherPlan("slab", 2, per,
+                                 min(probes.P5_THREADS, -(-per * 2 // 32) * 32))
+    return plan
 
 
 # P5 plans other than the tree's: name -> the attributes of ops/probes.py
@@ -542,7 +272,18 @@ PLAN_VARIANTS = {
     # CTAs the plan aims at: half a wave (fewer slabs restaged), two waves
     "p5_ctas66": {"P5_SMS": 66},
     "p5_ctas264": {"P5_SMS": 264},
+    # P4: the direct route at every shape; a slab wherever one fits
+    "p4_direct": {"gather_plan": lambda *_: probes.direct_plan()},
+    "p4_slab": {"gather_plan": _slab_wherever_it_fits},
+    # P4 at [16384, 128]: 2-column slabs, 2 CTAs a slab (128 CTAs, 16 MiB
+    # restaged) or one (64 CTAs, the table staged once)
+    "p4_slab2": {"gather_plan": _two_column_slab(True)},
+    "p4_slab2_once": {"gather_plan": _two_column_slab(False)},
 }
+
+# Another checkout's P4 has the direct route alone (`pbr_probe_gather`):
+# its runs take it at every shape.
+OTHER_PLANS = {"p4": {"gather_plan": lambda *_: probes.direct_plan()}}
 
 # name -> (source, [(text, replacement), ...]).
 VARIANTS = {
@@ -595,23 +336,21 @@ VARIANTS = {
                                      "constexpr int kStackThreads = 256;")]),
     "p1_threads1024": ("probes.cu", [("constexpr int kStackThreads = 512;",
                                       "constexpr int kStackThreads = 1024;")]),
-    # P5: the slab staged by the TMA, one bulk copy a row (cp.async.bulk
-    # completing on an mbarrier), in place of 16-byte cp.async.
-    "p5_tma": ("mosaic.cu", _P5_TMA),
-    # P5 along axis 0: the CTAs of a slab (a column group) form a thread
-    # block cluster; each stages 1/split of the slab's rows and gathers
-    # from all of them over distributed shared memory, so the table is
-    # read from L2 once.
-    "p5_cluster": ("mosaic.cu", _P5_CLUSTER),
-    # P5 along axis 0: the CTAs of a slab form a cluster, each fetches
-    # 1/split of the slab's rows by TMA multicast into every CTA of the
-    # cluster (cp.async.bulk ... multicast::cluster on an mbarrier), so
-    # the table is read from L2 once and the gathers stay local.
-    "p5_multicast": ("mosaic.cu", _P5_MULTICAST),
-    # P5 along axis 0: the slab staged by 2-D TMA boxes of a tensor map (up
-    # to 256 rows a box), alone and multicast over the slab's cluster.
-    "p5_tma2d": ("mosaic.cu", _p5_tma2d(False)),
-    "p5_tma2d_multicast": ("mosaic.cu", _p5_tma2d(True)),
+    # P3: output rows a CTA (two threads a row).
+    "p3_outs64": ("probes.cu", [("constexpr int kOhOuts = 128;",
+                                 "constexpr int kOhOuts = 64;")]),
+    "p3_outs256": ("probes.cu", [("constexpr int kOhOuts = 128;",
+                                  "constexpr int kOhOuts = 256;")]),
+    # P4's direct route: four or eight consecutive outputs a thread (int4
+    # index loads, the gathers in flight together, float4 stores); threads
+    # a CTA; x read through L2 alone (ld.global.cg: no L1 line allocated
+    # for a random row).
+    "p4_direct4": ("probes.cu", _p4_consecutive(4)),
+    "p4_direct8": ("probes.cu", _p4_consecutive(8)),
+    "p4_threads128": ("probes.cu", _p4_threads(128)),
+    "p4_threads512": ("probes.cu", _p4_threads(512)),
+    "p4_l2": ("probes.cu", [("  out[e] = __ldg(x + (kAxis == 0",
+                             "  out[e] = __ldcg(x + (kAxis == 0")]),
     # P6: threads of its one CTA.
     "p6_threads256": ("mosaic.cu", _p6_threads(256)),
     "p6_threads1024": ("mosaic.cu", _p6_threads(1024)),
@@ -837,6 +576,41 @@ P5_SWEEP_SHAPES = ((16, 16384, 1, 4), (64, 4096, 1, 8), (4096, 128, 0, 1),
                    (256, 512, 0, 1), (256, 512, 1, 1))
 
 
+def p3_cases(dev):
+    """{label: (win, rows)}: the probe's data and the edge data."""
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"P3 [1024,512]x[32,512]": tuple(map(t, probe2.onehot_inputs())),
+            "P3 edge [1024,512]x[32,512]": tuple(
+                map(t, probe2.onehot_edge_inputs()))}
+
+
+def p3_check(case):
+    if not probes.same_or_both_nan(probes.onehot_mm(*case),
+                                   probes.onehot_mm_plain(*case)):
+        raise AssertionError("P3 differs from its plain version")
+
+
+def p4_cases(dev):
+    """{label: (x, idx, axis)}: the tool's five shapes on the probe's data
+    (timed), each checked also with indices at -1, past the end and at the
+    int32 extremes and -0.0 in x (`tools/probe2.py::gather_edge_inputs`)."""
+    out = {}
+    for tag, (rows, lanes, axis) in probe2.GATHER_SHAPES.items():
+        x, idx = probe2.gather_inputs(rows, lanes, axis)
+        out[f"P4 {tag} [{rows},{lanes}] axis {axis}"] = (
+            torch.from_numpy(x).to(dev), torch.from_numpy(idx).to(dev), axis)
+    return out
+
+
+def p4_check(case):
+    x, _, axis = case
+    edge = probe2.gather_edge_inputs(*x.shape, axis)
+    for c in (case, (*(torch.from_numpy(a).to(x.device) for a in edge),
+                     axis)):
+        if not probes.same_bits(probes.gather(*c), probes.gather_plain(*c)):
+            raise AssertionError("P4 differs from its plain version")
+
+
 def p5_cases(dev):
     """{label: (x, idx, axis, reps)}: the tool's ten shapes and
     P5_SWEEP_SHAPES on random floats, indices in [-3 size, 3 size)."""
@@ -880,9 +654,10 @@ def p6_check(boxes):
         raise AssertionError("P6 differs from its plain version")
 
 
-CASES = ("k4", "k5b", "k2", "p1", "p5", "p6")
+CASES = ("k4", "k5b", "k2", "p1", "p3", "p4", "p5", "p6")
 CASE_SOURCES = {"k4": "fused.cu", "k5b": "gather.cu", "k2": "resident.cu",
-                "p1": "probes.cu", "p5": "mosaic.cu", "p6": "mosaic.cu"}
+                "p1": "probes.cu", "p3": "probes.cu", "p4": "probes.cu",
+                "p5": "mosaic.cu", "p6": "mosaic.cu"}
 
 
 def main(argv=None) -> int:
@@ -943,6 +718,16 @@ def main(argv=None) -> int:
                 cases.append(("p1", label, "probes.cu", b, p1_check,
                               lambda b=b: probes.scalar_stack(b), 200,
                               "probe_scalar_stack_kernel"))
+        if "p3" in chosen:
+            cases += [("p3", label, "probes.cu", case, p3_check,
+                       lambda c=case: probes.onehot_mm(*c), 200,
+                       "probe_onehot_mm_kernel")
+                      for label, case in p3_cases(dev).items()]
+        if "p4" in chosen:
+            cases += [("p4", label, "probes.cu", case, p4_check,
+                       lambda c=case: probes.gather(*c), 200,
+                       "probe_gather_kernel")
+                      for label, case in p4_cases(dev).items()]
         if "p5" in chosen:
             cases += [("p5", label, "mosaic.cu", case, p5_check,
                        lambda c=case: probes.mosaic_gather(*c), 200,
@@ -957,11 +742,11 @@ def main(argv=None) -> int:
         results = []
         for key, label, src, data, check, call, iters, kernel in cases:
             # a named variant runs on its own case; another checkout's
-            # source on every case of that source but P5's
-            mine = lambda n: (n.startswith(f"{key}_") if n in VARIANTS
-                              else key != "p5")
+            # source on every case of that source, with OTHER_PLANS
+            mine = lambda n: n.startswith(f"{key}_") or n not in VARIANTS
             runs = [("tree", base, None)] + [
-                (name, lib, None) for name, (s, lib) in overlays.items()
+                (name, lib, None if name in VARIANTS else OTHER_PLANS.get(key))
+                for name, (s, lib) in overlays.items()
                 if s == src and mine(name)] + [
                 (name, base, kw) for name, kw in plans.items()
                 if name.startswith(f"{key}_")] + [("tree", base, None)]

@@ -706,6 +706,90 @@ def test_p4_kernel_matches_plain(cuda_device, tag):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,r,l", [(1024, 32, 512), (100, 7, 64),
+                                   (33, 32, 1500)])
+def test_p3_kernel_matches_plain_on_non_finite_rows(cuda_device, n, r, l):
+    """Rows with +-0.0, inf, -inf and NaN, win at -1, at L, at a non-finite
+    lane and in range: NaN where the plain version has NaN, every other
+    value bit for bit."""
+    win, rows = (torch.from_numpy(a).to(cuda_device)
+                 for a in probe2.onehot_edge_inputs(n, r, l))
+    before = probes.LAUNCHES["onehot_mm"]
+    got = probes.onehot_mm(win, rows)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["onehot_mm"] == before + 1
+    assert probes.same_or_both_nan(got, probes.onehot_mm_plain(win, rows))
+    assert probes.same_or_both_nan(got, probes.onehot_mm_plain(win.cpu(),
+                                                               rows.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", sorted(probe2.GATHER_SHAPES))
+def test_p4_kernel_matches_plain_on_edge_data(cuda_device, tag):
+    """-0.0 in x comes out as -0.0; indices at -1, past the end and at the
+    int32 extremes are clamped; one launch."""
+    rows, lanes, axis = probe2.GATHER_SHAPES[tag]
+    x, idx = (torch.from_numpy(a).to(cuda_device)
+              for a in probe2.gather_edge_inputs(rows, lanes, axis))
+    before = probes.LAUNCHES["gather"]
+    got = probes.gather(x, idx, axis)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["gather"] == before + 1
+    assert probes.same_bits(got, probes.gather_plain(x, idx, axis))
+
+
+def _two_column_slab(rows, lanes, axis):
+    per = -(-rows // 2)
+    return probes.GatherPlan("slab", 2, per, min(1024, -(-per * 2 // 32) * 32))
+
+
+_P4_SHAPES = [*probe2.GATHER_SHAPES.values(), (37, 53, 0), (37, 53, 1),
+              (6, 130, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,shape", [
+    (route, shape) for route in ("direct", "slab", "slab2")
+    for shape in _P4_SHAPES if route != "slab2" or shape[2] == 0])
+def test_p4_routes_match_plain(cuda_device, monkeypatch, route, shape):
+    """Each of P4's routes at every shape of the tool and at ragged ones
+    (lanes not a multiple of 4: 4- and 8-byte slab pieces; 2-column slabs
+    along axis 0 only), also on a table and indices that do not start on a
+    16-byte boundary."""
+    rows, lanes, axis = shape
+    plans = {"direct": lambda *_: probes.direct_plan(),
+             "slab": lambda r, l, a: (probes.slab_plan(r, l, a)
+                                      or _two_column_slab(r, l, a)),
+             "slab2": _two_column_slab}
+    monkeypatch.setattr(probes, "gather_plan", plans[route])
+    x_np, idx_np = probe2.gather_edge_inputs(rows, lanes, axis, seed=3)
+    for offset in (0, 1):
+        x = torch.empty(x_np.size + offset, device=cuda_device)
+        x[offset:] = torch.from_numpy(x_np.reshape(-1)).to(cuda_device)
+        idx = torch.empty(idx_np.size + offset, dtype=torch.int32,
+                          device=cuda_device)
+        idx[offset:] = torch.from_numpy(idx_np.reshape(-1)).to(cuda_device)
+        x, idx = (t[offset:].view(rows, lanes) for t in (x, idx))
+        before = probes.LAUNCHES["gather"]
+        got = probes.gather(x, idx, axis)
+        torch.cuda.synchronize()
+        assert probes.LAUNCHES["gather"] == before + 1
+        assert probes.same_bits(got, probes.gather_plain(x, idx, axis))
+
+
+@pytest.mark.cuda
+def test_sector_read_matches_plain(cuda_device):
+    g = np.random.default_rng(4)
+    table = torch.from_numpy(g.normal(size=(16384, 128)).astype(
+        np.float32)).to(cuda_device)
+    addr = torch.from_numpy(g.integers(0, table.numel(), 1 << 16).astype(
+        np.int32)).to(cuda_device)
+    got = probes.sector_read(table, addr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.sector_read_plain(table, addr))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", probe_mosaic.GATHER_CASES,
                          ids=lambda c: f"{c[0]}x{c[1]}-axis{c[2]}")
 def test_p5_kernel_matches_plain(cuda_device, case):

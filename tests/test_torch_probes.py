@@ -232,6 +232,74 @@ def test_onehot_mm_matches_the_reference_kernel(ref_probe2, capsys):
         probes.onehot_mm(torch.from_numpy(lane), torch.zeros(33, 8))
 
 
+def _reference_onehot_body(win, rows):
+    """The reference kernel's body (tools/probe2.py:136-143) on the CPU:
+    the one-hot mask of each output row's winning lane, contracted with the
+    rows over the lanes by jax.lax.dot_general."""
+    import jax
+    import jax.numpy as jnp
+    lane = jax.lax.broadcasted_iota(jnp.int32, (win.shape[0], rows.shape[1]),
+                                    1)
+    mask = (lane == jnp.asarray(win)).astype(jnp.float32)
+    return np.array(jax.lax.dot_general(
+        mask, jnp.asarray(rows), dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32))
+
+
+def _count_then_select(win, rows):
+    """The kernel's algorithm (csrc/probes.cu) in torch: count each row's
+    non-finite entries, then take rows[c, w] + 0.0, or NaN where the row
+    holds a non-finite entry at another lane; for w outside [0, L), +0.0
+    or that NaN."""
+    n_lanes = rows.shape[1]
+    bad = (~torch.isfinite(rows)).sum(dim=1)
+    w = win[:, 0].long()
+    inside = ((w >= 0) & (w < n_lanes))[:, None]
+    v = torch.where(inside, rows[:, w.clamp(0, n_lanes - 1)].t(),
+                    torch.tensor(0.0))
+    others = bad[None, :] - (inside & ~torch.isfinite(v)).int()
+    return torch.where(others > 0, torch.tensor(float("nan")),
+                       v + torch.tensor(0.0))
+
+
+_EDGE_SHAPES = [(1024, 32, 512), (100, 7, 64), (33, 32, 1500)]
+
+
+@pytest.mark.parametrize("n,r,l", _EDGE_SHAPES)
+def test_onehot_mm_plain_is_the_reference_body_on_non_finite_rows(n, r, l):
+    """On rows with +-0.0, inf, -inf and NaN and win at -1, at L, at a
+    non-finite lane and in range, the plain version and the reference's
+    mask-and-dot_general agree: NaN at the same places, every other value
+    bit for bit (the sign of zero included)."""
+    win, rows = probe2.onehot_edge_inputs(n, r, l)
+    got = probes.onehot_mm(torch.from_numpy(win), torch.from_numpy(rows))
+    want = torch.from_numpy(_reference_onehot_body(win, rows))
+    assert probes.same_or_both_nan(got, want)
+    # the edge data reaches every case: NaN from another lane, a non-finite
+    # value at the winning lane, -0.0 at it (+0.0 out) and win outside
+    finite = np.isfinite(rows)
+    at = rows[:, np.clip(win[:, 0], 0, l - 1)].T
+    inside = ((win >= 0) & (win < l))
+    assert got.isnan().any() and torch.isinf(got).any()
+    assert (inside & (at == 0) & np.signbit(at) & finite.all(1)[None]).any()
+    assert (~inside).any() and not torch.signbit(got[got == 0]).any()
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+@pytest.mark.parametrize("n,r,l", _EDGE_SHAPES)
+def test_onehot_mm_count_then_select_equals_plain(n, r, l, seed):
+    """The kernel's algorithm, modelled in torch, equals the plain version
+    on the edge data and on the probe's kind of data."""
+    for win, rows in (probe2.onehot_edge_inputs(n, r, l, seed),
+                      (np.random.default_rng(seed).integers(
+                          -2, l + 2, (n, 1)).astype(np.int32),
+                       np.random.default_rng(seed).normal(
+                           size=(r, l)).astype(np.float32))):
+        win, rows = torch.from_numpy(win), torch.from_numpy(rows)
+        assert probes.same_or_both_nan(_count_then_select(win, rows),
+                                       probes.onehot_mm_plain(win, rows))
+
+
 # --------------------------------------------------------------------- P4
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -269,6 +337,74 @@ def test_gather_clamps_and_rejects():
         probes.gather(x.int(), idx, 0)
     with pytest.raises(ValueError):
         probes.gather(x.t(), idx.t(), 0)            # not contiguous
+
+
+@pytest.mark.parametrize("tag", sorted(probe2.GATHER_SHAPES))
+def test_gather_plain_clamps_and_keeps_negative_zero(tag):
+    """On x with +-0.0 and indices at -1, past the end and at the int32
+    extremes, P4 is take_along_axis of the clamped indices bit for bit."""
+    rows, lanes, axis = probe2.GATHER_SHAPES[tag]
+    x, idx = probe2.gather_edge_inputs(rows, lanes, axis)
+    want = np.take_along_axis(x, np.clip(idx, 0, x.shape[axis] - 1), axis)
+    got = probes.gather(torch.from_numpy(x), torch.from_numpy(idx), axis)
+    assert probes.same_bits(got, torch.from_numpy(want))
+    assert np.signbit(want[want == 0]).any()
+    assert (idx < 0).any() and (idx >= x.shape[axis]).any()
+
+
+@pytest.mark.parametrize("tag", sorted(probe2.GATHER_SHAPES))
+def test_gather_plan_is_p5s_at_one_rep(tag):
+    """P4's route is P5's plan at reps 1: its byte model sends gather_rows
+    to a 16-column slab and the other four shapes to the direct route
+    (gather_tex's table fits no slab of P5's)."""
+    rows, lanes, axis = probe2.GATHER_SHAPES[tag]
+    plan = probes.gather_plan(rows, lanes, axis)
+    assert plan == probes.mosaic_gather_plan(rows, lanes, axis, 1)
+    assert plan.route == ("slab" if tag == "gather_rows" else "direct")
+    assert (probes.slab_plan(rows, lanes, axis) is None) == (
+        tag == "gather_tex")
+
+
+def test_sector_read_plain_and_checks():
+    g = np.random.default_rng(2)
+    table = g.normal(size=(64, 8)).astype(np.float32)
+    addr = g.integers(0, table.size, 40).astype(np.int32)
+    got = probes.sector_read(torch.from_numpy(table), torch.from_numpy(addr))
+    v = table.reshape(-1)[addr].reshape(-1, 4)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3])
+    with pytest.raises(ValueError):
+        probes.sector_read(torch.from_numpy(table), torch.from_numpy(addr[:6]))
+    with pytest.raises(ValueError):
+        probes.sector_read(torch.from_numpy(table).double(),
+                           torch.from_numpy(addr))
+
+
+def test_sweep_source_variants_match_their_sources():
+    """Every edit of a source variant of `tools/sweep.py` matches its
+    source exactly once, so that none fails the sweep; the P4 plan variants
+    give plans that cover every output of the tool's shapes."""
+    from physically_based_renderer_tpu_torch.ops import cuda_lib
+    from physically_based_renderer_tpu_torch.tools import sweep
+    for name, (src, edits) in sweep.VARIANTS.items():
+        text = (cuda_lib.CSRC / src).read_text()
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
+    for name, attrs in sweep.PLAN_VARIANTS.items():
+        if not name.startswith("p4_"):
+            continue
+        for rows, lanes, axis in probe2.GATHER_SHAPES.values():
+            plan = attrs["gather_plan"](rows, lanes, axis)
+            gx, gy = plan.grid(rows, lanes, axis)
+            assert plan.slab_bytes(rows, lanes, axis) <= probes.P5_SMEM
+            if plan.route == "direct":
+                assert gx * plan.threads >= rows * lanes, name
+            elif axis == 0:
+                assert gx * plan.tile >= lanes and gy * plan.per >= rows
+            else:
+                assert gx * plan.tile >= rows and gy * plan.per >= lanes
+    assert sweep._two_column_slab(True)(16384, 128, 0) == probes.GatherPlan(
+        "slab", 2, 8192, 1024)
 
 
 # ------------------------------------------------------------------- tool
