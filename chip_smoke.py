@@ -105,11 +105,17 @@ of which raises on failure (an uncaught exception exits non-zero):
      launches, device idle share and K1's and K5a's shares of the device
      time;
  12. the probes P5-P8 (`ops/probes.py`, `csrc/mosaic.cu`) against their
-     plain versions at every shape of their tools (P5-P7 exact, P8 within
-     1e-6 relative and the reference's own check), with device, wrapper
-     and plain times and bounds; P5 also on random floats with indices in
-     [-3 size, 3 size), at reps 0 and 1, where no slab fits shared memory
-     and at rows and lanes that are not multiples of 4, each shape with
+     plain versions at every shape of their tools (bit for bit; P8 also
+     the reference's own check), with device, wrapper and plain times and
+     bounds; P7 on the probe's, random and edge data (dets about +-1e-9, at
+     and above 2^126, inf and NaN), each beside an empty kernel; P8 on
+     both routes (each tile's rows summed once, the route rule's at the
+     tool's shape; the direct route, the parent's kernel) beside the
+     every-copy read ceiling under the direct route (`subtile_read`) and
+     the yardstick src.sum(1) then embedding_bag; P5 also on random
+     floats with indices in [-3 size, 3 size), at reps 0 and 1, where no
+     slab fits shared memory and at rows and lanes that are not multiples
+     of 4, each shape with
      its plan and the L2 bytes the plan moves, and at reps 1 beside
      torch.gather (the kernels line's P5 entry: one call, [1024,512] axis
      0 x1); P6 also at 8,191 nodes, beside an empty kernel and the depth
@@ -1616,7 +1622,7 @@ def cuobjdump(flag):
 
 def kernel_resources():
     """Registers and local-memory (spill) bytes a thread of each K1, K2,
-    K4, K5a, K5b, P1, P3, P4, P5 and P6 instantiation, as ptxas allotted them
+    K4, K5a, K5b, P1, P3-P8 instantiation, as ptxas allotted them
     (`cuobjdump -res-usage` on the built library), keyed by the mangled
     name up to its parameters: trace_blocks_kernelILb<any hit>ELi<rays a
     thread>E, resident_kernelILb<any hit>E, fused_kernel,
@@ -1624,12 +1630,13 @@ def kernel_resources():
     gather_bwd_kernelI<index type><accumulator><column groups>E,
     probe_scalar_stack_kernel, probe_onehot_mm_kernel,
     probe_gather_kernel_<route>ILi<axis>E[Lb<vector>E],
-    mosaic_gather_kernel_<route>ILi<axis>E, mosaic_scalar_stack_kernel."""
+    mosaic_gather_kernel_<route>ILi<axis>E, mosaic_scalar_stack_kernel,
+    mosaic_chunk_kernel, subtile_copy_kernel_<route>, subtile_read_kernel."""
     import re
 
     usage = cuobjdump("-res-usage")
     if usage is None:
-        print("K1/K2/K4/K5/P1/P3/P4/P5/P6 registers: not measured (no "
+        print("K1/K2/K4/K5/P1/P3-P8 registers: not measured (no "
               "cuobjdump)")
         return None
     out = {}
@@ -1638,14 +1645,16 @@ def kernel_resources():
                           r"gather_fwd_kernel_\w+?|gather_bwd_kernel|"
                           r"probe_scalar_stack_kernel|probe_onehot_mm_kernel|"
                           r"probe_gather_kernel_\w+?|mosaic_gather_kernel_"
-                          r"\w+?|mosaic_scalar_stack_kernel)"
+                          r"\w+?|mosaic_scalar_stack_kernel|"
+                          r"mosaic_chunk_kernel|subtile_copy_kernel_\w+?|"
+                          r"subtile_read_kernel)"
                           r"(I\w*?E)?(?:E|v)", name)
         if short:
             res = dict(re.findall(r"(\w+):(\d+)", line))
             out[short.group(1) + (short.group(2) or "")] = {
                 "registers": int(res["REG"]), "stack_bytes": int(res["STACK"]),
                 "local_bytes": int(res["LOCAL"])}
-    print(f"K1/K2/K4/K5/P1/P3/P4/P5/P6 registers a thread (cuobjdump "
+    print(f"K1/K2/K4/K5/P1/P3-P8 registers a thread (cuobjdump "
           f"-res-usage) "
           f"[{card_line()}]: {out}")
     return out
@@ -1902,8 +1911,9 @@ def phase_probes(dev):
 
 def phase_mosaic(dev):
     """P5-P8 against their plain versions at every shape of their tools
-    (P5, P6, P7 exact; P8 within P8_REL), their times and bounds; then the
-    two tools themselves, for the launch counts."""
+    (bit for bit), their times and bounds; P8 on both routes beside its
+    every-copy read ceiling and a two-call yardstick; then the two tools
+    themselves, for the launch counts."""
     import numpy as np
     import torch
 
@@ -2053,10 +2063,18 @@ def phase_mosaic(dev):
         "library_ms": None, "empty_kernel_ms": empty_ms, "by_set": by_set,
         "max_abs_err": p6_err, "shape": "2,047 boxes, every box passes"}
 
-    # P7: the probe's data (all ones: every test masked) and random data
-    # where the mask passes; timed on the random data.
+    # P7: the probe's data (all ones: every test masked), random data where
+    # the mask passes and the edge data (dets about +-1e-9, at and above
+    # 2^126, inf and NaN in t), each bit-equal to its plain version and
+    # timed beside the empty kernel; the kernels line carries the random
+    # data's time.
     b, w, n_chunks = probe_mosaic.CHUNK
     p7_err = 0.0
+    p7_sets = {}
+    # per test 10 float operations (px 1, det 2, 1/det 1, u 1, v 2, t 2,
+    # u + v 1); per chunk and column 4 more for e0 and e1; reads o's row 0
+    # and t's rows 0-1, writes b floats
+    p7_bound = bound((2 * b + 2 * w) * 4, n_chunks * (b * w * 10 + w * 4))
     for data in probe_mosaic.CHUNK_DATA:
         o_np, t_np = probe_mosaic.chunk_inputs(data)
         o, tt = t(o_np), t(t_np)
@@ -2064,47 +2082,95 @@ def phase_mosaic(dev):
         torch.cuda.synchronize()
         want = probes.chunk_plain(o.cpu(), tt.cpu(), n_chunks)
         p7_err = max(p7_err, float((got.cpu() - want).abs().max()))
-        if not torch.equal(got.cpu(), want):
+        if not probes.same_bits(got.cpu(), want):
             raise AssertionError(f"P7 [{data}]: kernel and plain differ")
-        print(f"P7 chunk[{data}]: bit-equal to its plain version, "
-              f"{int((want < 1e30).sum())} of {b} rays hit")
+        ms, _ = device_ms(lambda: probes.chunk(o, tt, n_chunks), 200,
+                          "mosaic_chunk_kernel")
+        hits = int((want < 1e30).sum())
+        p7_sets[data] = {"ms": ms, "hits": hits}
+        print(f"P7 chunk[{data}]: bit-equal to its plain version, {hits} "
+              f"of {b} rays hit, device {ms * 1e3:.2f} us, empty kernel "
+              f"{empty_ms * 1e3:.2f} us, operations bound "
+              f"{p7_bound[0] * 1e3:.3f} us [{card_line()}]")
+    # The random data at 4 chunks and at none: the kernel's cost without
+    # a test, and a chunk's.
+    o, tt = (t(a) for a in probe_mosaic.chunk_inputs("random"))
+    for k in (4, 0):
+        got = probes.chunk(o, tt, k)
+        if not probes.same_bits(got.cpu(), probes.chunk_plain(
+                o.cpu(), tt.cpu(), k)):
+            raise AssertionError(f"P7 [random] x{k}: kernel and plain differ")
+        ms, _ = device_ms(lambda: probes.chunk(o, tt, k), 200,
+                          "mosaic_chunk_kernel")
+        p7_sets[f"random x{k}"] = {"ms": ms, "hits": int((got < 1e30).sum())}
+        print(f"P7 chunk[random] at {k} chunks: device {ms * 1e3:.2f} us "
+              f"[{card_line()}]")
     call = lambda: probes.chunk(o, tt, n_chunks)
-    ms, _ = device_ms(call, 200, "mosaic_chunk_kernel")
+    ms = p7_sets["random"]["ms"]
     out["probe_chunk"] = {
         "ms": ms, "wrapper_ms": time_ms(call, 200),
         "plain_ms": time_ms(lambda: probes.chunk_plain(o, tt, n_chunks), 10),
-        # per test 10 float operations (px 1, det 2, 1/det 1, u 1, v 2,
-        # t 2, u + v 1); per chunk and column 4 more for e0 and e1; reads
-        # o's row 0 and t's rows 0-1, writes b floats
-        "bound": bound((2 * b + 2 * w) * 4,
-                       n_chunks * (b * w * 10 + w * 4)),
-        "library_ms": None, "us_per_chunk": ms * 1e3 / n_chunks,
+        "bound": p7_bound, "library_ms": None,
+        "empty_kernel_ms": empty_ms,
+        "ratio_to_floor": ms / max(p7_bound[0], empty_ms),
+        "us_per_chunk": ms * 1e3 / n_chunks, "by_set": p7_sets,
         "max_abs_err": p7_err,
         "shape": f"{b} rays x {w} columns x {n_chunks} chunks"}
 
-    # P8: the tool's shape; kernel against the plain version (rows summed
-    # in one order) and the reference's host check.
+    # P8 at the tool's shape: each route bit-equal to the plain version,
+    # the route rule's (each tile's rows summed once, then gathered) also
+    # within the reference's host check; each timed per call over all of
+    # its kernels (one launch either route) beside the direct route (the
+    # parent's kernel, unchanged), the every-copy read ceiling under it
+    # (`subtile_read`: the same 67.1 MB of copies in the same order, no
+    # float arithmetic) and, as a yardstick of two PyTorch calls (no one
+    # call computes the function), src.sum(1) then embedding_bag.
     src_np, idx_np = exp_subtile_dma.inputs(0)
     src, idx = t(src_np), t(idx_np)
-    ni, ch = exp_subtile_dma.NI, exp_subtile_dma.CH
-    got = probes.subtile_copy(src, idx, ni, ch)
+    nb, ni, ch = exp_subtile_dma.NB, exp_subtile_dma.NI, exp_subtile_dma.CH
     plain = probes.subtile_copy_plain(src, idx, ni, ch)
-    torch.cuda.synchronize()
-    rel = float(((got - plain).abs() / plain.abs()).max())
-    ok_ref = np.allclose(got.cpu().numpy()[:, 0], exp_subtile_dma.expected(
-        src_np, idx_np, exp_subtile_dma.NB), rtol=exp_subtile_dma.REF_RTOL)
-    if rel > exp_subtile_dma.PLAIN_RTOL or not ok_ref:
-        raise AssertionError(f"P8: rel diff to plain {rel}, reference check "
-                             f"{ok_ref}")
-    print(f"P8 subtile copy: max rel diff to its plain version {rel:.3g}, "
-          "the reference's check holds")
+    route_rule = probes.subtile_copy_route
+    route = route_rule(src.shape[0], idx.numel())
     call = lambda: probes.subtile_copy(src, idx, ni, ch)
-    ms, _ = device_ms(call, 100, "subtile_copy_kernel")
+    p8_routes = {}
+    p8_err = 0.0
+    for r in ("row_sums", "direct"):
+        probes.subtile_copy_route = lambda *_, r=r: r
+        try:
+            got = call()
+            torch.cuda.synchronize()
+            p8_err = max(p8_err, float((got - plain).abs().max()))
+            if not probes.same_bits(got, plain):
+                raise AssertionError(f"P8 {r}: kernel and plain differ")
+            ms, _ = device_ms(call, 100, "subtile_copy_kernel")
+            p8_routes[r] = {"ms": ms, "wrapper_ms": time_ms(call, 100)}
+        finally:
+            probes.subtile_copy_route = route_rule
+    got = call()
+    ok_ref = np.allclose(got.cpu().numpy()[:, 0], exp_subtile_dma.expected(
+        src_np, idx_np, nb), rtol=exp_subtile_dma.REF_RTOL)
+    if not ok_ref:
+        raise AssertionError("P8: the reference's host check fails")
+    read = probes.subtile_read(src, idx, ni, ch)
+    torch.cuda.synchronize()
+    if not torch.equal(read, probes.subtile_read_plain(src, idx, ni, ch)):
+        raise AssertionError("P8's copy read ceiling and its plain differ")
+    ceiling_ms, _ = device_ms(lambda: probes.subtile_read(src, idx, ni, ch),
+                              100, "subtile_read_kernel")
+    bags = idx.long().reshape(nb, ni, ch).transpose(1, 2).reshape(
+        nb * ch, ni).contiguous()
+    yardstick = lambda: torch.nn.functional.embedding_bag(
+        bags, src.sum(1), mode="sum").reshape(nb, 1, ch * 32)
+    yard_rel = float(((yardstick() - plain).abs() / plain.abs()).max())
+    yard_ms, _ = device_ms(yardstick, 100, None)
     n_copies = idx.numel()
     distinct = int(torch.unique(idx).numel())
     small = idx.numel() * 4 + got.numel() * 4
+    copy_bytes = n_copies * exp_subtile_dma.TILE_BYTES
+    ms = p8_routes[route]["ms"]
     out["subtile_dma"] = {
-        "ms": ms, "wrapper_ms": time_ms(call, 100),
+        "ms": ms, "wrapper_ms": p8_routes[route]["wrapper_ms"],
+        "route": route, "routes": p8_routes,
         "plain_ms": time_ms(lambda: probes.subtile_copy_plain(
             src, idx, ni, ch), 10),
         # each distinct tile read once (the table's 8.4 MB fits in L2), the
@@ -2112,13 +2178,26 @@ def phase_mosaic(dev):
         # 16 adds per output lane a step
         "bound": bound(distinct * exp_subtile_dma.TILE_BYTES + small,
                        n_copies * 32 * 16),
-        "bound_all_copies": bound(n_copies * exp_subtile_dma.TILE_BYTES
-                                  + small, n_copies * 32 * 16),
-        "distinct_tiles": distinct, "max_rel_plain": rel,
-        "gb_per_s": n_copies * exp_subtile_dma.TILE_BYTES / ms / 1e6,
-        "library_ms": None,
-        "shape": f"{exp_subtile_dma.NB} x {ni} x {ch} copies of 2 KB"}
-    out["subtile_dma"]["max_abs_err"] = float((got - plain).abs().max())
+        "bound_all_copies": bound(copy_bytes + small, n_copies * 32 * 16),
+        "copy_ceiling_ms": ceiling_ms,
+        "copy_ceiling_tb_per_s": copy_bytes / ceiling_ms / 1e9,
+        "distinct_tiles": distinct, "max_abs_err": p8_err,
+        "library_ms": None, "yardstick_ms": yard_ms,
+        "yardstick": "src.sum(1) then embedding_bag(mode='sum'), device "
+                     "time of both calls",
+        "yardstick_max_rel": yard_rel,
+        "shape": f"{nb} x {ni} x {ch} copies of 2 KB"}
+    e = out["subtile_dma"]
+    print(f"P8 subtile copy ({nb} x {ni} x {ch} copies of 2 KB): bit-equal "
+          f"to its plain version on both routes, the reference's check "
+          f"holds; {route} (the route rule's) device "
+          f"{ms * 1e3:.2f} us, direct {p8_routes['direct']['ms'] * 1e3:.2f} "
+          f"us, every-copy read ceiling {ceiling_ms * 1e3:.2f} us "
+          f"({e['copy_ceiling_tb_per_s']:.2f} TB/s of {copy_bytes} B), "
+          f"byte bound {e['bound'][0] * 1e3:.3f} us ({distinct} distinct "
+          f"tiles; {e['bound_all_copies'][0] * 1e3:.3f} us every copy), "
+          f"yardstick src.sum(1) + embedding_bag {yard_ms * 1e3:.2f} us "
+          f"(max rel diff {yard_rel:.3g}) [{card_line()}]")
     for name, e in out.items():
         print(f"{name} ({e['shape']}): device {e['ms'] * 1e3:.2f} us, wrapper "
               f"{e['wrapper_ms'] * 1e3:.2f} us, plain "
@@ -2701,10 +2780,22 @@ def main() -> int:
               e["wrapper_ms"], e["plain_ms"], e["bound"], e["library_ms"])
         for name, replaces in (
             ("probe_mosaic_gather", "tools/probe_mosaic.py:37"),
-            ("probe_mosaic_stack", "tools/probe_mosaic.py:83"),
-            ("probe_chunk", "tools/probe_mosaic.py:148"),
-            ("subtile_dma", "tools/exp_subtile_dma.py:14"))
+            ("probe_mosaic_stack", "tools/probe_mosaic.py:83"))
         for e in (mosaic_times[name],)
+    ] + [
+        {**entry("probe_chunk", "mosaic.cu", "tools/probe_mosaic.py:148",
+                 e["max_abs_err"], e["ms"], e["wrapper_ms"], e["plain_ms"],
+                 e["bound"], e["library_ms"]),
+         "empty_kernel_ms": e["empty_kernel_ms"]}
+        for e in (mosaic_times["probe_chunk"],)
+    ] + [
+        {**entry("subtile_dma", "mosaic.cu", "tools/exp_subtile_dma.py:14",
+                 e["max_abs_err"], e["ms"], e["wrapper_ms"], e["plain_ms"],
+                 e["bound"], e["library_ms"]),
+         "p8_route": e["route"], "direct_ms": e["routes"]["direct"]["ms"],
+         "copy_ceiling_ms": e["copy_ceiling_ms"],
+         "yardstick_ms": e["yardstick_ms"], "yardstick": e["yardstick"]}
+        for e in (mosaic_times["subtile_dma"],)
     ]}))
     print(json.dumps({
         "card": card, "build_s": build_s,

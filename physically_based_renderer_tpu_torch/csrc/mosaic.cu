@@ -26,7 +26,11 @@
 //   P6  latency: the count of visited nodes needs no chain (csrc/tree.cuh),
 //       so the bound is the tree's depth in shared-memory round trips,
 //       and at these sizes the launch.
-//   P7  operations: ten float adds, multiplies and a division per test.
+//   P7  operations: ten float adds, multiplies and a reciprocal per test,
+//       1,048,576 tests at the tool's shape: under a microsecond over the
+//       card's float32 lanes, below the launch itself.  What costs is the
+//       dependent chain of a test and, with IEEE division, a basic block a
+//       test.
 //   P8  bytes: each 2 KB tile read from device memory (8.4 MB of distinct
 //       tiles, 67.1 MB counting every copy; all of it fits in the 50 MB L2
 //       only as distinct tiles).
@@ -49,30 +53,52 @@
 // leaf's own test never changes the count) by csrc/tree.cuh, shared with
 // P1, in one CTA of 512 threads; every open inner node pushes both
 // children, so the walk visits 1 + 2 x (open inner nodes), summed by one
-// block reduction.  P7: one CTA per ray, its
-// threads over the columns; each keeps a running min and the CTA reduces
-// it by warp shuffles (min is exact in any order; the masked value is
-// never NaN).  1/det is an IEEE division (no fast math) and -fmad=false
-// keeps every product and sum rounded as in the plain version, so the two
-// agree bit for bit.  P8: one CTA per block g of ch x 32 threads; each step
-// j issues ch copies of 2 KB as 16-byte cp.async into one of two
+// block reduction.
+// P7: a CTA owns kChunkRays rays, and its threads split the (column,
+// group of eight or four chunks) items, so e0 and e1 are computed once an
+// item for all the CTA's rays from registers; a group's tests (16 at the
+// tool's 8 chunks) are one basic block: the reciprocal is rcp_rn (csrc/rcp.cuh, equal to
+// 1.0f / det on (1e-9, 2^126)), and a group in which some |det| reaches
+// 2^126 runs again with the division.  Each thread keeps a running min a
+// ray, reduced by warp shuffles and then across the warps in shared
+// memory: min is exact in any order and a masked test gives 1e30, never
+// NaN, so the output is exact without atomics (a ray's columns never
+// leave its CTA).  -fmad=false keeps every product and sum rounded as in
+// the plain version, so the two agree bit for bit.
+// P8 has two routes (ops/probes.py::subtile_copy_route).  Row sums first,
+// from two copies a table tile (where the two tie): the function needs
+// each tile's row sums once, R[k, l] = sum over r of src[k, r, l], so one
+// cooperative launch sums every tile's rows once into R f32[C, 32] (8 lanes
+// a tile, 16-byte loads), waits at a grid-wide barrier, and gathers
+// 128-byte rows of R, summing the steps in order (8 lanes a copy): 8.4 MB
+// and 4.2 MB from L2 where the copies were 67.1 MB.  Direct, with fewer
+// copies: one CTA per block g of ch x 32 threads;
+// each step j issues ch copies of 2 KB as 16-byte cp.async into one of two
 // shared-memory slots, commits the group, and waits for the previous group
 // (wait_group 1) while the next one flies; thread t sums lane t % 32 of
 // tile t / 32 over its 16 rows in order and adds that to its running sum.
+// Both do the plain version's additions in its order: bit-equal to it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "rcp.cuh"
 #include "slab.cuh"
 #include "tree.cuh"
 
 namespace {
 
 constexpr int kScalarThreads = 512;  // P6: one CTA
-constexpr int kChunkThreads = 128;   // P7 threads per ray
+constexpr int kChunkRays = 2;        // P7 rays a thread (and a CTA)
+constexpr int kChunkThreads = 512;   // P7 threads a CTA
 constexpr int kTileRows = 16;        // P8 tile: 16 rows
 constexpr int kTileLanes = 32;       //          x 32 lanes = 2 KB
 constexpr int kTileFloats = kTileRows * kTileLanes;
 constexpr int kTileChunks = kTileFloats / 4;  // 16-byte pieces of a tile
+constexpr int kRowQuads = kTileLanes / 4;     // 16-byte pieces of a row
+constexpr int kRowSumThreads = 256;  // P8 row-sum-first route
 // P5's routes: ops/probes.py::GATHER_ROUTES.
 constexpr int kRouteSlab = 0, kRouteDirect = 1;
 
@@ -80,6 +106,9 @@ using pbr::allow_smem;
 using pbr::cp_async16;
 using pbr::cp_async_commit;
 using pbr::cp_async_wait;
+using pbr::kRcpHi;
+using pbr::kRcpLo;
+using pbr::rcp_rn;
 
 // ---------------------------------------------------------------- P5
 // The slab route: csrc/slab.cuh's body, summing reps with floor-modulo
@@ -137,45 +166,120 @@ __global__ void __launch_bounds__(kScalarThreads)
 }
 
 // ---------------------------------------------------------------- P7
-__global__ void mosaic_chunk_kernel(const float* __restrict__ o,
-                                    const float* __restrict__ t, int b, int w,
-                                    int n_chunks, float* __restrict__ out) {
-  __shared__ float warp_min[kChunkThreads / 32];
-  const int ray = blockIdx.x;
-  const float rox = o[ray];  // row 0 of o
-  float best = 1e30f;
-  for (int j = 0; j < n_chunks; ++j) {
-    const float scale = float(j) + 1.0f;
-    for (int c = threadIdx.x; c < w; c += blockDim.x) {
-      const float e0 = (t[c] * scale) * 1.0001f;
-      const float e1 = (t[w + c] * scale) * 1.0001f;
-      const float px = rox * e0;
-      const float det = px * e1 + px;
-      const float inv = fabsf(det) > 1e-9f ? 1.0f / det : 0.0f;
+// Chunks j0 .. j0 + kGroup - 1 of one column (e0[m], e1[m]: its e at
+// chunk j0 + m) against a thread's rays: g[r] = the least masked tt, 1e30
+// where no test passes.  kExact divides; else the reciprocal is
+// rcp_rn, and the return value says whether some |det| reached kRcpHi,
+// where the caller runs the group again with kExact.  A test with
+// |det| <= 1e-9 is masked whatever inv is: the plain version's inv = 0
+// gives u = +-0 and tt = +-0 (or NaN), which fail tt > 0, so `nonzero` in
+// ok stands for its select.  A chunk at or past n_chunks is masked.
+template <bool kExact, int kGroup>
+__device__ __forceinline__ bool chunk_group(const float (&rox)[kChunkRays],
+                                            const float (&e0)[kGroup],
+                                            const float (&e1)[kGroup], int j0,
+                                            int n_chunks,
+                                            float (&g)[kChunkRays]) {
+  float amax = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kChunkRays; ++r) g[r] = 1e30f;
+#pragma unroll
+  for (int m = 0; m < kGroup; ++m) {
+    const bool live = j0 + m < n_chunks;
+#pragma unroll
+    for (int r = 0; r < kChunkRays; ++r) {
+      const float px = rox[r] * e0[m];
+      const float det = px * e1[m] + px;
+      const float ad = fabsf(det);
+      const bool nonzero = ad > kRcpLo;
+      float inv;
+      if (kExact) {
+        inv = 1.0f / det;
+      } else {
+        amax = fmaxf(amax, ad);
+        inv = rcp_rn(det);
+      }
       const float uu = px * inv;
       const float vv = uu * inv + px;
       const float tt = vv * uu + uu;
-      const bool ok = uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                      tt > 0.0f;
-      best = fminf(best, ok ? tt : 1e30f);
+      const bool ok = live && nonzero && uu >= 0.0f && vv >= 0.0f &&
+                      uu + vv <= 1.0f && tt > 0.0f;
+      g[r] = fminf(g[r], ok ? tt : 1e30f);
     }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    best = fminf(best, __shfl_down_sync(0xffffffffu, best, off));
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = best;
+  return amax >= kRcpHi;
+}
+
+// A CTA owns kChunkRays rays; its threads split the (column, group of
+// kGroup chunks) items, consecutive threads on consecutive columns.  The
+// rays' minima: warp shuffles, then one warp over the warps' minima.
+template <int kGroup>
+__global__ void __launch_bounds__(kChunkThreads)
+    mosaic_chunk_kernel(const float* __restrict__ o,
+                        const float* __restrict__ t, int b, int w,
+                        int n_chunks, float* __restrict__ out) {
+  __shared__ float s_min[kChunkRays][kChunkThreads / 32];
+  const int ray0 = blockIdx.x * kChunkRays;
+  float rox[kChunkRays], best[kChunkRays];
+#pragma unroll
+  for (int r = 0; r < kChunkRays; ++r) {
+    rox[r] = __ldg(o + min(ray0 + r, b - 1));  // row 0 of o
+    best[r] = 1e30f;
+  }
+  const int items = w * ((n_chunks + kGroup - 1) / kGroup);
+  // An item's column entries are loaded while the previous item's tests
+  // run.
+  float t0 = 0.0f, t1 = 0.0f;
+  if (threadIdx.x < items) {
+    const int c = threadIdx.x % w;
+    t0 = __ldg(t + c);
+    t1 = __ldg(t + w + c);
+  }
+  for (int q = threadIdx.x; q < items; q += kChunkThreads) {
+    const int j0 = (q / w) * kGroup;
+    float e0[kGroup], e1[kGroup];
+#pragma unroll
+    for (int m = 0; m < kGroup; ++m) {
+      const float scale = float(j0 + m) + 1.0f;
+      e0[m] = (t0 * scale) * 1.0001f;
+      e1[m] = (t1 * scale) * 1.0001f;
+    }
+    if (q + kChunkThreads < items) {
+      const int c = (q + kChunkThreads) % w;
+      t0 = __ldg(t + c);
+      t1 = __ldg(t + w + c);
+    }
+    float g[kChunkRays];
+    if (chunk_group<false>(rox, e0, e1, j0, n_chunks, g))
+      chunk_group<true>(rox, e0, e1, j0, n_chunks, g);
+#pragma unroll
+    for (int r = 0; r < kChunkRays; ++r) best[r] = fminf(best[r], g[r]);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kChunkRays; ++r) {
+    for (int off = 16; off > 0; off >>= 1)
+      best[r] = fminf(best[r], __shfl_xor_sync(0xffffffffu, best[r], off));
+    if (lane == 0) s_min[r][warp] = best[r];
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = warp_min[0];
-    for (int k = 1; k < int(blockDim.x >> 5); ++k) m = fminf(m, warp_min[k]);
-    out[ray] = m;
+  if (warp != 0) return;
+#pragma unroll
+  for (int r = 0; r < kChunkRays; ++r) {
+    float m = lane < kChunkThreads / 32 ? s_min[r][lane] : 1e30f;
+    for (int off = 16; off > 0; off >>= 1)
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0 && ray0 + r < b) out[ray0 + r] = m;
   }
 }
 
 // ---------------------------------------------------------------- P8
-__global__ void subtile_copy_kernel(const float* __restrict__ src,
-                                    const int* __restrict__ idx, int n_src,
-                                    int n_iters, int ch,
-                                    float* __restrict__ out) {
+// The direct route: a CTA a block g, its copies streamed through two
+// shared-memory slots.
+__global__ void subtile_copy_kernel_direct(const float* __restrict__ src,
+                                           const int* __restrict__ idx,
+                                           int n_src, int n_iters, int ch,
+                                           float* __restrict__ out) {
   extern __shared__ float4 slots4[];  // [2][ch][16][32] floats
   float* slots = reinterpret_cast<float*>(slots4);
   const int g = blockIdx.x;
@@ -215,6 +319,113 @@ __global__ void subtile_copy_kernel(const float* __restrict__ src,
     __syncthreads();  // slot j & 1 is refilled at step j + 2
   }
   out[size_t(g) * ch * kTileLanes + threadIdx.x] = acc;
+}
+
+// The row-sum-first route, pass 1: rows[k, 4q .. 4q + 3] = the sum over
+// r in order of src[k, r, 4q .. 4q + 3], unit u = 8 k + q a thread (a
+// warp: four tiles, each load four whole 128-byte rows), the 16 rows'
+// loads issued before the first add.
+__device__ __forceinline__ void tile_row_sums(const float4* __restrict__ src,
+                                              int n_src,
+                                              float4* __restrict__ rows) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < n_src * kRowQuads;
+       u += stride) {
+    const float4* s = src + size_t(u >> 3) * kTileChunks + (u & 7);
+    float4 v[kTileRows];
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) v[r] = __ldg(s + r * kRowQuads);
+    float4 a = v[0];
+#pragma unroll
+    for (int r = 1; r < kTileRows; ++r) {
+      a.x = a.x + v[r].x;
+      a.y = a.y + v[r].y;
+      a.z = a.z + v[r].z;
+      a.w = a.w + v[r].w;
+    }
+    rows[u] = a;
+  }
+}
+
+// Pass 2: out[g, 32 i + 4q .. 4q + 3] = the sum over j in order, from
+// 0.0f, of rows[idx[g, j, i], 4q .. 4q + 3], unit u = 8 (g ch + i) + q a
+// thread (a warp: four copies' 128-byte rows a step).  rows was written
+// by other CTAs in this launch: it is read through L2 (ld.global.cg), not
+// the read-only path.
+__device__ __forceinline__ void gather_row_sums(
+    const int* __restrict__ idx, const float4* rows, int n_src, int nb,
+    int n_iters, int ch, float4* __restrict__ out) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int u = blockIdx.x * blockDim.x + threadIdx.x; u < nb * ch * kRowQuads;
+       u += stride) {
+    const int gi = u >> 3;
+    const int g = gi / ch;
+    const int* my = idx + size_t(g) * n_iters * ch + (gi - g * ch);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+    for (int j = 0; j < n_iters; ++j) {
+      const int k = min(max(__ldg(my + j * ch), 0), n_src - 1);
+      const float4 v = __ldcg(rows + k * kRowQuads + (u & 7));
+      acc.x = acc.x + v.x;
+      acc.y = acc.y + v.y;
+      acc.z = acc.z + v.z;
+      acc.w = acc.w + v.w;
+    }
+    out[u] = acc;
+  }
+}
+
+// Both passes in one cooperative launch, a grid-wide barrier between.
+__global__ void __launch_bounds__(kRowSumThreads)
+    subtile_copy_kernel_row_sums(const float* __restrict__ src,
+                                 const int* __restrict__ idx, int n_src,
+                                 int nb, int n_iters, int ch, float* rows,
+                                 float* __restrict__ out) {
+  tile_row_sums(reinterpret_cast<const float4*>(src), n_src,
+                reinterpret_cast<float4*>(rows));
+  cooperative_groups::this_grid().sync();
+  gather_row_sums(idx, reinterpret_cast<const float4*>(rows), n_src, nb,
+                  n_iters, ch, reinterpret_cast<float4*>(out));
+}
+
+// The every-copy read ceiling under the direct route (ports nothing): a
+// CTA a block g reads its copies in the direct route's order, thread t
+// the 16-byte piece t of each (row t / 8, lanes 4 (t % 8) ..), through L2
+// and with no float arithmetic: out[g, l] = the XOR over steps, copies
+// and rows of the bits of src[idx[g, j, i], r, l].
+__global__ void __launch_bounds__(kTileChunks)
+    subtile_read_kernel(const int4* __restrict__ src,
+                        const int* __restrict__ idx, int n_src, int n_iters,
+                        int ch, int* __restrict__ out) {
+  __shared__ int4 s_x[kTileChunks];
+  const int t = threadIdx.x;
+  const int* my = idx + size_t(blockIdx.x) * n_iters * ch;
+  int4 x = make_int4(0, 0, 0, 0);
+#pragma unroll 8
+  for (int c = 0; c < n_iters * ch; ++c) {
+    const int k = min(max(__ldg(my + c), 0), n_src - 1);
+    const int4 v = __ldcg(src + size_t(k) * kTileChunks + t);
+    x.x ^= v.x;
+    x.y ^= v.y;
+    x.z ^= v.z;
+    x.w ^= v.w;
+  }
+  for (int off = 8; off < 32; off <<= 1) {  // the warp's four rows
+    x.x ^= __shfl_xor_sync(0xffffffffu, x.x, off);
+    x.y ^= __shfl_xor_sync(0xffffffffu, x.y, off);
+    x.z ^= __shfl_xor_sync(0xffffffffu, x.z, off);
+    x.w ^= __shfl_xor_sync(0xffffffffu, x.w, off);
+  }
+  s_x[t] = x;
+  __syncthreads();
+  if (t < kRowQuads) {
+    int4 a = s_x[t];
+    for (int wq = 1; wq < kTileChunks / 32; ++wq) {
+      const int4 b = s_x[32 * wq + t];
+      a = make_int4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+    }
+    reinterpret_cast<int4*>(out)[size_t(blockIdx.x) * kRowQuads + t] = a;
+  }
 }
 
 }  // namespace
@@ -280,18 +491,28 @@ extern "C" int pbr_mosaic_scalar_stack(const float* boxes, int n_nodes,
 
 // o f32[8, b] (row 0 read), t f32[16, w] (rows 0 and 1 read) ->
 // out f32[b]: the least masked t over n_chunks chunks of w columns.
+// Groups of eight chunks where n_chunks is a multiple of eight (the
+// tool's 8: one item a column), else of four.
 extern "C" int pbr_mosaic_chunk(const float* o, const float* t, int b, int w,
                                 int n_chunks, float* out, void* stream) {
   if (b <= 0) return 0;
-  mosaic_chunk_kernel<<<b, kChunkThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(o, t, b, w,
-                                                             n_chunks, out);
+  if (w < 0 || n_chunks < 0 || (long long)w * (n_chunks + 3) >= (1LL << 33))
+    return int(cudaErrorInvalidValue);
+  const unsigned blocks = unsigned((b + kChunkRays - 1) / kChunkRays);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_chunks % 8 == 0)
+    mosaic_chunk_kernel<8><<<blocks, kChunkThreads, 0, s>>>(o, t, b, w,
+                                                            n_chunks, out);
+  else
+    mosaic_chunk_kernel<4><<<blocks, kChunkThreads, 0, s>>>(o, t, b, w,
+                                                            n_chunks, out);
   return int(cudaGetLastError());
 }
 
 // src f32[n_src, 16, 32], idx i32[nb * n_iters * ch] -> out f32[nb, ch * 32]:
 // out[g, 32 i + l] = sum over j of (sum over r of
-// src[idx[g n_iters ch + j ch + i], r, l]), rows summed in order.
+// src[idx[g n_iters ch + j ch + i], r, l]), rows summed in order, steps in
+// order from 0.0f; indices clamped into [0, n_src).  The direct route.
 extern "C" int pbr_subtile_copy(const float* src, const int* idx, int n_src,
                                 int nb, int n_iters, int ch, float* out,
                                 void* stream) {
@@ -299,10 +520,62 @@ extern "C" int pbr_subtile_copy(const float* src, const int* idx, int n_src,
   if (n_src <= 0 || n_iters <= 0 || ch <= 0 || ch * kTileLanes > 1024)
     return int(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * 2 * size_t(ch) * kTileFloats;
-  const cudaError_t err = allow_smem(subtile_copy_kernel, smem);
+  const cudaError_t err = allow_smem(subtile_copy_kernel_direct, smem);
   if (err != cudaSuccess) return int(err);
-  subtile_copy_kernel<<<nb, ch * kTileLanes, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  subtile_copy_kernel_direct<<<nb, ch * kTileLanes, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       src, idx, n_src, n_iters, ch, out);
+  return int(cudaGetLastError());
+}
+
+// The same function by the row-sum-first route, rows f32[n_src, 32] the
+// scratch of its row sums: one cooperative launch of at most the CTAs the
+// card holds at once.
+extern "C" int pbr_subtile_copy_row_sums(const float* src, const int* idx,
+                                         int n_src, int nb, int n_iters,
+                                         int ch, float* rows, float* out,
+                                         void* stream) {
+  if (nb <= 0) return 0;
+  if (n_src <= 0 || n_iters <= 0 || ch <= 0 ||
+      (long long)n_src * kRowQuads >= (1LL << 31) ||
+      (long long)nb * ch * kRowQuads >= (1LL << 31))
+    return int(cudaErrorInvalidValue);
+  // CTAs the card holds at once, by device (queried once).
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  if (dev >= 64) return int(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, subtile_copy_kernel_row_sums, kRowSumThreads, 0);
+    if (err != cudaSuccess) return int(err);
+    resident[dev] = sms * per_sm;
+  }
+  const long long units =
+      std::max<long long>((long long)n_src, (long long)nb * ch) * kRowQuads;
+  const int blocks = int(std::min<long long>(
+      resident[dev], (units + kRowSumThreads - 1) / kRowSumThreads));
+  void* args[] = {&src, &idx, &n_src, &nb, &n_iters, &ch, &rows, &out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(subtile_copy_kernel_row_sums), blocks,
+      kRowSumThreads, args, 0, static_cast<cudaStream_t>(stream));
+  return int(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// src f32[n_src, 16, 32] (16-byte aligned), idx i32[nb * n_iters * ch] ->
+// out i32[nb, 32]: the every-copy read ceiling under the direct route.
+extern "C" int pbr_subtile_read(const float* src, const int* idx, int n_src,
+                                int nb, int n_iters, int ch, int* out,
+                                void* stream) {
+  if (nb <= 0) return 0;
+  if (n_src <= 0 || n_iters <= 0 || ch <= 0)
+    return int(cudaErrorInvalidValue);
+  subtile_read_kernel<<<nb, kTileChunks, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int4*>(src), idx, n_src, n_iters, ch, out);
   return int(cudaGetLastError());
 }

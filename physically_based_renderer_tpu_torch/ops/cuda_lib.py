@@ -92,6 +92,10 @@ _SIGNATURES = {
     "pbr_mosaic_chunk": [_P, _P, _I, _I, _I, _P, _P],
     # src, idx, n_src, nb, n_iters, ch, out, stream
     "pbr_subtile_copy": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # src, idx, n_src, nb, n_iters, ch, rows, out, stream
+    "pbr_subtile_copy_row_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # src, idx, n_src, nb, n_iters, ch, out, stream
+    "pbr_subtile_read": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -17,8 +17,9 @@ repository's `tools/probe2.py`, `tools/probe_mosaic.py` and
   P7 `chunk(o, t, n_chunks)`  the block tracer's per-chunk arithmetic on
                               b rays x w columns, masked, min
   P8 `subtile_copy(src, idx, n_iters, ch)`
-                              double-buffered copies of [16, 32] tiles picked
-                              by idx, summed over rows and steps
+                              [16, 32] tiles picked by idx, summed over rows
+                              and steps (the reference: double-buffered
+                              copies)
 
 Each wrapper launches its kernel (`csrc/probes.cu` for P1-P4,
 `csrc/mosaic.cu` for P5-P8) for CUDA tensors and raises on what the kernel
@@ -28,9 +29,11 @@ the tests and by nothing on a card.  `LAUNCHES` counts kernel launches by
 probe name.  The tools that drive them are `tools/probe2.py`,
 `tools/probe_mosaic.py` and `tools/exp_subtile_dma.py` of this package.
 `empty_kernel` launches a kernel that does nothing, the floor under these
-kernels' times, and `sector_read` one that reads a table at precomputed
-random addresses, the card's random-sector read ceiling under P4's gather;
-they port nothing and are counted nowhere.
+kernels' times, `sector_read` one that reads a table at precomputed
+random addresses, the card's random-sector read ceiling under P4's gather,
+and `subtile_read` one that reads P8's copies in its direct route's order
+with no arithmetic, the every-copy read ceiling under that route; they
+port nothing and are counted nowhere.
 """
 
 from __future__ import annotations
@@ -635,6 +638,30 @@ def chunk(o: torch.Tensor, t: torch.Tensor, n_chunks: int = 8) -> torch.Tensor:
 
 # --------------------------------------------------------------------- P8
 
+# P8's routes (csrc/mosaic.cu): "row_sums", each tile's rows summed once,
+# then 128-byte rows of those sums gathered (`pbr_subtile_copy_row_sums`,
+# one cooperative launch), or "direct", every copy streamed through shared
+# memory (`pbr_subtile_copy`).  P8_ROW_SUMS_COPIES: the copies a table tile
+# from which the row sums are taken.  The row-sum pass reads every tile of
+# the table once, so fewer copies than tiles read fewer bytes directly;
+# and the direct route's few CTAs are bound by their eight dependent copy
+# rounds, not by bytes: on the card ("NVIDIA H100 80GB HBM3, 700.00 W";
+# `tools/sweep.py --cases p8`, PERF.md) the routes tie at 8,192 copies of
+# a 4,096-tile table (0.0050 ms each), the direct route wins at 4,096
+# (0.0047 against 0.0050) and the row sums at 16,384 (0.0050 against
+# 0.0063).
+P8_ROW_SUMS_COPIES = 2
+
+
+def subtile_copy_route(n_src: int, n_copies: int) -> str:
+    """P8's route for `n_copies` copies of tiles picked from a table of
+    `n_src`: "row_sums" from P8_ROW_SUMS_COPIES copies a tile of the
+    table, else "direct".  (Read at each call, so that `tools/sweep.py`
+    and `chip_smoke.py` can time the other route.)"""
+    return ("row_sums" if n_copies >= P8_ROW_SUMS_COPIES * n_src
+            else "direct")
+
+
 def subtile_copy_plain(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
                        ch: int) -> torch.Tensor:
     """Plain P8: per block and step, the picked tiles' rows summed in
@@ -653,11 +680,8 @@ def subtile_copy_plain(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
     return acc.reshape(nb, 1, ch * TILE_P8[1])
 
 
-def subtile_copy(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
-                 ch: int) -> torch.Tensor:
-    """P8: src f32[C, 16, 32], idx i32[nb * n_iters * ch] ->
-    f32[nb, 1, ch * 32]: out[g, 0, 32 i + l] = sum over j < n_iters of the
-    row sum of src[idx[g n_iters ch + j ch + i], :, l]."""
+def _check_subtile(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                   ch: int) -> None:
     _require(src, "src", torch.float32, 3)
     _require(idx, "idx", torch.int32, 1)
     _same_device(src, idx)
@@ -670,6 +694,16 @@ def subtile_copy(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
                          f"ch {ch}, n_iters {n_iters}, {idx.shape[0]} indices")
     if src.numel() >= 1 << 31:
         raise ValueError("src is too large for the kernel's indexing")
+
+
+def subtile_copy(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                 ch: int) -> torch.Tensor:
+    """P8: src f32[C, 16, 32], idx i32[nb * n_iters * ch] ->
+    f32[nb, 1, ch * 32]: out[g, 0, 32 i + l] = sum over j < n_iters of the
+    row sum of src[idx[g n_iters ch + j ch + i], :, l], rows summed in
+    order, steps in order from 0; indices clamped into range.  The kernel
+    takes `subtile_copy_route`'s route; either is one launch."""
+    _check_subtile(src, idx, n_iters, ch)
     if src.device.type == "cpu":
         return subtile_copy_plain(src, idx, n_iters, ch)
     nb = idx.shape[0] // (n_iters * ch)
@@ -678,9 +712,57 @@ def subtile_copy(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
     if nb == 0:
         return out
     _aligned16(src, "src")
-    rc = cuda_lib.library().pbr_subtile_copy(
+    route = subtile_copy_route(src.shape[0], idx.shape[0])
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(src.device)
+    if route == "row_sums":
+        rows = torch.empty((src.shape[0], TILE_P8[1]), dtype=torch.float32,
+                           device=src.device)
+        rc = lib.pbr_subtile_copy_row_sums(
+            src.data_ptr(), idx.data_ptr(), src.shape[0], nb, n_iters, ch,
+            rows.data_ptr(), out.data_ptr(), stream)
+    else:
+        rc = lib.pbr_subtile_copy(src.data_ptr(), idx.data_ptr(),
+                                  src.shape[0], nb, n_iters, ch,
+                                  out.data_ptr(), stream)
+    cuda_lib.check(rc, f"pbr_subtile_copy ({route})")
+    LAUNCHES["subtile_copy"] += 1
+    return out
+
+
+def subtile_read_plain(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                       ch: int) -> torch.Tensor:
+    """Plain `subtile_read`: the XOR of the picked tiles' bits over steps,
+    copies and rows, by halves."""
+    nb = idx.shape[0] // (n_iters * ch)
+    k = idx.long().clamp(0, src.shape[0] - 1)
+    v = src.view(torch.int32)[k].reshape(nb, -1, TILE_P8[1])
+    acc = torch.zeros((nb, TILE_P8[1]), dtype=torch.int32, device=src.device)
+    while v.shape[1] > 1:
+        if v.shape[1] % 2:
+            acc = acc ^ v[:, -1]
+            v = v[:, :-1]
+        half = v.shape[1] // 2
+        v = v[:, :half] ^ v[:, half:]
+    return acc ^ v[:, 0]
+
+
+def subtile_read(src: torch.Tensor, idx: torch.Tensor, n_iters: int,
+                 ch: int) -> torch.Tensor:
+    """The every-copy read ceiling under P8's direct route: the same copies
+    in the same order, each read once through L2 with no float arithmetic
+    -> i32[nb, 32], out[g, l] = the XOR over j, i and rows r of the bits of
+    src[idx[g n_iters ch + j ch + i], r, l] (indices clamped).  Ports
+    nothing; counted nowhere."""
+    _check_subtile(src, idx, n_iters, ch)
+    if src.device.type == "cpu":
+        return subtile_read_plain(src, idx, n_iters, ch)
+    nb = idx.shape[0] // (n_iters * ch)
+    out = torch.empty((nb, TILE_P8[1]), dtype=torch.int32, device=src.device)
+    if nb == 0:
+        return out
+    _aligned16(src, "src")
+    rc = cuda_lib.library().pbr_subtile_read(
         src.data_ptr(), idx.data_ptr(), src.shape[0], nb, n_iters, ch,
         out.data_ptr(), cuda_lib.stream_ptr(src.device))
-    cuda_lib.check(rc, "pbr_subtile_copy")
-    LAUNCHES["subtile_copy"] += 1
+    cuda_lib.check(rc, "pbr_subtile_read")
     return out

@@ -14,8 +14,9 @@ the reference repository's `tools/probe_mosaic.py`): P5, P6, P7.
      the tree really is walked, held to the plain version;
   P7 `chunk`: the block tracer's per-chunk arithmetic on 256 rays x 512
      columns x 8 chunks, on the probe's data (all ones: every test fails
-     the mask and every output is 1e30) and on seeded random data where the
-     mask passes, held bit for bit to the plain version.
+     the mask and every output is 1e30), on seeded random data where the
+     mask passes and on edge data (dets about +-1e-9, at and above 2^126,
+     inf and NaN in t), held bit for bit to the plain version.
 
 Every shape runs; any disagreement or failed launch exits non-zero (the
 reference caught compile failures per shape and went on).  Each line gives
@@ -52,9 +53,10 @@ GATHER_EXTRA = (
     (33, 4097, 1, 8), (16, 16384, 1, 4))
 # P7's shape: b rays, w columns, chunks.
 CHUNK = (256, 512, 8)
-# P7 data: the probe's own (all ones) and seeded random data whose tests
-# pass the mask: name -> seed (None: ones).
-CHUNK_DATA = {"probe": None, "random": 7}
+# P7 data: the probe's own (all ones), seeded random data whose tests
+# pass the mask, and edge data (`chunk_edge_inputs`): name -> seed (None:
+# ones).
+CHUNK_DATA = {"probe": None, "random": 7, "edge": 11}
 
 
 def gather_inputs(rows: int, lanes: int, axis: int):
@@ -95,11 +97,49 @@ def chunk_inputs(data: str):
     seed = CHUNK_DATA[data]
     if seed is None:
         return (np.ones((8, b), np.float32), np.ones((16, w), np.float32))
+    if data == "edge":
+        return chunk_edge_inputs(seed)
     rng = np.random.default_rng(seed)
     o = rng.uniform(0.5, 1.5, (8, b)).astype(np.float32)
     t = rng.uniform(-1.0, 1.0, (16, w)).astype(np.float32)
     t[0] = rng.uniform(0.01, 0.2, w)
     t[1] = rng.uniform(0.5, 5.0, w)
+    return o, t
+
+
+def chunk_edge_inputs(seed: int):
+    """(o f32[8, b], t f32[16, w]): the edges of P7's arithmetic.  o's row
+    0 is positive for the first half of the rays, negative for the second
+    (and 0, 1e10 and -1e10 at three rays); t's columns come in quarters:
+      boundary: det at the last chunk falls from 1e-9 / 0.45 to 1e-9 / 1.55
+        along the columns while e1 rises, so each negative ray's least tt
+        is the first column whose det lies above 1e-9 (the other rays see
+        det near -1e-9);
+      huge: e1 from 1e36 to 3.2e38, so |det| reaches 2^126 (where 1 / det
+        is subnormal and the branch-free reciprocal is not used) and
+        overflows to inf; a positive ray's least tt is one of these;
+      non-finite: +inf, -inf and NaN in t's rows 0 and 1;
+      the random set's columns."""
+    b, w, _ = CHUNK
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.5, 1.5, (8, b)).astype(np.float32)
+    o[0, b // 2:] *= -1.0
+    o[0, 0], o[0, 1], o[0, b // 2 + 1] = 0.0, 1e10, -1e10
+    t = rng.uniform(-1.0, 1.0, (16, w)).astype(np.float32)
+    q = w // 4
+    t1 = 1e12 * np.geomspace(1.0, 4.0, q)
+    t[1, :q] = t1
+    t[0, :q] = -np.geomspace(1e-9 / 0.45, 1e-9 / 1.55, q) / (
+        64 * 1.0001 ** 2) / t1
+    t[0, q:2 * q] = rng.uniform(0.05, 0.15, q)
+    t[1, q:2 * q] = 10 ** rng.uniform(36, 37.6, q)
+    k = q // 8
+    bad = t[:2, 2 * q:3 * q]
+    bad[0, :k], bad[0, k:2 * k], bad[1, 2 * k:3 * k] = np.inf, -np.inf, np.nan
+    bad[0, 3 * k:4 * k], bad[1, 4 * k:5 * k] = np.nan, np.inf
+    bad[1, 5 * k:6 * k] = -np.inf
+    t[0, 3 * q:] = rng.uniform(0.01, 0.2, w - 3 * q)
+    t[1, 3 * q:] = rng.uniform(0.5, 5.0, w - 3 * q)
     return o, t
 
 

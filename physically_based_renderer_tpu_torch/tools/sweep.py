@@ -1,20 +1,22 @@
-"""Time variants of K4, K5b, K2, P1, P3, P4, P5 and P6 against the tree's
-own kernels, on the card.
+"""Time variants of K4, K5b, K2, P1, P3-P8 against the tree's own
+kernels, on the card.
 
     python -m physically_based_renderer_tpu_torch.tools.sweep \
         [--other NAME=DIR:fused.cu,gather.cu ...] [--variants ...] \
-        [--cases k4,k5b,k2,p1,p3,p4,p5,p6]
+        [--cases k4,k5b,k2,p1,p3,p4,p5,p6,p7,p8]
 
 A variant is one source of `csrc/` with named textual edits (VARIANTS; an
 edit must match the source exactly once, so a stale one fails; a variant
-named for a case, `p5_...`, runs on that case alone), another plan of
-P4's or P5's (PLAN_VARIANTS: the tree's library with other values of
-`ops/probes.py`'s P5 plan constants, or another `mosaic_gather_plan` or
-`gather_plan`), or the same source of another checkout (`--other`, e.g.
-the parent commit unpacked with `git archive` into the ignored `build/`;
-its C interface must be the tree's; P5's entry point takes the tree's
-plan, and another checkout's P4 runs its direct route, `pbr_probe_gather`,
-at every shape: OTHER_PLANS).  Each variant's source
+named for a case, `p5_...`, runs on that case alone; VARIANT_PLANS
+names the route one also takes), another plan or route of P4's, P5's or
+P8's (PLAN_VARIANTS: the tree's library with other values of
+`ops/probes.py`'s P5 plan constants, or another `mosaic_gather_plan`,
+`gather_plan` or `subtile_copy_route`), or the same source of another
+checkout (`--other`, e.g. the parent commit unpacked with `git archive`
+into the ignored `build/`; its C interface must be the tree's; P5's entry
+point takes the tree's plan, and another checkout's P4 and P8 run their
+direct routes, `pbr_probe_gather` and `pbr_subtile_copy`, at every shape:
+OTHER_PLANS).  Each variant's source
 is compiled with `cuda_lib`'s flags into a library of its own, all `nvcc`
 processes started together (a named variant that does not compile is
 reported and left out; another checkout's source that does not compile
@@ -23,8 +25,9 @@ functions in place of the tree's (`cuda_lib._lib` is swapped for an
 overlay).  Every variant is first held against the plain version on each
 case, at the tolerances of `chip_smoke.py`.  Times are device times per
 launch
-(`tools/timing.py::device_ms`), taken in turns: the tree, each variant, the
-tree again.  Cases: K4 on the cornell and cornell_ggx frames (512x512, 4
+(`tools/timing.py::device_ms`; P8 a call over all of its kernels, with
+the route and CUDA events a call beside), taken in turns: the tree, each
+variant, the tree again.  Cases: K4 on the cornell and cornell_ggx frames (512x512, 4
 spp, 4 bounces); K5b on the calls of one gradient step's render()
 backward, by shape, and at [32, 86] on uniformly random indices; K2 on the
 calls of one dense cornell frame (512x512, 4 spp, 4 bounces;
@@ -37,7 +40,11 @@ exact); P3 on the probe's data and on `tools/probe2.py::onehot_edge_inputs`
 `tools/probe2.py::GATHER_SHAPES` on the probe's data, checked also with
 indices outside the axis and -0.0 in x (exact); P5 at the ten shapes of `tools/probe_mosaic.py::GATHER_CASES` on
 random floats with indices in [-3 size, 3 size) (exact); P6 on the tool's
-all-pass boxes, the probe's own and 8,191 nodes that all pass (exact).
+all-pass boxes, the probe's own and 8,191 nodes that all pass (exact); P7
+on the tool's three data sets (`tools/probe_mosaic.py::CHUNK_DATA`, bit
+for bit; the random data also at 4 chunks and at none); P8 at the
+tool's shape and at 512 down to 64 blocks (P8_BLOCKS: where the routes
+cross; bit for bit).
 Only the variants of the chosen cases' sources are built.
 Prints one line per (case, variant) and, last, one JSON object.  PERF.md
 names the variants whose numbers it keeps.
@@ -58,7 +65,7 @@ from pathlib import Path
 import torch
 
 from ..ops import cuda_lib, fused, gather, probes, resident
-from . import probe2, probe_mosaic, work
+from . import exp_subtile_dma, probe2, probe_mosaic, work
 from .probe2 import card_line
 from .timing import device_ms
 
@@ -230,6 +237,178 @@ __global__ void __launch_bounds__(kScalarThreads)
     "mosaic_scalar_stack_kernel<<<1, kScalarThreads, 0,",
     "mosaic_scalar_stack_kernel<<<kStackCtas, kScalarThreads, 0,")]
 
+def _p7_rays(rays):
+    return [("constexpr int kChunkRays = 2;        // P7 rays a thread (and "
+             "a CTA)", f"constexpr int kChunkRays = {rays};")]
+
+
+def _p7_threads(threads):
+    return [("constexpr int kChunkThreads = 512;   // P7 threads a CTA",
+             f"constexpr int kChunkThreads = {threads};")]
+
+
+# P7: e0 and e1 of every (chunk, column) computed once a CTA into shared
+# memory (static, for the tool's 8 x 512), then read by the tests, in
+# place of an item's own registers.
+_P7_SMEM = [(
+    """  float t0 = 0.0f, t1 = 0.0f;
+  if (threadIdx.x < items) {
+    const int c = threadIdx.x % w;
+    t0 = __ldg(t + c);
+    t1 = __ldg(t + w + c);
+  }""",
+    """  __shared__ float2 s_e[8 * 512];  // [chunk][w]
+  for (int q = threadIdx.x; q < items * kGroup; q += kChunkThreads) {
+    const int j = q / w, c = q - j * w;
+    const float scale = float(j) + 1.0f;
+    s_e[q] = make_float2((__ldg(t + c) * scale) * 1.0001f,
+                         (__ldg(t + w + c) * scale) * 1.0001f);
+  }
+  __syncthreads();"""), (
+    """    float e0[kGroup], e1[kGroup];
+#pragma unroll
+    for (int m = 0; m < kGroup; ++m) {
+      const float scale = float(j0 + m) + 1.0f;
+      e0[m] = (t0 * scale) * 1.0001f;
+      e1[m] = (t1 * scale) * 1.0001f;
+    }
+    if (q + kChunkThreads < items) {
+      const int c = (q + kChunkThreads) % w;
+      t0 = __ldg(t + c);
+      t1 = __ldg(t + w + c);
+    }""",
+    """    const int c = q % w;
+    float e0[kGroup], e1[kGroup];
+#pragma unroll
+    for (int m = 0; m < kGroup; ++m) {
+      const float2 e = s_e[(j0 + m) * w + c];
+      e0[m] = e.x;
+      e1[m] = e.y;
+    }""")]
+
+
+def _p7_group(group):
+    """P7 in groups of `group` chunks at every n_chunks."""
+    return [("  if (n_chunks % 8 == 0)\n    mosaic_chunk_kernel<8>",
+             "  if (false)\n    mosaic_chunk_kernel<8>"),
+            ("    mosaic_chunk_kernel<4><<<",
+             f"    mosaic_chunk_kernel<{group}><<<")]
+
+
+# P8's row-sum-first route in two launches: the row sums, then the gather
+# launched with programmatic stream serialization (its CTAs may start
+# while the row sums finish, and wait at griddepcontrol.wait for them).
+_P8_TWO_LAUNCHES = [(
+    """  tile_row_sums(reinterpret_cast<const float4*>(src), n_src,
+                reinterpret_cast<float4*>(rows));
+  cooperative_groups::this_grid().sync();
+  gather_row_sums(idx, reinterpret_cast<const float4*>(rows), n_src, nb,
+                  n_iters, ch, reinterpret_cast<float4*>(out));
+}""",
+    """  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  tile_row_sums(reinterpret_cast<const float4*>(src), n_src,
+                reinterpret_cast<float4*>(rows));
+}
+
+__global__ void __launch_bounds__(kRowSumThreads)
+    subtile_copy_kernel_row_gather(const float* __restrict__ src,
+                                   const int* __restrict__ idx, int n_src,
+                                   int nb, int n_iters, int ch, float* rows,
+                                   float* __restrict__ out) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  gather_row_sums(idx, reinterpret_cast<const float4*>(rows), n_src, nb,
+                  n_iters, ch, reinterpret_cast<float4*>(out));
+}"""), (
+    """  void* args[] = {&src, &idx, &n_src, &nb, &n_iters, &ch, &rows, &out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(subtile_copy_kernel_row_sums), blocks,
+      kRowSumThreads, args, 0, static_cast<cudaStream_t>(stream));
+  return int(err != cudaSuccess ? err : cudaGetLastError());""",
+    """  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  subtile_copy_kernel_row_sums<<<blocks, kRowSumThreads, 0, s>>>(
+      src, idx, n_src, nb, n_iters, ch, rows, out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kRowSumThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, subtile_copy_kernel_row_gather, src, idx,
+                           n_src, nb, n_iters, ch, rows, out);
+  return int(err != cudaSuccess ? err : cudaGetLastError());""")]
+
+
+def _p8_threads(threads):
+    return [("constexpr int kRowSumThreads = 256;  // P8 row-sum-first route",
+             f"constexpr int kRowSumThreads = {threads};")]
+
+
+# P8's direct route with each step's ch tiles copied by the TMA
+# (cp.async.bulk, 2 KB a tile, one thread issuing) onto an mbarrier a slot,
+# in place of 16-byte cp.async from every thread.
+_P8_TMA = [(
+    """  auto issue = [&](int j) {
+    float4* dst = slots4 + size_t(j & 1) * (slot_floats / 4);
+    for (int q = threadIdx.x; q < ch * kTileChunks; q += blockDim.x) {
+      const int i = q / kTileChunks;
+      const int piece = q - i * kTileChunks;
+      const int tile = min(max(my_idx[j * ch + i], 0), n_src - 1);
+      cp_async16(dst + i * kTileChunks + piece,
+                 reinterpret_cast<const float4*>(src) +
+                     size_t(tile) * kTileChunks + piece);
+    }
+    cp_async_commit();
+  };""",
+    """  __shared__ unsigned long long s_bar[2];
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\\n" ::"r"(
+          unsigned(__cvta_generic_to_shared(s_bar + k))));
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int j) {
+    if (threadIdx.x != 0) return;
+    float4* dst = slots4 + size_t(j & 1) * (slot_floats / 4);
+    const unsigned bar = unsigned(__cvta_generic_to_shared(s_bar + (j & 1)));
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\\n" ::"r"(
+            bar), "r"(unsigned(ch * kTileFloats * 4)) : "memory");
+    for (int i = 0; i < ch; ++i) {
+      const int tile = min(max(my_idx[j * ch + i], 0), n_src - 1);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\\n" ::"r"(unsigned(
+              __cvta_generic_to_shared(dst + i * kTileChunks))),
+          "l"(src + size_t(tile) * kTileFloats),
+          "r"(unsigned(kTileFloats * 4)), "r"(bar) : "memory");
+    }
+  };
+  auto wait = [&](int j) {
+    const unsigned bar = unsigned(__cvta_generic_to_shared(s_bar + (j & 1)));
+    asm volatile(
+        "{\\n .reg .pred P1;\\n LAB_WAIT:\\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\\n"
+        " @P1 bra DONE;\\n bra LAB_WAIT;\\n DONE:\\n }\\n" ::"r"(bar),
+        "r"(unsigned((j >> 1) & 1)) : "memory");
+  };"""), (
+    """    if (j + 1 < n_iters) {
+      issue(j + 1);
+      cp_async_wait<1>();  // step j's copies have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();""",
+    """    if (j + 1 < n_iters) issue(j + 1);
+    wait(j);
+    __syncthreads();""")]
+
+
 def _slab_wherever_it_fits(rows, lanes, axis, reps=1):
     return probes.slab_plan(rows, lanes, axis) or probes.direct_plan()
 
@@ -279,11 +458,23 @@ PLAN_VARIANTS = {
     # restaged) or one (64 CTAs, the table staged once)
     "p4_slab2": {"gather_plan": _two_column_slab(True)},
     "p4_slab2_once": {"gather_plan": _two_column_slab(False)},
+    # P8: the direct route at every shape; the row-sum-first route at every
+    # shape
+    "p8_direct": {"subtile_copy_route": lambda *_: "direct"},
+    "p8_row_sums": {"subtile_copy_route": lambda *_: "row_sums"},
 }
 
 # Another checkout's P4 has the direct route alone (`pbr_probe_gather`):
 # its runs take it at every shape.
-OTHER_PLANS = {"p4": {"gather_plan": lambda *_: probes.direct_plan()}}
+OTHER_PLANS = {"p4": {"gather_plan": lambda *_: probes.direct_plan()},
+               "p8": {"subtile_copy_route": lambda *_: "direct"}}
+
+# Source variants that also run on another route: name -> the attributes
+# of ops/probes.py set while they run.
+VARIANT_PLANS = {"p8_tma": {"subtile_copy_route": lambda *_: "direct"}}
+
+# Kernel launches a call of a source variant, where not one.
+VARIANT_LAUNCHES = {"p8_two_launches": 2}
 
 # name -> (source, [(text, replacement), ...]).
 VARIANTS = {
@@ -408,6 +599,46 @@ VARIANTS = {
         "    inv = nonzero ? rcp_rn(det) : 0.0f;",
         "    inv = nonzero ? (ad >= kRcpHi ? 1.0f / det : rcp_rn(det)) "
         ": 0.0f;")]),
+    # P7: rays a thread (and a CTA: 256, 64 or 32 CTAs for the tool's 256
+    # rays); threads a CTA; e0 and e1 staged in shared memory; IEEE
+    # division for every test (no rcp_rn).
+    "p7_rays1": ("mosaic.cu", _p7_rays(1)),
+    "p7_rays4": ("mosaic.cu", _p7_rays(4)),
+    "p7_rays8": ("mosaic.cu", _p7_rays(8)),
+    "p7_threads256": ("mosaic.cu", _p7_threads(256)),
+    "p7_threads1024": ("mosaic.cu", _p7_threads(1024)),
+    "p7_smem": ("mosaic.cu", _P7_SMEM),
+    # P7: chunks a group of tests (and an item) at every n_chunks: 4 (at
+    # the tool's 8 chunks, two items a column) or 2.
+    "p7_group4": ("mosaic.cu", _p7_group(4)),
+    "p7_group2": ("mosaic.cu", _p7_group(2)),
+    "p7_division": ("mosaic.cu", [(
+        "        amax = fmaxf(amax, ad);\n        inv = rcp_rn(det);",
+        "        inv = 1.0f / det;")]),
+    # P8: the row-sum-first route in two launches (programmatic dependent
+    # launch) in place of one cooperative launch; its threads a CTA; the
+    # direct route's copies by the TMA.
+    "p8_two_launches": ("mosaic.cu", _P8_TWO_LAUNCHES),
+    "p8_threads128": ("mosaic.cu", _p8_threads(128)),
+    "p8_threads512": ("mosaic.cu", _p8_threads(512)),
+    "p8_tma": ("mosaic.cu", _P8_TMA),
+    # P8: each thread's first gather unit's indices prefetched into L1
+    # before the row sums, so that the gather after the barrier finds them
+    # there.
+    "p8_prefetch_idx": ("mosaic.cu", [(
+        """  tile_row_sums(reinterpret_cast<const float4*>(src), n_src,
+                reinterpret_cast<float4*>(rows));
+  cooperative_groups::this_grid().sync();""",
+        """  const int u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u < nb * ch * kRowQuads) {
+    const int gi = u >> 3, g = gi / ch;
+    const int* my = idx + size_t(g) * n_iters * ch + (gi - g * ch);
+    for (int j = 0; j < n_iters; j += 32 / ch)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(my + j * ch));
+  }
+  tile_row_sums(reinterpret_cast<const float4*>(src), n_src,
+                reinterpret_cast<float4*>(rows));
+  cooperative_groups::this_grid().sync();""")]),
 }
 
 # Tolerances of chip_smoke.py.
@@ -654,10 +885,57 @@ def p6_check(boxes):
         raise AssertionError("P6 differs from its plain version")
 
 
-CASES = ("k4", "k5b", "k2", "p1", "p3", "p4", "p5", "p6")
+def p7_cases(dev):
+    """{label: (o, t, n_chunks)}: the tool's shape on each of its data
+    sets; on the random data also at 4 chunks and at none (the kernel's
+    cost without a test)."""
+    b, w, n = probe_mosaic.CHUNK
+    out = {}
+    for data in probe_mosaic.CHUNK_DATA:
+        o, t = (torch.from_numpy(a).to(dev)
+                for a in probe_mosaic.chunk_inputs(data))
+        for k in (n, 4, 0) if data == "random" else (n,):
+            out[f"P7 [{data}] {b}x{w}x{k}"] = (o, t, k)
+    return out
+
+
+def p7_check(case):
+    o, t, n = case
+    if not probes.same_bits(probes.chunk(o, t, n),
+                            probes.chunk_plain(o.cpu(), t.cpu(), n)):
+        raise AssertionError("P7 differs from its plain version")
+
+
+# P8 at the tool's shape and at fewer blocks, down to as many copies as the
+# table has tiles (128) and half as many (64): where the routes cross.
+P8_BLOCKS = (1024, 512, 256, 128, 64)
+
+
+def p8_cases(dev):
+    """{label: (src, idx)}: the tool's table and indices at P8_BLOCKS."""
+    out = {}
+    for nb in P8_BLOCKS:
+        src, idx = exp_subtile_dma.inputs(0, nb)
+        out[f"P8 {nb}x{exp_subtile_dma.NI}x{exp_subtile_dma.CH}"] = (
+            torch.from_numpy(src).to(dev), torch.from_numpy(idx).to(dev))
+    return out
+
+
+def p8_call(case):
+    return probes.subtile_copy(*case, exp_subtile_dma.NI, exp_subtile_dma.CH)
+
+
+def p8_check(case):
+    if not probes.same_bits(p8_call(case), probes.subtile_copy_plain(
+            *case, exp_subtile_dma.NI, exp_subtile_dma.CH)):
+        raise AssertionError("P8 differs from its plain version")
+
+
+CASES = ("k4", "k5b", "k2", "p1", "p3", "p4", "p5", "p6", "p7", "p8")
 CASE_SOURCES = {"k4": "fused.cu", "k5b": "gather.cu", "k2": "resident.cu",
                 "p1": "probes.cu", "p3": "probes.cu", "p4": "probes.cu",
-                "p5": "mosaic.cu", "p6": "mosaic.cu"}
+                "p5": "mosaic.cu", "p6": "mosaic.cu", "p7": "mosaic.cu",
+                "p8": "mosaic.cu"}
 
 
 def main(argv=None) -> int:
@@ -739,13 +1017,23 @@ def main(argv=None) -> int:
                 cases.append(("p6", label, "mosaic.cu", b, p6_check,
                               lambda b=b: probes.mosaic_scalar_stack(b), 200,
                               "mosaic_scalar_stack_kernel"))
+        if "p7" in chosen:
+            cases += [("p7", label, "mosaic.cu", case, p7_check,
+                       lambda c=case: probes.chunk(*c), 200,
+                       "mosaic_chunk_kernel")
+                      for label, case in p7_cases(dev).items()]
+        if "p8" in chosen:
+            cases += [("p8", label, "mosaic.cu", case, p8_check,
+                       lambda c=case: p8_call(c), 200, "subtile_copy_kernel")
+                      for label, case in p8_cases(dev).items()]
         results = []
         for key, label, src, data, check, call, iters, kernel in cases:
             # a named variant runs on its own case; another checkout's
             # source on every case of that source, with OTHER_PLANS
             mine = lambda n: n.startswith(f"{key}_") or n not in VARIANTS
             runs = [("tree", base, None)] + [
-                (name, lib, None if name in VARIANTS else OTHER_PLANS.get(key))
+                (name, lib, VARIANT_PLANS.get(name) if name in VARIANTS
+                 else OTHER_PLANS.get(key))
                 for name, (s, lib) in overlays.items()
                 if s == src and mine(name)] + [
                 (name, base, kw) for name, kw in plans.items()
@@ -757,8 +1045,14 @@ def main(argv=None) -> int:
                     setattr(probes, k, v)
                 try:
                     check(data)
-                    ms, _ = device_ms(call, iters, kernel)
-                    info = p5_info(data) if key == "p5" else {}
+                    ms, _ = device_ms(call, iters, kernel,
+                                      per_call=VARIANT_LAUNCHES.get(name, 1))
+                    info = (p5_info(data) if key == "p5" else
+                            {"events_ms": probe2.wrapper_us(
+                                call, iters, dev) / 1e3,
+                             "route": probes.subtile_copy_route(
+                                 data[0].shape[0], data[1].shape[0])}
+                            if key == "p8" else {})
                 finally:
                     cuda_lib._lib = base
                     for k, v in saved.items():

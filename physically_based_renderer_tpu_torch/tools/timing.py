@@ -8,16 +8,18 @@ from __future__ import annotations
 
 
 def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
-              attempts: int = 4):
+              attempts: int = 4, per_call: int = 1):
     """Device time of fn under torch.profiler: (ms per launch of the
     kernels whose name holds `kernel`, ms per call of every other kernel
-    the call ran).  With kernel None, every kernel counts as the call's own
-    and the first number is ms per call.  The warm-up calls run in the
+    the call ran).  Where a call launches `per_call` kernels whose names
+    hold `kernel` (the passes of one route, named by a shared prefix), the
+    first number is ms per call over all of them.  With kernel None, every
+    kernel counts as the call's own and the first number is ms per call.  The warm-up calls run in the
     profiler's warm-up step, so tracing is already on when the measured
     step starts.  The tracer on the card's machine now and then drops the
     events of a step of short launches (seen: none, 64 or 82 of 100, of a
     1-18 us kernel): a step in which it saw fewer than 90% of the launches
-    of `kernel` is measured again, up to `attempts` times.  The time per
+    of `kernel` (per_call a call) is measured again, up to `attempts` times.  The time per
     launch is averaged over the launches seen, in the step that saw the
     most.  If no step saw one (seen late in a long run, after hundreds of
     profiled steps), the calls are timed with CUDA events instead, launch
@@ -58,12 +60,13 @@ def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
                 n_own += e.count
             else:
                 other_us += e.self_device_time_total
-        if kernel is not None and n_own > iters:
+        if kernel is not None and n_own > iters * per_call:
             raise AssertionError(f"{n_own} launches of {kernel} in {iters} "
                                  "calls: the name matches another kernel")
         if own_us > 0.0 and (best is None or n_own > best[2]):
             best = own_us, other_us, n_own
-        if own_us > 0.0 and (kernel is None or n_own >= 0.9 * iters):
+        if own_us > 0.0 and (kernel is None
+                             or n_own >= 0.9 * iters * per_call):
             break
         print(f"profiler saw {n_own} launches of {kernel} in {iters} calls "
               f"(attempt {attempt + 1} of {attempts})")
@@ -84,4 +87,4 @@ def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
     own_us, other_us, n_own = best
     if kernel is None:
         return own_us / 1e3 / iters, 0.0
-    return own_us / 1e3 / n_own, other_us / 1e3 / iters
+    return own_us / 1e3 / n_own * per_call, other_us / 1e3 / iters

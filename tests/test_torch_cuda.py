@@ -863,15 +863,45 @@ def test_p7_kernel_matches_plain(cuda_device, data):
     got = probes.chunk(o.to(cuda_device), t.to(cuda_device), 8)
     torch.cuda.synchronize()
     assert probes.LAUNCHES["chunk"] == before + 1
-    # 1/det is an IEEE division and -fmad=false: bit for bit
-    assert torch.equal(got.cpu(), probes.chunk_plain(o, t, 8))
+    # rcp_rn is 1/det on (1e-9, 2^126), the group divides beyond, and
+    # -fmad=false: bit for bit
+    assert probes.same_bits(got.cpu(), probes.chunk_plain(o, t, 8))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,w,n_chunks", [(1, 512, 8), (257, 513, 5),
+                                          (3, 100, 9), (256, 1, 1),
+                                          (5, 7, 0)])
+def test_p7_kernel_matches_plain_on_other_shapes(cuda_device, b, w,
+                                                 n_chunks):
+    """Rays that fill no CTA, columns that fill no warp, chunks that fill
+    no group of four (the tail's tests masked), no chunk at all."""
+    o, t = (torch.from_numpy(a) for a in probe_mosaic.chunk_inputs("random"))
+    o = o.repeat(1, 2)[:, :b].contiguous()
+    t = t.repeat(1, 2)[:, :w].contiguous()
+    got = probes.chunk(o.to(cuda_device), t.to(cuda_device), n_chunks)
+    assert probes.same_bits(got.cpu(), probes.chunk_plain(o, t, n_chunks))
+
+
+def _route(monkeypatch, route):
+    """P8 on `route` ("row_sums" or "direct") at every size; None leaves
+    the route rule's."""
+    if route is not None:
+        monkeypatch.setattr(probes, "subtile_copy_route",
+                            lambda *_: route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [None, "row_sums", "direct"])
 @pytest.mark.parametrize("nb", [exp_subtile_dma.NB, 3])
-def test_p8_kernel_matches_plain(cuda_device, nb):
+def test_p8_kernel_matches_plain(cuda_device, nb, route, monkeypatch):
+    """Both routes (None: the route rule's, row sums at NB, direct at 3)
+    do the plain version's additions in its order: bit for bit, indices
+    clamped."""
     src_np, idx_np = exp_subtile_dma.inputs(1, nb)
+    idx_np[:2] = (-1, exp_subtile_dma.C)
     src, idx = torch.from_numpy(src_np), torch.from_numpy(idx_np)
+    _route(monkeypatch, route)
     before = probes.LAUNCHES["subtile_copy"]
     got = probes.subtile_copy(src.to(cuda_device), idx.to(cuda_device),
                               exp_subtile_dma.NI, exp_subtile_dma.CH)
@@ -879,8 +909,34 @@ def test_p8_kernel_matches_plain(cuda_device, nb):
     assert probes.LAUNCHES["subtile_copy"] == before + 1
     plain = probes.subtile_copy_plain(src, idx, exp_subtile_dma.NI,
                                       exp_subtile_dma.CH)
-    rel = ((got.cpu() - plain).abs() / plain.abs()).max()
-    assert float(rel) <= exp_subtile_dma.PLAIN_RTOL
+    assert probes.same_bits(got.cpu(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,ni,ch", [(1024, 8, 4), (7, 3, 32), (64, 1, 1)])
+def test_p8_routes_match_plain_at_other_shapes(cuda_device, nb, ni, ch,
+                                               monkeypatch):
+    """Both routes at ch up to a CTA of 1,024 threads and one step."""
+    g = np.random.default_rng(nb + ni + ch)
+    src = torch.from_numpy(g.normal(size=(300, 16, 32)).astype(np.float32))
+    idx = torch.from_numpy(g.integers(-2, 302, nb * ni * ch).astype(
+        np.int32))
+    plain = probes.subtile_copy_plain(src, idx, ni, ch)
+    for route in ("row_sums", "direct"):
+        _route(monkeypatch, route)
+        got = probes.subtile_copy(src.to(cuda_device), idx.to(cuda_device),
+                                  ni, ch)
+        assert probes.same_bits(got.cpu(), plain), route
+
+
+@pytest.mark.cuda
+def test_subtile_read_matches_plain(cuda_device):
+    src, idx = (torch.from_numpy(a) for a in exp_subtile_dma.inputs(3, 64))
+    got = probes.subtile_read(src.to(cuda_device), idx.to(cuda_device),
+                              exp_subtile_dma.NI, exp_subtile_dma.CH)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), probes.subtile_read_plain(
+        src, idx, exp_subtile_dma.NI, exp_subtile_dma.CH))
 
 
 @pytest.mark.cuda

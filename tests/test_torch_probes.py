@@ -711,23 +711,42 @@ def test_mosaic_stack_rejects_bad_boxes():
         probes.mosaic_scalar_stack(torch.zeros((3, 6)))
 
 
-def _chunk_numpy(o, t, n_chunks):
-    """probe_mosaic.py:155-165 in numpy float32, op by op."""
+_TINY = np.float32(2.0 ** -126)         # the least normal float32
+
+
+def _chunk_numpy(o, t, n_chunks, lo=1e-9, zero_huge=False, ftz=False,
+                 contract=False):
+    """probe_mosaic.py:155-165 in numpy float32, op by op.  lo: the |det|
+    that inv needs to pass; zero_huge: inv = 0 where |det| >= 2^126 (what
+    the branch-free reciprocal gives there); ftz and contract: the float
+    rules of XLA's CPU backend, which flushes subnormal inputs and results
+    to zero and contracts the three multiply-adds (one rounding each)."""
     f = np.float32
-    rox = o[0][:, None]
+    z = ((lambda x: np.where(np.abs(x) < _TINY, np.copysign(f(0), x),
+                             x).astype(np.float32)) if ftz
+         else (lambda x: x))
+    if contract:
+        mad = lambda a, b, c: z((a.astype(np.float64) * b + c).astype(
+            np.float32))
+    else:
+        mad = lambda a, b, c: z(z(a * b) + c)
+    rox = z(o[0][:, None])
+    t = z(t)
     acc = np.full((o.shape[1], 1), f(1e30), np.float32)
-    for j in range(n_chunks):
-        e = (t * f(j + 1.0)) * f(1.0001)
-        px = rox * e[0][None, :]
-        det = px * e[1][None, :] + px
-        with np.errstate(divide="ignore"):
-            inv = np.where(np.abs(det) > f(1e-9), f(1.0) / det, f(0.0))
-        uu = px * inv
-        vv = uu * inv + px
-        tt = vv * uu + uu
-        ok = (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (tt > 0)
-        tt = np.where(ok, tt, f(1e30))
-        acc = np.minimum(acc, tt.min(axis=1, keepdims=True))
+    with np.errstate(all="ignore"):
+        for j in range(n_chunks):
+            e = z(z(t * f(j + 1.0)) * f(1.0001))
+            px = z(rox * e[0][None, :])
+            det = mad(px, e[1][None, :], px)
+            inv = z(np.where(np.abs(det) > f(lo), f(1.0) / det, f(0.0)))
+            if zero_huge:
+                inv = np.where(np.abs(det) >= f(2.0 ** 126), f(0.0), inv)
+            uu = z(px * inv)
+            vv = mad(uu, inv, px)
+            tt = mad(vv, uu, uu)
+            ok = (uu >= 0) & (vv >= 0) & (z(uu + vv) <= 1) & (tt > 0)
+            tt = np.where(ok, tt, f(1e30))
+            acc = np.minimum(acc, tt.min(axis=1, keepdims=True))
     return acc
 
 
@@ -739,22 +758,54 @@ def test_chunk_plain_is_the_numpy_restatement(data):
     np.testing.assert_array_equal(got, want)
     if data == "probe":                # all ones: every test is masked
         assert (got == np.float32(1e30)).all()
-    else:
+    elif data == "random":
         assert (got < 1e30).all() and (got > 0).all()
+    else:                              # rox = 0 and 1e10 hit nothing
+        assert (got > 0).all()
+        assert np.flatnonzero(got == np.float32(1e30)).tolist() == [0, 1]
+
+
+def test_chunk_edge_data_reaches_each_edge():
+    """The edge set's outputs depend on each edge: moving the 1e-9 test by
+    2% either way changes a negative ray's result, and inv = 0 where
+    |det| >= 2^126 (the branch-free reciprocal's value there, where the
+    kernel divides instead) changes a positive ray's; t holds +-inf and
+    NaN."""
+    o, t = probe_mosaic.chunk_inputs("edge")
+    b = o.shape[1]
+    want = _chunk_numpy(o, t, 8)
+    for lo in (0.98e-9, 1.02e-9):
+        moved = (_chunk_numpy(o, t, 8, lo=lo) != want)[:, 0]
+        assert moved[b // 2:].sum() >= 100 and not moved[:b // 2].any()
+    zeroed = (_chunk_numpy(o, t, 8, zero_huge=True) != want)[:, 0]
+    assert zeroed[:b // 2].sum() >= 100 and not zeroed[b // 2:].any()
+    assert np.isposinf(t).any() and np.isneginf(t).any()
+    assert np.isnan(t).any()
 
 
 @pytest.mark.parametrize("data", sorted(probe_mosaic.CHUNK_DATA))
 def test_chunk_matches_the_reference_kernel(data, ref_mosaic, capsys):
-    """Exact on the probe's data; on random data within 2 ulps, since
-    XLA's CPU compiler may contract the reference's multiply-adds."""
+    """The reference in interpret mode is exactly the numpy restatement
+    under XLA's CPU float rules (multiply-adds contracted, subnormals
+    flushed to zero).  The plain version keeps IEEE float32 without
+    contraction, as the kernel on the card does: within 2 ulps of the
+    reference on every ray whose result no flushed subnormal changes (all
+    rays of the probe's and the random data; on the edge data the 126
+    positive rays whose least tt passes through a subnormal 1 / det are
+    the others)."""
     ref, caught = ref_mosaic
     ref.probe_chunk()
     capsys.readouterr()
     run, _ = caught[0]
     o, t = probe_mosaic.chunk_inputs(data)
     want = np.asarray(run(o, t))
+    np.testing.assert_array_equal(
+        want, _chunk_numpy(o, t, 8, ftz=True, contract=True))
     got = probes.chunk(torch.from_numpy(o), torch.from_numpy(t), 8).numpy()
-    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=0)
+    flushed = _chunk_numpy(o, t, 8, ftz=True) != _chunk_numpy(o, t, 8)
+    assert flushed.sum() == (126 if data == "edge" else 0)
+    np.testing.assert_allclose(got[~flushed], want[~flushed], rtol=2.5e-7,
+                               atol=0)
 
 
 # ----------------------------------------------- P8 (exp_subtile_dma.py)
@@ -798,6 +849,66 @@ def test_subtile_copy_plain_is_the_reference_check():
                                rtol=exp_subtile_dma.REF_RTOL)
 
 
+@pytest.mark.parametrize("n_src,n_copies,route", [
+    (4096, 8191, "direct"), (4096, 8192, "row_sums"), (1, 1, "direct"),
+    (1, 2, "row_sums"), (4096, 96, "direct"), (4096, 32768, "row_sums")])
+def test_subtile_copy_route_at_its_boundary(n_src, n_copies, route):
+    """The row-sum pass reads every tile once: it is taken from twice as
+    many copies as the table has tiles, where the routes tie on the card;
+    the tool's shape takes it, the card test's nb = 3 (96 copies) the
+    direct route."""
+    assert probes.P8_ROW_SUMS_COPIES == 2
+    assert probes.subtile_copy_route(n_src, n_copies) == route
+
+
+def _row_sums_first(src, idx, nb):
+    """The row-sum-first route in numpy float32: every tile's rows summed
+    once, in order; then each copy's sums added step by step from 0."""
+    n_iters, ch = exp_subtile_dma.NI, exp_subtile_dma.CH
+    rows = src[:, 0].copy()
+    for r in range(1, src.shape[1]):
+        rows = rows + src[:, r]
+    k = np.clip(idx, 0, src.shape[0] - 1).reshape(nb, n_iters, ch)
+    acc = np.zeros((nb, ch, src.shape[2]), np.float32)
+    for j in range(n_iters):
+        acc = acc + rows[k[:, j]]
+    return acc.reshape(nb, 1, -1)
+
+
+@pytest.mark.parametrize("nb", [exp_subtile_dma.NB, 3])
+def test_subtile_copy_row_sums_first_is_plain(nb):
+    """Summing each tile's rows once and then gathering the sums does the
+    plain version's additions in its order: equal bit for bit, and within
+    the reference's own check."""
+    src, idx = exp_subtile_dma.inputs(0, nb)
+    idx[:2] = (-5, src.shape[0] + 7)             # clamped into range
+    want = _row_sums_first(src, idx, nb)
+    got = probes.subtile_copy(torch.from_numpy(src), torch.from_numpy(idx),
+                              exp_subtile_dma.NI, exp_subtile_dma.CH)
+    assert probes.same_bits(got, torch.from_numpy(want))
+    idx = np.clip(idx, 0, src.shape[0] - 1)
+    np.testing.assert_allclose(want[:, 0],
+                               exp_subtile_dma.expected(src, idx, nb),
+                               rtol=exp_subtile_dma.REF_RTOL)
+
+
+@pytest.mark.parametrize("nb", [1, 5])
+def test_subtile_read_plain_is_the_xor_of_every_copy(nb):
+    src, idx = exp_subtile_dma.inputs(2, nb)
+    idx[0] = -1
+    n_iters, ch = exp_subtile_dma.NI, exp_subtile_dma.CH
+    bits = src.view(np.int32)
+    want = np.zeros((nb, 32), np.int32)
+    for g in range(nb):
+        for k in idx[g * n_iters * ch:(g + 1) * n_iters * ch]:
+            for r in range(16):
+                want[g] ^= bits[min(max(k, 0), src.shape[0] - 1), r]
+    got = probes.subtile_read(torch.from_numpy(src), torch.from_numpy(idx),
+                              n_iters, ch)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_subtile_copy_rejects_bad_shapes():
     src = torch.zeros((4, 16, 32))
     idx = torch.zeros(32, dtype=torch.int32)
@@ -816,8 +927,8 @@ def test_mosaic_tools_run_on_the_cpu(capsys):
     assert exp_subtile_dma.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "--- probe_mosaic on cpu"
-    assert len(lines) == 1 + 10 + 3 + 2 + 2
-    body = lines[1:16] + lines[17:]
+    assert len(lines) == 1 + 10 + 3 + 3 + 2
+    body = lines[1:17] + lines[18:]
     assert all("ok=True" in ln and ln.endswith("[cpu]") for ln in body)
     assert "visited 1 nodes" in lines[11]
     assert not any(probes.LAUNCHES.values())         # CPU: plain versions
