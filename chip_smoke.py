@@ -58,6 +58,22 @@ of which raises on failure (an uncaught exception exits non-zero):
      then a small .glb (the helmet at scale_tris=0.02) rendered by path
      through the CLI and held against brute force on the same file, a
      truncated copy that must return 2, and `apps/report helmet --render`;
+     6c. the BVH walk, the XLA block tracer and batch_spp at 512x512,
+     launch counts reset just before each: `helmet` built without its
+     cluster grid and with its BVH, so that tracer "auto" takes the BVH
+     walk (1 spp, 3 bounces; 46 K5a), held to the render agreement at the
+     same key: its camera frame (no bounce) against the K1 route, the
+     whole frame on BVH_EXACT_BAND's rows against the brute-force tracer;
+     the whole frame against the K1 route is printed only (the pixels that
+     differ are phase A's truncation against an exact tracer); one walk
+     over the camera rays under torch.profiler gives launches and device
+     busy time a lockstep step; `helmet_proc`
+     through the XLA block tracer (tracer="block", 1 spp, 3 bounces; 24
+     K5a) against the K1 route (film mean within MEAN_REL, equal ray
+     counts); the dense cornell path with batch_spp (tracer="resident", 4
+     spp, 4 bounces, all samples one ray stream: 9 K2, 9 K5a) against the
+     sample loop (PIXEL_FRAC of the pixels within tolerance: only the order
+     of the film sums differs; equal ray counts);
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -219,6 +235,24 @@ EXPECTED_LAUNCHES = {
     "helmet": {"fused": 0, "resident": 0, "trace_blocks": 40,
                "tonemap": 1, "gather_fwd": 184, "gather_bwd": 0},
 }
+# The routes of phase 6c: launches of each run.  bvh: helmet at 1 spp x 3
+# bounces, K5a as a quarter of its CLI frame's 184; block: helmet_proc at
+# 1 spp, a quarter of 96; batch_spp: the dense cornell frame's 36 K2 and
+# 36 K5a in one stream of the four samples, 9 each.
+ROUTE_LAUNCHES = {
+    "bvh": {"fused": 0, "resident": 0, "trace_blocks": 0, "tonemap": 0,
+            "gather_fwd": 46, "gather_bwd": 0},
+    "block": {"fused": 0, "resident": 0, "trace_blocks": 0, "tonemap": 0,
+              "gather_fwd": 24, "gather_bwd": 0},
+    "batch_spp": {"fused": 0, "resident": 9, "trace_blocks": 0, "tonemap": 0,
+                  "gather_fwd": 9, "gather_bwd": 0},
+}
+# The bvh frame at 1 spp x 3 bounces is held per pixel to the exact
+# brute-force tracer on this band of rows (first row, rows) at the same
+# key: brute force over the whole frame would take minutes.  Against the
+# K1 route it is only measured: phase A truncates the bounce rays'
+# candidates there.
+BVH_EXACT_BAND = (224, 64)
 # The goldens: (label, config, file, (size, spp, bounces), how it is
 # driven, as in MAIN_PATHS).
 GOLDENS = (("cornell", "cornell", GOLDEN, (64, 2, 2), "resident"),
@@ -1662,9 +1696,9 @@ def kernel_resources():
 
 def relayout_sass():
     """Shared-memory stores, loads and barriers in the SASS of P2's two
-    instantiations, from cuobjdump on the built library: the compiler kept
-    the eleven moves of the exchanging kernel and the other has none.  None
-    where the toolkit has no cuobjdump."""
+    kernels, from cuobjdump on the built library: the elementwise kernel
+    has none, and the compiler kept the eleven moves of the exchange
+    route's.  None where the toolkit has no cuobjdump."""
     import re
 
     sass = cuobjdump("-sass")
@@ -1674,13 +1708,12 @@ def relayout_sass():
     counts = {}
     for part in sass.split("Function :")[1:]:
         name = part.split("\n")[0]
-        if "probe_relayout_kernel" in name:
-            exchange = "ILb1E" in name
-            counts["exchange" if exchange else "no_exchange"] = {
-                op: len(re.findall(rf"\b{op}\b", part))
-                for op in ("STS", "LDS", "BAR")}
+        if "probe_relayout" in name:
+            route = "exchange" if "exchange" in name else "elementwise"
+            counts[route] = {op: len(re.findall(rf"\b{op}\b", part))
+                             for op in ("STS", "LDS", "BAR")}
     print(f"P2 relayout SASS: {counts}")
-    ex, no = counts["exchange"], counts["no_exchange"]
+    ex, no = counts["exchange"], counts["elementwise"]
     if ex["STS"] < 11 or ex["LDS"] < 11 or any(no.values()):
         raise AssertionError(f"P2 relayout SASS: {counts}")
     return counts
@@ -1751,27 +1784,37 @@ def phase_probes(dev):
         "library_ms": None, "empty_kernel_ms": empty_ms, "by_set": by_set,
         "shape": "2,047 boxes, every box passes"}
 
-    # P2
+    # P2: both routes bit-equal to the plain version on the probe's tile
+    # and on random tiles; the elementwise route timed beside the exchange
+    # route (what moving every term across threads costs) and the empty
+    # kernel.
     x = t(probe2.relayout_input())
-    same("P2 relayout", (probes.relayout(x), probes.relayout(x, False)),
-         (probes.relayout_plain(x),) * 2, "probe_relayout")
+    tiles = [x] + [t(np.random.default_rng(seed).standard_normal(
+        probes.TILE).astype(np.float32) * 100) for seed in (1, 2, 3)]
+    for tile in tiles:
+        same("P2 relayout", tuple(probes.relayout(tile, route)
+                                  for route in probes.RELAYOUT_ROUTES),
+             (probes.relayout_plain(tile),) * 2, "probe_relayout")
     if not np.array_equal(probes.relayout(x).cpu().numpy(),
                           probe2.relayout_expected()):
         raise AssertionError("P2 relayout: not the probe's expectation")
     call = lambda: probes.relayout(x)
     ms, _ = device_ms(call, 200, "probe_relayout_kernel")
-    local_ms, _ = device_ms(lambda: probes.relayout(x, False), 200,
-                            "probe_relayout_kernel")
+    moved_ms, _ = device_ms(lambda: probes.relayout(x, "exchange"), 200,
+                            "probe_relayout_exchange_kernel")
     out["probe_relayout"] = {
-        "ms": ms, "no_exchange_ms": local_ms,
+        "ms": ms, "exchange_ms": moved_ms, "empty_kernel_ms": empty_ms,
         "wrapper_ms": time_ms(call, 200),
         "plain_ms": time_ms(lambda: probes.relayout_plain(x), 50),
         # the tile in and out; ten adds of i and ten of the accumulator
         "bound": bound(2 * x.numel() * 4, 20 * x.numel()),
-        "library_ms": None, "shape": "f32[8,128], 11 moves"}
-    if not ms > local_ms:
-        raise AssertionError(f"P2: the kernel with the moves ({ms} ms) is no "
-                             f"slower than without them ({local_ms} ms)")
+        "library_ms": None, "shape": "f32[8,128], elementwise"}
+    print(f"P2 relayout f32[8,128]: elementwise device {ms * 1e3:.2f} us, "
+          f"exchange route (11 moves across threads) {moved_ms * 1e3:.2f} "
+          f"us, empty kernel {empty_ms * 1e3:.2f} us [{card_line()}]")
+    if not moved_ms > ms:
+        raise AssertionError(f"P2: the exchange route ({moved_ms} ms) is no "
+                             f"slower than the elementwise one ({ms} ms)")
     out["probe_relayout"]["sass"] = relayout_sass()
 
     # P3
@@ -2515,6 +2558,199 @@ def render_direct(name, dev, tracer, **over):
                                "rays_per_s": rays / dt}
 
 
+def phase_routes(dev, counters):
+    """Phase 6c: the BVH walk, the XLA block tracer and batch_spp at
+    512x512, each run with the launch counts reset just before it, beside
+    the route it is held to at the same key (that run's launches are not
+    counted)."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.ops import traverse
+    from physically_based_renderer_tpu_torch.scene import types
+    from physically_based_renderer_tpu_torch.utils import config
+
+    def run(scene, cam, cfg):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        traverse.STEPS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film, count = path.render_with_stats(scene, cam, rng_mod.key(0, dev),
+                                             cfg)
+        img = film.mean().cpu().numpy()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(
+                img).all():
+            raise AssertionError(f"{cfg.tracer} film: shape {img.shape}, "
+                                 f"finite {bool(np.isfinite(img).all())}")
+        return img, {"seconds": dt, "rays": int(count),
+                     "rays_per_s": int(count) / dt,
+                     "bvh_steps": traverse.STEPS, "film_mean":
+                     float(img.mean()), "launches": got}
+
+    def held(label, img, st, ref, ref_st, equal_rays, mean_limit=MEAN_REL):
+        """Print how `img` compares with `ref` and hold it there (film mean
+        within mean_limit, equal ray counts if asked); a mean_limit of None
+        only measures."""
+        frac, n_bad = render_agreement(img, ref)
+        mean_rel = abs(st["film_mean"] / ref_st["film_mean"] - 1.0)
+        print(f"{label} {img.shape[1]}x{img.shape[0]}: {st['seconds']:.3f} s "
+              f"({ref_st['seconds']:.3f} s by the route it is held to), "
+              f"{st['rays']} ray queries ({ref_st['rays']}), "
+              f"{st['rays_per_s']:.4g} rays/s, film mean "
+              f"{st['film_mean']:.5f} ({ref_st['film_mean']:.5f}, rel "
+              f"{mean_rel:.3g}), {n_bad} of {img.shape[0] * img.shape[1]} "
+              f"pixels differ, BVH steps {st['bvh_steps']}, launches "
+              f"{st['launches']} [{card_line()}]")
+        if label in ROUTE_LAUNCHES and st["launches"] != ROUTE_LAUNCHES[
+                label]:
+            raise AssertionError(f"{label} launches {st['launches']}, "
+                                 f"expected {ROUTE_LAUNCHES[label]}")
+        if mean_limit is not None and (mean_rel > mean_limit or (
+                equal_rays and st["rays"] != ref_st["rays"])):
+            raise AssertionError(f"{label} disagrees with its reference "
+                                 "route")
+        return {**st, "held_to": {k: ref_st[k] for k in (
+                    "seconds", "rays", "film_mean")},
+                "pixel_frac": frac, "pixels_differ": n_bad,
+                "mean_rel": mean_rel}
+
+    def exact_band(scene, cam, cfg, img):
+        """Hold the rows BVH_EXACT_BAND of the frame `img` per pixel to the
+        brute-force tracer's render of those rows at the same key."""
+        row0, rows = BVH_EXACT_BAND
+        keys = rng_mod.split(rng_mod.key(0, dev), cfg.spp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            film, count = path.render_band(
+                scene, cam, keys, dataclasses.replace(cfg, tracer="brute"),
+                row0, rows)
+        ref = film.mean().cpu().numpy()
+        dt = time.perf_counter() - t0
+        band = img[row0:row0 + rows]
+        frac, n_bad = render_agreement(band, ref)
+        mean_rel = abs(float(band.mean()) / float(ref.mean()) - 1.0)
+        print(f"bvh rows {row0}-{row0 + rows - 1} against brute force: "
+              f"{n_bad} of {ref.shape[0] * ref.shape[1]} pixels differ, "
+              f"film mean {float(band.mean()):.5f} ({float(ref.mean()):.5f},"
+              f" rel {mean_rel:.3g}); brute force {dt:.3f} s, "
+              f"{int(count)} ray queries [{card_line()}]")
+        if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
+            raise AssertionError("the bvh frame differs from the brute-force "
+                                 "tracer")
+        return {"rows": [row0, rows], "pixel_frac": frac,
+                "pixels_differ": n_bad, "mean_rel": mean_rel,
+                "brute_seconds": dt, "brute_rays": int(count)}
+
+    def profile_walk(scene, cam, cfg):
+        """One closest-hit walk over the frame's camera rays (pixel
+        centres) under torch.profiler: kernel launches and device busy
+        time a lockstep step."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from physically_based_renderer_tpu_torch.core.camera import (
+            generate_rays_at)
+        w, h = cfg.width, cfg.height
+        pix = torch.arange(w * h, device=dev)
+        o, d = generate_rays_at(cam, w, h, (pix % w).float(),
+                                (pix // w).float(),
+                                torch.full((w * h, 2), 0.5, device=dev))
+
+        def walk():
+            traverse.STEPS = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                hit = traverse.intersect_bvh(scene.bvh, scene.geometry, o, d)
+            n_hit = int((hit.tri >= 0).sum())
+            return time.perf_counter() - t0, traverse.STEPS, n_hit
+
+        walk()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, steps, n_hit = walk()
+        events = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        launches = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunch", "cuLaunch")))
+        res = {"rays": w * h, "hits": n_hit, "steps": steps,
+               "profiled_wall_s": wall, "device_busy_s": busy,
+               "idle_share": 1.0 - busy / wall, "launches": launches,
+               "launches_per_step": launches / steps,
+               "device_ms_per_step": busy * 1e3 / steps,
+               "wall_ms_per_step": wall * 1e3 / steps}
+        print(f"profiled BVH walk, {w * h} camera rays ({n_hit} hit): "
+              f"{steps} lockstep steps, {launches} launches "
+              f"({res['launches_per_step']:.1f} a step), wall {wall:.4f} s, "
+              f"device busy {busy:.4f} s (idle {res['idle_share']:.1%}; "
+              f"{res['device_ms_per_step']:.4f} of "
+              f"{res['wall_ms_per_step']:.4f} ms a step) [{card_line()}]")
+        return res
+
+    out = {}
+    # bvh: helmet without its grid, with its BVH, against the K1 route and,
+    # on a band of rows, the brute-force tracer.
+    bc = config.get("helmet")
+    cfg = dataclasses.replace(bc.render, spp=1, max_bounces=3)
+    scene, cam = config.build_scene(bc.scene)
+    t0 = time.perf_counter()
+    bvh_scene = types.with_bvh(dataclasses.replace(scene, clusters=None))
+    build_s = time.perf_counter() - t0
+    cam = types.upload_scene(cam, dev)
+    bvh_scene = types.upload_scene(bvh_scene, dev)
+    grid_scene = types.upload_scene(scene, dev)
+    if path._tracer(bvh_scene, cfg) != "bvh":
+        raise AssertionError("tracer auto does not take the BVH walk")
+    # Camera rays come in coherent blocks, which phase A does not truncate:
+    # there the two exact answers agree per pixel.
+    cam_cfg = dataclasses.replace(cfg, max_bounces=0)
+    img, st = run(bvh_scene, cam, cam_cfg)
+    ref, ref_st = run(grid_scene, cam, cam_cfg)
+    camera = held("bvh_camera", img, st, ref, ref_st, True)
+    if camera["pixel_frac"] < PIXEL_FRAC:
+        raise AssertionError("bvh camera frame differs from the K1 route")
+    img, st = run(bvh_scene, cam, cfg)
+    exact = exact_band(bvh_scene, cam, cfg, img)
+    # Bounce rays: phase A keeps max(max_u // 2, 8) parent boxes a block
+    # (ROADMAP's known fault of the reference), so K1 drops hits that the
+    # BVH walk finds; the pixels that differ measure that truncation.
+    ref, ref_st = run(grid_scene, cam, cfg)
+    out["bvh"] = {**held("bvh", img, st, ref, ref_st, False, None),
+                  "camera_frame": camera, "exact_band": exact,
+                  "walk_profile": profile_walk(bvh_scene, cam, cfg),
+                  "bvh_build_s": build_s,
+                  "bvh_nodes": int(bvh_scene.bvh.node_left.shape[0])}
+    print(f"bvh: {out['bvh']['bvh_nodes']} nodes built in {build_s:.2f} s "
+          "on the host")
+    del bvh_scene, grid_scene
+
+    # block: helmet_proc through the XLA block tracer against K1.
+    bc = config.get("helmet_proc")
+    cfg = dataclasses.replace(bc.render, spp=1)
+    scene, cam = config.build_scene(bc.scene, dev)
+    img, st = run(scene, cam, dataclasses.replace(cfg, tracer="block"))
+    ref, ref_st = run(scene, cam, dataclasses.replace(cfg, tracer="pallas"))
+    out["block"] = held("block", img, st, ref, ref_st, True)
+    del scene
+
+    # batch_spp: the dense cornell frame as one stream against the loop.
+    bc = config.get("cornell")
+    cfg = dataclasses.replace(bc.render, tracer="resident")
+    scene, cam = config.build_scene(bc.scene, dev)
+    img, st = run(scene, cam, dataclasses.replace(cfg, batch_spp=True))
+    ref, ref_st = run(scene, cam, cfg)
+    out["batch_spp"] = held("batch_spp", img, st, ref, ref_st, True)
+    if out["batch_spp"]["pixel_frac"] < PIXEL_FRAC:
+        raise AssertionError("batch_spp differs from the sample loop")
+    return out
+
+
 def run_cli(argv):
     """Run the render CLI; return its --stats JSON (echoing its stderr)."""
     from physically_based_renderer_tpu_torch.apps import render
@@ -2684,6 +2920,12 @@ def main() -> int:
                               "pixels_differ": n_bad, "mean_rel": mean_rel,
                               "launches": got}
 
+        # 6c. the BVH walk, the XLA block tracer and batch_spp
+        routes = phase_routes(dev, counters)
+        for label, run in routes.items():
+            for k in launches:
+                launches[k][label] = run["launches"][k]
+
         # 6b. a .glb by path, a truncated one, the report CLI
         by_path = phase_glb_path(dev, tmp, counters)
         report = phase_report(tmp)
@@ -2839,7 +3081,7 @@ def main() -> int:
         "probes": probe_times, "probe_tool": probe_tool,
         "probes_p5_p8": mosaic_times, "sharded": sharded,
         "profiled_frames": frames,
-        "main_paths": runs, "goldens": goldens,
+        "main_paths": runs, "routes": routes, "goldens": goldens,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,

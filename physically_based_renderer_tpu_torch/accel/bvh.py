@@ -11,7 +11,10 @@ bit for bit.  Layout (numpy):
   node_right    i32[N]     >= 0: right child; for leaves: triangle count
   tri_order     i32[T]     BVH position -> original triangle id
 
-Refit and traversal (`tracer="bvh"`) are not ported yet.
+The builder and the host checks (`refit_bvh`, `bvh_depth`, `validate_bvh`)
+work on numpy arrays; a BVH attached to a scene (`scene.types.with_bvh`)
+holds the same fields as tensors on the render device, which the traversal
+(`ops/traverse.py`, `tracer="bvh"`) reads.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import dataclasses
 import numpy as np
 
 LEAF_SIZE = 4
+MAX_DEPTH = 64  # stack slots a ray in the traversal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +110,66 @@ def build_bvh(positions: np.ndarray, indices: np.ndarray,
                node_left=np.asarray(node_left, np.int32),
                node_right=np.asarray(node_right, np.int32),
                tri_order=out_order)
+
+
+def refit_bvh(bvh: BVH, positions, indices, pad: float = 0.0) -> BVH:
+    """Node boxes recomputed from moved vertices, bottom-up (the builder
+    emits parents before children, so reverse node order is bottom-up);
+    the topology is kept, so rebuild after a large deformation."""
+    positions = np.asarray(positions, np.float32)
+    indices = np.asarray(indices, np.int32)
+    order = bvh.tri_order
+    v0 = positions[indices[order, 0]]
+    v1 = positions[indices[order, 1]]
+    v2 = positions[indices[order, 2]]
+    tmin = np.minimum(np.minimum(v0, v1), v2) - pad
+    tmax = np.maximum(np.maximum(v0, v1), v2) + pad
+    left, right = bvh.node_left, bvh.node_right
+    nmin, nmax = bvh.node_min.copy(), bvh.node_max.copy()
+    for nid in range(len(left) - 1, -1, -1):
+        if left[nid] < 0:
+            s0 = -left[nid] - 1
+            c = right[nid]
+            nmin[nid] = tmin[s0:s0 + c].min(axis=0)
+            nmax[nid] = tmax[s0:s0 + c].max(axis=0)
+        else:
+            nmin[nid] = np.minimum(nmin[left[nid]], nmin[right[nid]])
+            nmax[nid] = np.maximum(nmax[left[nid]], nmax[right[nid]])
+    return dataclasses.replace(bvh, node_min=nmin, node_max=nmax)
+
+
+def bvh_depth(bvh: BVH) -> int:
+    """Largest depth, root at 1 (a host check that MAX_DEPTH stack slots
+    suffice)."""
+    left, right = bvh.node_left, bvh.node_right
+    depth = 0
+    stack = [(0, 1)]
+    while stack:
+        nid, d = stack.pop()
+        depth = max(depth, d)
+        if left[nid] >= 0:
+            stack.append((left[nid], d + 1))
+            stack.append((right[nid], d + 1))
+    return depth
+
+
+def validate_bvh(bvh: BVH, positions, indices) -> None:
+    """Structural invariants (raises AssertionError): every triangle once;
+    child boxes inside their parents' (1e-5 slack); the leaves' ranges
+    cover the triangle order."""
+    t = bvh.tri_order
+    assert np.array_equal(np.sort(t), np.arange(len(t)))
+    left, right = bvh.node_left, bvh.node_right
+    nmin, nmax = bvh.node_min, bvh.node_max
+    stack = [0]
+    seen = 0
+    while stack:
+        nid = stack.pop()
+        if left[nid] < 0:
+            seen += right[nid]
+            continue
+        for c in (left[nid], right[nid]):
+            assert (nmin[c] >= nmin[nid] - 1e-5).all()
+            assert (nmax[c] <= nmax[nid] + 1e-5).all()
+            stack.append(c)
+    assert seen == len(t)

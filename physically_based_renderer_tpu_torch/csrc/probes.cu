@@ -18,8 +18,10 @@
 //       and the walk pops the leaves in an order fixed by the tree's shape.
 //       So the bound is the tree's depth in shared-memory round trips (13
 //       levels at most), and at these sizes the launch itself.
-//   P2  latency of 11 shared-memory exchanges with a block barrier each; the
-//       data is 4 KB.
+//   P2  the launch.  In row-major memory the tile and the column views have
+//       the same flat order, so what P2 computes is elementwise:
+//       out[f] = ((0 + (x[f] + 0)) + (x[f] + 1)) + ... + (x[f] + 9); 4 KB
+//       in and out and 20 adds an element, far below an empty kernel.
 //   P3  bytes: the product computes rows.T[win], so the work is one read
 //       of win and of the rows and one write of the output (200,704 bytes
 //       at the probe's shape, far below a launch); the product's N x R x L
@@ -42,13 +44,18 @@
 // the last level's, highest index first (tests/test_torch_probes.py holds
 // this order against the walk).  The open leaves are compacted in that
 // order: a thread counts a run of consecutive leaf slots, and one block
-// prefix sum of the counts (warp shuffles, two barriers) places them.  P2: one
-// CTA of 1024 threads; "tile" ownership is thread t <-> element (t % 8,
-// t / 8) (eight sublanes by 128 lanes, as a TPU register holds it), "column"
-// ownership thread t <-> flat element t; every move goes through shared
-// memory with a row pitch of 132 words so that neither side has bank
-// conflicts.  A second instantiation without the exchange gives the time
-// of everything else.  P3: the product without the product.  out[i, c] =
+// prefix sum of the counts (warp shuffles, two barriers) places them.  P2
+// (route "elementwise"): a thread owns four consecutive flat elements, which
+// are the same four in the tile and in the column view, so no value crosses
+// a thread: one CTA of 256 threads, a float4 load, the ten adds in the
+// plain version's order, a float4 store; no shared memory, no barrier.
+// Route "exchange" keeps the first port's kernel, which prices a real
+// cross-thread relayout of a tile on this card: one CTA of 1024 threads,
+// "tile" ownership thread t <-> element (t % 8, t / 8) (eight sublanes by
+// 128 lanes, as a TPU register holds it), "column" ownership thread t <->
+// flat element t, every move through shared memory with a row pitch of 132
+// words (no bank conflicts on either side) and two barriers a move.  P3:
+// the product without the product.  out[i, c] =
 // sum over lane of (lane == w) * rows[c, lane] is rows[c, w] + 0.0f (the
 // sum starts from +0.0, so -0.0 comes out as +0.0), except that 0 * inf
 // and 0 * NaN are NaN: out[i, c] is NaN where row c holds a non-finite
@@ -88,6 +95,7 @@ constexpr int kTileLanes = 128;     //          x 128 lanes
 constexpr int kTileN = kTileRows * kTileLanes;
 constexpr int kTilePitch = kTileLanes + 4;  // words per sublane row in shared
 constexpr int kRelayoutMoves = 10;
+constexpr int kRelayoutThreads = 256;  // P2 elementwise: a float4 a thread
 constexpr int kOhCols = 8;          // P3 attribute rows a CTA
 constexpr int kOhOuts = 128;        // P3 output rows a CTA, two threads a row
 constexpr int kOhThreads = 2 * kOhOuts;
@@ -166,9 +174,27 @@ __device__ __forceinline__ int tile_slot(int flat) {
   return (flat / kTileLanes) * kTilePitch + (flat % kTileLanes);
 }
 
-template <bool kExchange>
-__global__ void probe_relayout_kernel(const float* __restrict__ x,
-                                      float* __restrict__ out) {
+// x and out 16-byte aligned.
+__global__ void __launch_bounds__(kRelayoutThreads)
+    probe_relayout_kernel(const float4* __restrict__ x,
+                          float4* __restrict__ out) {
+  for (int q = threadIdx.x; q < kTileN / 4; q += kRelayoutThreads) {
+    const float4 v = x[q];
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < kRelayoutMoves; ++i) {
+      const float c = float(i);
+      acc.x = acc.x + (v.x + c);
+      acc.y = acc.y + (v.y + c);
+      acc.z = acc.z + (v.z + c);
+      acc.w = acc.w + (v.w + c);
+    }
+    out[q] = acc;
+  }
+}
+
+__global__ void probe_relayout_exchange_kernel(const float* __restrict__ x,
+                                               float* __restrict__ out) {
   __shared__ float buf[kTileRows * kTilePitch];
   const int t = threadIdx.x;
   // Tile ownership: thread t holds element (t % 8, t / 8).
@@ -176,22 +202,14 @@ __global__ void probe_relayout_kernel(const float* __restrict__ x,
   const float v = x[mine];
   float acc = 0.0f;
   for (int i = 0; i < kRelayoutMoves; ++i) {
-    const float w = v + float(i);
-    if (kExchange) {
-      buf[tile_slot(mine)] = w;           // tile -> column: owner of flat t
-      __syncthreads();                    // reads what the tile owner wrote
-      acc = acc + buf[tile_slot(t)];
-      __syncthreads();
-    } else {
-      acc = acc + w;
-    }
-  }
-  if (kExchange) {
-    buf[tile_slot(t)] = acc;              // column -> tile
+    buf[tile_slot(mine)] = v + float(i);  // tile -> column: owner of flat t
+    __syncthreads();                      // reads what the tile owner wrote
+    acc = acc + buf[tile_slot(t)];
     __syncthreads();
-    acc = buf[tile_slot(mine)];
   }
-  out[mine] = acc;
+  buf[tile_slot(t)] = acc;                // column -> tile
+  __syncthreads();
+  out[mine] = buf[tile_slot(mine)];
 }
 
 // ---------------------------------------------------------------- P3
@@ -333,15 +351,19 @@ extern "C" int pbr_probe_empty(void* stream) {
   return int(cudaGetLastError());
 }
 
-// x f32[8, 128] -> out f32[8, 128] = sum over i < 10 of (x + i), moved tile
-// -> column ten times and back once (exchange != 0) or kept in registers.
+// x f32[8, 128] -> out f32[8, 128] = sum over i < 10 of (x + i): element by
+// element (exchange == 0; x and out 16-byte aligned), or each term moved
+// tile -> column across threads and the sum moved back (exchange != 0).
 extern "C" int pbr_probe_relayout(const float* x, float* out, int exchange,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (exchange)
-    probe_relayout_kernel<true><<<1, kTileN, 0, s>>>(x, out);
-  else
-    probe_relayout_kernel<false><<<1, kTileN, 0, s>>>(x, out);
+  if (exchange) {
+    probe_relayout_exchange_kernel<<<1, kTileN, 0, s>>>(x, out);
+  } else {
+    if (!aligned16(x) || !aligned16(out)) return int(cudaErrorInvalidValue);
+    probe_relayout_kernel<<<1, kRelayoutThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out));
+  }
   return int(cudaGetLastError());
 }
 

@@ -30,8 +30,7 @@ import torch
 from ..core import math3d
 from ..core import rng as rng_mod
 from ..core.camera import Camera
-from ..integrator.path import (RenderConfig, _check_config, render,
-                               render_band)
+from ..integrator.path import RenderConfig, render, render_band
 from ..scene.types import Scene
 
 FIELDS = ("base_color_factor", "roughness_factor", "metallic_factor",
@@ -121,15 +120,20 @@ def pixel_loss_grad(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def _with_live_accel(scene: Scene, params: TrainableParams) -> Scene:
-    """Keep the cluster grid valid under vertex optimisation: refit its
-    boxes and soup from the current (detached) positions.  The port's Scene
-    carries no BVH, so there is none to drop.  No-op when vertices are
-    frozen."""
-    if params.vertex_positions is None or scene.clusters is None:
+    """Keep acceleration structures valid under vertex optimisation: the
+    cluster grid refits its boxes and soup from the current (detached)
+    positions every step; the BVH is dropped, as the reference drops it
+    (its refit is a host loop), so tracing falls to the next tracer of the
+    dispatch.  No-op when vertices are frozen."""
+    if params.vertex_positions is None:
         return scene
-    from ..accel.clusters import refit_clusters
-    return dataclasses.replace(
-        scene, clusters=refit_clusters(scene.clusters, scene.geometry))
+    if scene.clusters is not None:
+        from ..accel.clusters import refit_clusters
+        scene = dataclasses.replace(
+            scene, clusters=refit_clusters(scene.clusters, scene.geometry))
+    if scene.bvh is not None:
+        scene = dataclasses.replace(scene, bvh=None)
+    return scene
 
 
 def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
@@ -209,7 +213,6 @@ def make_train_step_spmd(scene: Scene, camera: Camera, cfg: RenderConfig,
     from ..parallel.sharding import (TILE_AXIS, _check_divisible, axis_size,
                                      gather_rows)
 
-    _check_config(cfg)
     n = axis_size(mesh, TILE_AXIS)
     _check_divisible(cfg.height, n)
     group = mesh.get_group(TILE_AXIS)

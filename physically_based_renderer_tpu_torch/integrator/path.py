@@ -7,15 +7,17 @@ pdfs, MIS weights, Russian roulette) are detached, at the same points as
 the reference, so `render()`'s gradients are the reference's interior
 estimator (grad/inverse.py; held to the reference's jax.grad in the tests).
 
-Ported tracers: `resident` (K2, ops/resident.py), `pallas` (the block
-tracer: phase A in torch + K1, ops/blocktrace.py; the reference's route
-name, on the card the CUDA kernel) and `brute` (the oracle).  As in the
+Tracers: `resident` (K2, ops/resident.py), `pallas` (the block tracer:
+phase A in torch + K1, ops/blocktrace.py; the reference's route name, on
+the card the CUDA kernel), `block` (the reference's XLA block tracer in
+torch ops, ops/blocktrace.py::intersect_blocks), `bvh` (the stack walk of
+ops/traverse.py over `scene.bvh`) and `brute` (the oracle).  As in the
 reference, `render_with_stats` on a CUDA scene that `fused_applicable`
 accepts (tracer `auto` or `fused`) renders the whole frame with the fused
 kernel K4 (ops/fused.py) instead; on the CPU it stays dense, and the dense
 path takes the name `fused` as the reference's dispatch does, as brute
-force.  `render()` never takes K4.  The XLA block tracer (`block`), the
-BVH tracer and batched spp are not ported yet and raise.
+force.  `render()` never takes K4.  `cfg.batch_spp` renders all samples of
+`render_with_stats`'s dense path as one sample-inner ray stream.
 
 Row bands: `_sample_radiance(row_start=, n_rows=)` renders rows
 [row_start, row_start + n_rows) with per-ray keys from the GLOBAL pixel
@@ -41,9 +43,10 @@ from ..models import lights as lights_mod
 from ..models.bsdf import eval_bsdf, sample_bsdf
 from ..ops import resident
 from ..ops import fused as fused_mod
-from ..ops.blocktrace import intersect_blocks_pallas
+from ..ops.blocktrace import intersect_blocks, intersect_blocks_pallas
 from ..ops.intersect import BIG, Hit, intersect_brute, occluded_brute
 from ..ops.texture import build_pyramid
+from ..ops.traverse import intersect_bvh
 from ..scene.types import Scene
 from .shading import pack_tri_attrs, shade_surface
 
@@ -61,13 +64,13 @@ class RenderConfig:
     rr_start: int = 100           # bounce index where Russian roulette starts
     ray_eps: float = 1e-3         # shadow/secondary ray offset
     tri_chunk: int = 2048         # brute-force intersection chunk size
-    tracer: str = "auto"          # auto|brute|resident|pallas|fused (ported)
+    tracer: str = "auto"          # auto|brute|bvh|resident|block|pallas|fused
     block_size: int = 256         # ray block of the block tracers
     max_u: int = 48               # candidate clusters per block
     chunk: int = 4                # clusters per kernel loop iteration
     resort: bool = True           # in-tracer direction-bin sort
     exchange_axis: str | None = None  # mesh axis of the ring ray exchange
-    batch_spp: bool = False       # all spp as one ray stream (not ported)
+    batch_spp: bool = False       # all spp as one ray stream (primal)
 
 
 def _power_mis(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
@@ -81,16 +84,21 @@ def _power_mis(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
 def _auto_tracer(scene: Scene) -> str:
     """Pick the intersection backend (host decision): the resident tracer
     up to RESIDENT_AUTO_MAX_TRIS triangles, else the block tracer ("pallas",
-    K1) when the scene has a cluster grid."""
-    n = scene.geometry.num_tris
-    if n <= resident.RESIDENT_AUTO_MAX_TRIS:
+    K1) when the scene has a cluster grid, else the BVH walk when it has a
+    BVH, else brute force."""
+    if scene.geometry.num_tris <= resident.RESIDENT_AUTO_MAX_TRIS:
         return "resident"
     if scene.clusters is not None:
         return "pallas"
-    raise NotImplementedError(
-        f"scene has {n} triangles (> {resident.RESIDENT_AUTO_MAX_TRIS}) and "
-        "no cluster grid: attach one (scene.types.with_clusters) for the "
-        "block tracer, or pass tracer='brute' or 'resident' explicitly")
+    if scene.bvh is not None:
+        return "bvh"
+    return "brute"
+
+
+TRACERS = ("resident", "brute", "bvh", "block", "pallas")
+# The block tracers take the morton-ordered ray stream, the in-tracer sort
+# and the ring exchange.
+BLOCK_TRACERS = ("block", "pallas")
 
 
 def _tracer(scene: Scene, cfg: RenderConfig) -> str:
@@ -99,12 +107,14 @@ def _tracer(scene: Scene, cfg: RenderConfig) -> str:
         # The dense path has no fused tracer: the reference's dispatch
         # sends a name it does not route to brute force.
         return "brute"
-    if tracer not in ("resident", "brute", "pallas"):
-        raise NotImplementedError(f"tracer {tracer!r} is not ported yet "
-                                  "(ported: resident, pallas, brute)")
-    if tracer == "pallas" and scene.clusters is None:
-        raise ValueError("tracer 'pallas' needs a cluster grid "
+    if tracer not in TRACERS:
+        raise ValueError(f"unknown tracer {tracer!r} (one of auto, fused, "
+                         f"{', '.join(TRACERS)})")
+    if tracer in BLOCK_TRACERS and scene.clusters is None:
+        raise ValueError(f"tracer {tracer!r} needs a cluster grid "
                          "(scene.types.with_clusters)")
+    if tracer == "bvh" and scene.bvh is None:
+        raise ValueError("tracer 'bvh' needs a BVH (scene.types.with_bvh)")
     return tracer
 
 
@@ -123,9 +133,10 @@ def _maybe_exchange(tr, o, d, t_max, cfg: RenderConfig):
 
 def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
                 active=None, sort: bool = False, soup=None) -> Hit:
-    """Closest-hit dispatch (cfg.tracer: auto|resident|pallas|brute).
+    """Closest-hit dispatch (cfg.tracer: auto|resident|pallas|block|bvh|
+    brute).
 
-    Block tracer only: `active` (bool[N]) turns dead lanes into t_max = 0
+    Block tracers only: `active` (bool[N]) turns dead lanes into t_max = 0
     rays, which drop out of the bundle bounds and the kernel's early exit
     (dead lanes report a miss); `sort` is the in-tracer direction-bin sort
     for direction-scattered bounce rays.  `soup` is the prebuilt resident
@@ -134,16 +145,23 @@ def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
     if tracer == "resident":
         return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
                                            soup=soup)
-    if tracer == "pallas":
+    if tracer in BLOCK_TRACERS:
         t_max = BIG if active is None else torch.where(active, BIG, 0.0)
 
         def tr(o_, d_, tm_):
+            if tracer == "block":
+                return intersect_blocks(
+                    scene.clusters, scene.geometry, o_, d_, t_min=t_min,
+                    t_max=tm_, block=cfg.block_size, max_u=cfg.max_u,
+                    sort=sort)
             return intersect_blocks_pallas(
                 scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
                 block=cfg.block_size, max_u=cfg.max_u, sort=sort,
                 chunk=cfg.chunk)
 
         return _maybe_exchange(tr, o, d, t_max, cfg)
+    if tracer == "bvh":
+        return intersect_bvh(scene.bvh, scene.geometry, o, d, t_min=t_min)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return intersect_brute(o, d, v0, v1, v2, t_min=t_min,
                            chunk=cfg.tri_chunk)
@@ -158,14 +176,22 @@ def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig,
         return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
                                            t_max=t_max, any_hit=True,
                                            soup=soup)
-    if tracer == "pallas":
+    if tracer in BLOCK_TRACERS:
         def tr(o_, d_, tm_):
+            if tracer == "block":
+                return intersect_blocks(
+                    scene.clusters, scene.geometry, o_, d_, t_min=t_min,
+                    t_max=tm_, any_hit=True, block=cfg.block_size,
+                    max_u=cfg.max_u, sort=cfg.resort)
             return intersect_blocks_pallas(
                 scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
                 any_hit=True, block=cfg.block_size, max_u=cfg.max_u,
                 sort=cfg.resort, chunk=cfg.chunk)
 
         return _maybe_exchange(tr, o, d, t_max, cfg)
+    if tracer == "bvh":
+        return intersect_bvh(scene.bvh, scene.geometry, o, d, t_min=t_min,
+                             t_max=t_max, any_hit=True)
     v0, v1, v2 = scene.geometry.tri_vertices()
     return occluded_brute(o, d, v0, v1, v2, t_min=t_min, t_max=t_max,
                           chunk=cfg.tri_chunk)
@@ -220,7 +246,7 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
     # Bounce rays are direction-scattered: the block tracer sorts them by
     # direction bin inside the trace call (only o/d/t_max move).
-    use_sort = cfg.resort and _tracer(scene, cfg) == "pallas"
+    use_sort = cfg.resort and _tracer(scene, cfg) in BLOCK_TRACERS
 
     for bounce in range(cfg.max_bounces + 1):
         ray_count = ray_count + active.sum()
@@ -364,11 +390,6 @@ def _nee_prepare(sp, wo, ls, throughput, active, mis: bool,
 # Full-frame rendering
 # ---------------------------------------------------------------------------
 
-def _check_config(cfg: RenderConfig) -> None:
-    if cfg.batch_spp:
-        raise NotImplementedError("batch_spp is not ported yet")
-
-
 def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
                      cfg: RenderConfig, row_start: int = 0,
                      n_rows: int | None = None, return_stats: bool = False,
@@ -384,7 +405,7 @@ def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
     if n_rows is None:
         n_rows = cfg.height
     first = row_start * cfg.width
-    morton = _tracer(scene, cfg) == "pallas"
+    morton = _tracer(scene, cfg) in BLOCK_TRACERS
     if morton:
         pix = torch.from_numpy(morton_pixel_ids(
             cfg.height, cfg.width, row_start, n_rows)).to(
@@ -414,7 +435,6 @@ def render_sample(scene: Scene, camera: Camera, key: torch.Tensor,
                   cfg: RenderConfig, row_start: int = 0,
                   n_rows: int | None = None) -> torch.Tensor:
     """One sample per pixel for a row band -> radiance [n_rows, W, 3]."""
-    _check_config(cfg)
     return _sample_radiance(scene, camera, key.to(scene.device), cfg,
                             row_start, n_rows)
 
@@ -422,9 +442,10 @@ def render_sample(scene: Scene, camera: Camera, key: torch.Tensor,
 def render(scene: Scene, camera: Camera, key: torch.Tensor,
            cfg: RenderConfig) -> Film:
     """Render cfg.spp samples, differentiable in the scene tensors: the
-    dense estimator on any device (never K4, as in the reference)."""
-    _check_config(cfg)
-    return _render_with_stats_dense(scene, camera, key, cfg)[0]
+    dense estimator on any device, one pass per sample (never K4, and never
+    batch_spp, as in the reference)."""
+    return _render_with_stats_dense(
+        scene, camera, key, dataclasses.replace(cfg, batch_spp=False))[0]
 
 
 def render_image(scene: Scene, camera: Camera, seed: int,
@@ -458,7 +479,6 @@ def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
     On a CUDA scene that K4 takes, one K4 launch renders the frame: the
     same estimator with the fused kernel's murmur3 stream, so its image
     agrees with the dense one statistically, not pixel by pixel."""
-    _check_config(cfg)
     if _use_fused(scene, cfg):
         hdr, count = fused_mod.render_fused_stats(scene, camera, key, cfg)
         return Film(hdr=hdr, spp=float(cfg.spp)), count
@@ -467,9 +487,50 @@ def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
 
 def _render_with_stats_dense(scene: Scene, camera: Camera, key: torch.Tensor,
                              cfg: RenderConfig):
-    """Dense render + ray-query count: one pass per sample."""
-    return render_band(scene, camera,
-                       rng_mod.split(key.to(scene.device), cfg.spp), cfg)
+    """Dense render + ray-query count: one pass per sample, or one stream of
+    all samples with cfg.batch_spp."""
+    key = key.to(scene.device)
+    if cfg.batch_spp:
+        return _render_batched_spp(scene, camera, key, cfg)
+    return render_band(scene, camera, rng_mod.split(key, cfg.spp), cfg)
+
+
+def _render_batched_spp(scene: Scene, camera: Camera, key: torch.Tensor,
+                        cfg: RenderConfig):
+    """All cfg.spp samples as one ray stream, sample-inner: consecutive
+    rays are the samples of one pixel (in morton order for the block
+    tracers), so a block of B rays covers B / spp pixels.  Each ray's key
+    is the loop's (sample key, global pixel id), so the image equals the
+    loop's but for the order of the film sums and, under the block
+    tracers' max_u truncation, which rays share a block."""
+    if cfg.exchange_axis is not None:
+        raise ValueError("batch_spp renders on one device: exchange_axis "
+                         "must be None")
+    dev = scene.device
+    tables = frame_tables(scene, cfg)
+    n_pix = cfg.height * cfg.width
+    spp = cfg.spp
+    if _tracer(scene, cfg) in BLOCK_TRACERS:
+        local = torch.from_numpy(morton_pixel_ids(cfg.height, cfg.width)).to(
+            device=dev, dtype=torch.int64)
+    else:
+        local = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    pix = torch.repeat_interleave(local, spp)                # sample-inner
+    skeys = rng_mod.split(key, spp)
+    keys = torch.stack([rng_mod.ray_keys(k, local) for k in skeys],
+                       dim=1).reshape(n_pix * spp, 2)
+    jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
+    px = (pix % cfg.width).to(torch.float32)
+    py = (pix // cfg.width).to(torch.float32)
+    o, d = generate_rays_at(camera, cfg.width, cfg.height, px, py, jitter)
+    cone_angle = (2.0 * torch.tan(camera.fov_y * 0.5) / cfg.height
+                  if scene.has_textures else None)
+    L, count = trace_radiance(scene, o, d, keys, cfg, return_stats=True,
+                              cone_angle=cone_angle, tables=tables)
+    hdr = torch.zeros((n_pix, 3), dtype=torch.float32,
+                      device=dev).index_add_(0, pix, L)
+    return Film(hdr=hdr.reshape(cfg.height, cfg.width, 3),
+                spp=float(spp)), count
 
 
 def render_band(scene: Scene, camera: Camera, keys: torch.Tensor,

@@ -1,6 +1,8 @@
-"""Block-stream tracer: phase A and the host side of K1 (port of the
-Pallas path of `ops/blocktrace.py`: `_select_candidates`, `_impl_pallas`,
-`intersect_blocks_pallas`).
+"""Block-stream tracers (port of `ops/blocktrace.py`): phase A and the
+host side of K1 (`_select_candidates`, `_impl_pallas`,
+`intersect_blocks_pallas`: `tracer="pallas"`), and the XLA block tracer
+(`_impl`, `intersect_blocks`: `tracer="block"`) with its demand
+diagnostic `block_union_counts`.
 
 Rays are processed in blocks of B consecutive rays (morton-ordered camera
 rays, or direction-binned rays when `sort`):
@@ -16,8 +18,14 @@ rays, or direction-binned rays when `sort`):
   4. the flat winner u * K + k decodes to a triangle id.
 
 The search is detached; `integrator/shading.py` re-intersects the winner
-attached.  The reference's XLA block tracer (`intersect_blocks`, its CPU
-fallback) is a different algorithm and is not ported.  Top-k selections
+attached.  The XLA block tracer is the reference's route off the TPU and a
+different algorithm in torch ops: the root cull and the optional sort as
+above, one flat interval slab test of each block against every cluster
+(padding lanes masked to the block's first lane, dead lanes kept), the
+nearest max_u candidates, then dense Moller-Trumbore of every ray of a
+block against the candidates' triangles, eight clusters at a time, with a
+running minimum; its closest hit re-intersects the winner attached.  Top-k
+selections
 use a stable descending sort: `jax.lax.top_k` puts the lower index first
 among equal scores, and ties are common (entry distance 0 for every box
 that holds a block's origins).
@@ -25,11 +33,18 @@ that holds a block's origins).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..accel.clusters import ClusterGrid
-from .intersect import BIG, Hit
+from ..accel.clusters import ClusterGrid, cluster_tri_soup
+from .intersect import BIG, Hit, inv_dir, mt_rows
 from .trace_blocks import trace_blocks
+
+# The XLA block tracer's dense tests are made for groups of blocks of at
+# most this many (ray, triangle) pairs at a time, which bounds its
+# temporaries (~16 floats a pair) without changing a result.
+PAIRS_A_GROUP = 1 << 24
 
 
 def bucket_sort_perm(key: torch.Tensor) -> torch.Tensor:
@@ -42,17 +57,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _inv_dir(d: torch.Tensor) -> torch.Tensor:
-    return torch.where(d >= 0.0, 1.0, -1.0) / torch.clamp_min(d.abs(), 1e-12)
-
-
 def _root_cull(grid: ClusterGrid, o, d, t_min: float, t_max_arr):
     """Per-ray slab test against the root box (union of cluster boxes):
     t_max = 0 for rays that miss it, else t_max clipped to the inflated box
     exit."""
     lo = grid.aabb_min.min(dim=0).values
     hi = grid.aabb_max.max(dim=0).values
-    inv = _inv_dir(d)
+    inv = inv_dir(d)
     t0 = (lo[None, :] - o) * inv
     t1 = (hi[None, :] - o) * inv
     near = torch.minimum(t0, t1).max(dim=-1).values
@@ -133,7 +144,7 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
     ob = o_s.reshape(nb, b, 3)
     db = d_s.reshape(nb, b, 3)
     tmb = tm.reshape(nb, b)
-    inv = _inv_dir(db)
+    inv = inv_dir(db)
     lane_valid = (tmb > 0.0)[..., None]
     ob_m = torch.where(lane_valid, ob, ob[:, :1, :])
     inv_m = torch.where(lane_valid, inv, inv[:, :1, :])
@@ -257,3 +268,141 @@ def intersect_blocks_pallas(grid: ClusterGrid, o, d, t_min: float = 1e-4,
         t_k = torch.full_like(t_k, BIG).index_put_((perm,), t_k)
     zeros = torch.zeros((n,), dtype=torch.float32, device=o.device)
     return Hit(t=torch.where(tri >= 0, t_k, BIG), tri=tri, u=zeros, v=zeros)
+
+
+# ---------------------------------------------------------------------------
+# The XLA block tracer (`tracer="block"`)
+# ---------------------------------------------------------------------------
+
+def _impl(grid: ClusterGrid, geometry, o, d, t_max_arr, t_min: float,
+          any_hit: bool, block: int, max_u: int, sort: bool):
+    n = o.shape[0]
+    c = grid.num_clusters
+    max_u = min(max_u, c)
+    k = grid.k
+    v0g, e1g, e2g = cluster_tri_soup(grid.tri_id,
+                                     geometry.positions.detach(),
+                                     geometry.indices)
+    b = block
+    o_sg, d_sg = o.detach(), d.detach()
+    t_max_arr = _root_cull(grid, o_sg, d_sg, t_min, t_max_arr)
+    perm = None
+    if sort:
+        perm = _octant_perm(d_sg, t_max_arr)
+        o_sg, d_sg, t_max_arr = o_sg[perm], d_sg[perm], t_max_arr[perm]
+    n_pad = _round_up(n, b)
+    pad = n_pad - n
+    o_s = torch.cat([o_sg, o_sg.new_full((pad, 3), 3e30)])
+    d_s = torch.cat([d_sg, d_sg.new_tensor([[1.0, 0.0, 0.0]]).expand(pad, 3)])
+    tm = torch.cat([t_max_arr, t_max_arr.new_zeros((pad,))])
+    nb = n_pad // b
+    ob = o_s.reshape(nb, b, 3)
+    db = d_s.reshape(nb, b, 3)
+    tmb = tm.reshape(nb, b)
+
+    # Bundle bounds; padding lanes (origin 3e30) take the block's first
+    # lane's values.
+    inv = inv_dir(db)
+    lane_valid = (torch.arange(n_pad, device=o.device) < n).reshape(nb, b, 1)
+    ob_m = torch.where(lane_valid, ob, ob[:, :1, :])
+    inv_m = torch.where(lane_valid, inv, inv[:, :1, :])
+    overlap, entry = _interval_slab(
+        grid.aabb_min, grid.aabb_max, ob_m.min(dim=1).values,
+        ob_m.max(dim=1).values, inv_m.min(dim=1).values,
+        inv_m.max(dim=1).values, t_min, tmb.max(dim=1).values)
+    # nearest-first candidates
+    u_idx = _top_k(torch.where(overlap, -entry, float("-inf")), max_u)
+    u_valid = torch.gather(overlap, 1, u_idx)
+
+    # Candidates in chunks of u_chunk clusters, a running best a ray.
+    u_chunk = min(8, max_u)
+    n_uc = -(-max_u // u_chunk)
+    u_pad = n_uc * u_chunk
+    if u_pad > max_u:
+        u_idx = torch.cat([u_idx, u_idx.new_zeros((nb, u_pad - max_u))], 1)
+        u_valid = torch.cat([u_valid, u_valid.new_zeros((nb, u_pad - max_u))],
+                            1)
+    best_t = tmb.new_full((nb, b), BIG)
+    best_flat = torch.full((nb, b), -1, dtype=torch.int64, device=o.device)
+    occ = torch.zeros((nb, b), dtype=torch.bool, device=o.device)
+    g = max(1, PAIRS_A_GROUP // (b * u_chunk * k))
+    for g0 in range(0, nb, g):
+        blk = slice(g0, g0 + g)
+        ng = ob[blk].shape[0]
+        for uc in range(n_uc):
+            sl = u_idx[blk, uc * u_chunk:(uc + 1) * u_chunk]
+            vl = u_valid[blk, uc * u_chunk:(uc + 1) * u_chunk]
+            t, _, _, ok = mt_rows(
+                ob[blk][:, :, None], db[blk][:, :, None],
+                *(x[sl].reshape(ng, 1, u_chunk * k, 3)
+                  for x in (v0g, e1g, e2g)), t_min, math.inf)
+            tri_ok = (grid.tri_id[sl] >= 0) & vl[:, :, None]
+            ok = (ok & tri_ok.reshape(ng, 1, u_chunk * k)
+                  & (t < tmb[blk][:, :, None]))
+            if any_hit:
+                occ[blk] |= ok.any(dim=-1)
+                continue
+            t = torch.where(ok, t, BIG)
+            kb = torch.argmin(t, dim=-1)
+            tb = torch.gather(t, 2, kb[..., None])[..., 0]
+            better = tb < best_t[blk]
+            best_t[blk] = torch.where(better, tb, best_t[blk])
+            best_flat[blk] = torch.where(better, uc * u_chunk * k + kb,
+                                         best_flat[blk])
+
+    if any_hit:
+        occ = occ.reshape(n_pad)[:n]
+        if sort:
+            occ = torch.zeros_like(occ).index_put_((perm,), occ)
+        return occ
+
+    # Winner decode: flat = u * K + k within the candidate list.
+    found2 = best_flat >= 0
+    flat = torch.clamp_min(best_flat, 0)
+    cl_win = torch.gather(u_idx, 1, flat // k)
+    tri_win = grid.tri_id[cl_win, flat % k]
+    tri = torch.where(found2, tri_win, -1).reshape(n_pad)[:n]
+    if sort:
+        tri = torch.full_like(tri, -1).index_put_((perm,), tri)
+    # The winner re-intersected with gradient attached.
+    idx = geometry.indices.long()[torch.clamp_min(tri, 0).long()]
+    pa = geometry.positions
+    w0 = pa[idx[:, 0]]
+    t, u, v, _ = mt_rows(o, d, w0, pa[idx[:, 1]] - w0, pa[idx[:, 2]] - w0,
+                         t_min, BIG)
+    found = tri >= 0
+    return Hit(t=torch.where(found, t, BIG), tri=tri.to(torch.int32),
+               u=torch.where(found, u, 0.0), v=torch.where(found, v, 0.0))
+
+
+def intersect_blocks(grid: ClusterGrid, geometry, o, d, t_min: float = 1e-4,
+                     t_max=BIG, any_hit: bool = False, block: int = 512,
+                     max_u: int = 48, sort: bool = False):
+    """Closest hit (an attached Hit) or any hit (bool[N]) through the XLA
+    block tracer; t_max is a scalar or f32[N]."""
+    n = o.shape[0]
+    t_max_arr = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=o.device), (n,))
+    return _impl(grid, geometry, o, d, t_max_arr, float(t_min), any_hit,
+                 block, max_u, sort)
+
+
+def block_union_counts(grid: ClusterGrid, o, d, block: int = 512,
+                       t_min: float = 1e-4, t_max=BIG) -> torch.Tensor:
+    """Candidate clusters a block's bundle overlaps (int64[NB]): the demand
+    that max_u caps.  Padding lanes repeat the last ray; a per-ray t_max
+    counts as unbounded."""
+    n = o.shape[0]
+    n_pad = _round_up(n, block)
+    pad = n_pad - n
+    o_s = torch.cat([o, o[-1:].expand(pad, 3)])
+    d_s = torch.cat([d, d[-1:].expand(pad, 3)])
+    nb = n_pad // block
+    ob = o_s.reshape(nb, block, 3)
+    inv = inv_dir(d_s.reshape(nb, block, 3))
+    t_hi = float(t_max) if torch.as_tensor(t_max).dim() == 0 else BIG
+    overlap, _ = _interval_slab(
+        grid.aabb_min, grid.aabb_max, ob.min(dim=1).values,
+        ob.max(dim=1).values, inv.min(dim=1).values, inv.max(dim=1).values,
+        t_min, o.new_full((nb,), t_hi))
+    return overlap.sum(dim=-1)

@@ -31,21 +31,32 @@ class Hit:
         return self.tri < 0
 
 
-def _moller_trumbore(o, d, v0, v1, v2, t_min, t_max, eps=1e-9):
+def _moller_trumbore(o, d, v0, v1, v2, t_min, t_max):
     """Rays [N,3] against tris [T,3] pairwise -> (t, u, v, valid) [N, T]."""
-    e1 = v1 - v0
-    e2 = v2 - v0
-    p = math3d.cross(d[:, None, :], e2[None, :, :])
-    det = torch.sum(p * e1[None], dim=-1)
+    return mt_rows(o[:, None], d[:, None], v0[None], (v1 - v0)[None],
+                   (v2 - v0)[None], t_min, t_max)
+
+
+def mt_rows(o, d, v0, e1, e2, t_min: float, t_max, eps: float = 1e-9):
+    """Moller-Trumbore -> (t, u, v, valid): one triangle a ray ([N, 3]
+    each), or every ray against every triangle when the shapes broadcast
+    (rays [..., N, 1, 3] against triangles [..., 1, T, 3] give [..., N, T])."""
+    p = math3d.cross(d, e2)
+    det = torch.sum(p * e1, dim=-1)
     inv_det = torch.where(det.abs() > eps, 1.0 / det, 0.0)
-    tv = o[:, None, :] - v0[None]
+    tv = o - v0
     u = torch.sum(tv * p, dim=-1) * inv_det
-    q = math3d.cross(tv, e1[None, :, :])
-    v = torch.sum(d[:, None, :] * q, dim=-1) * inv_det
-    t = torch.sum(e2[None] * q, dim=-1) * inv_det
-    valid = ((det.abs() > eps) & (u >= 0.0) & (v >= 0.0)
-             & (u + v <= 1.0) & (t > t_min) & (t < t_max))
+    q = math3d.cross(tv, e1)
+    v = torch.sum(d * q, dim=-1) * inv_det
+    t = torch.sum(e2 * q, dim=-1) * inv_det
+    valid = ((det.abs() > eps) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t > t_min) & (t < t_max))
     return t, u, v, valid
+
+
+def inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """Safe reciprocal direction for slab tests."""
+    return torch.where(d >= 0.0, 1.0, -1.0) / torch.clamp_min(d.abs(), 1e-12)
 
 
 def intersect_brute(o: torch.Tensor, d: torch.Tensor, v0, v1, v2,

@@ -5,8 +5,11 @@ repository's `tools/probe2.py`, `tools/probe_mosaic.py` and
   P1 `scalar_stack(boxes)`    what a scalar walk of an implicit binary tree
                               of boxes with a stack finds -> (visited,
                               leaves), the leaves in pop order
-  P2 `relayout(x)`            an [8, 128] tile moved to a [1024, 1] column
-                              ten times (x + i), summed, and moved back
+  P2 `relayout(x, route)`     an [8, 128] tile moved to a [1024, 1] column
+                              ten times (x + i), summed, and moved back:
+                              element by element, since both views have
+                              the same flat order (route "elementwise"),
+                              or across threads ("exchange")
   P3 `onehot_mm(win, rows)`   rows.T[win] as a one-hot product
   P4 `gather(x, idx, axis)`   take_along_axis(x, idx, axis)
   P5 `mosaic_gather(x, idx, axis, reps)`
@@ -52,6 +55,7 @@ LAUNCHES = {"scalar_stack": 0, "relayout": 0, "onehot_mm": 0, "gather": 0,
 
 TILE = (8, 128)        # P2's tile: eight sublanes by 128 lanes
 RELAYOUT_MOVES = 10
+RELAYOUT_ROUTES = ("elementwise", "exchange")
 MAX_NODES = 8191       # P1, P6: a flag a node in static shared memory
 MAX_MM_ROWS = 32       # P3: attribute rows at most (the probe's chunk rows)
 TILE_P8 = (16, 32)     # P8: one copied tile, 2 KB
@@ -178,20 +182,28 @@ def relayout_plain(x: torch.Tensor) -> torch.Tensor:
     return acc.reshape(x.shape)
 
 
-def relayout(x: torch.Tensor, exchange: bool = True) -> torch.Tensor:
-    """P2: x f32[8, 128] -> sum over i < 10 of (x + i), each term moved from
-    tile to column ownership across the block's threads and the sum moved
-    back.  exchange=False runs the kernel's second instantiation, which
-    keeps every value in its thread: the same result, and the time of
-    everything but the moves."""
+def relayout(x: torch.Tensor, route: str = "elementwise") -> torch.Tensor:
+    """P2: x f32[8, 128] -> sum over i < 10 of (x + i), reshaped to a column
+    and back.  Route "elementwise" (`probe_relayout_kernel`): a thread owns
+    four consecutive elements, the same in both views, so no value crosses
+    a thread (x 16-byte aligned).  Route "exchange"
+    (`probe_relayout_exchange_kernel`): each term moved from tile to column
+    ownership across the block's threads through shared memory and the sum
+    moved back, the price of a real relayout on the card.  The same result
+    bit for bit; one launch either way."""
     _require(x, "x", torch.float32, 2)
     if tuple(x.shape) != TILE:
         raise ValueError(f"x must be {TILE}, got {tuple(x.shape)}")
+    if route not in RELAYOUT_ROUTES:
+        raise ValueError(f"route must be one of {RELAYOUT_ROUTES}, got "
+                         f"{route!r}")
     if x.device.type == "cpu":
         return relayout_plain(x)
+    if route == "elementwise" and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned for the elementwise route")
     out = torch.empty_like(x)
     rc = cuda_lib.library().pbr_probe_relayout(
-        x.data_ptr(), out.data_ptr(), int(exchange),
+        x.data_ptr(), out.data_ptr(), int(route == "exchange"),
         cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "pbr_probe_relayout")
     LAUNCHES["relayout"] += 1

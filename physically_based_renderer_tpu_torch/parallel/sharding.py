@@ -33,8 +33,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from ..core import rng as rng_mod
 from ..core.camera import Camera
 from ..core.film import Film
-from ..integrator.path import (RenderConfig, _check_config, render_band,
-                               render_sample)
+from ..integrator.path import RenderConfig, render_band, render_sample
 from ..scene.types import Scene, map_tensors, upload_scene
 from . import distributed, exchange as exchange_mod
 
@@ -127,7 +126,6 @@ def render_sample_sharded(scene: Scene, camera: Camera, key: torch.Tensor,
     exchange=True routes the block tracer's calls through the ring ray
     exchange (parallel/exchange.py); the result is the same.  Returns the
     full [H, W, 3] radiance on every rank."""
-    _check_config(cfg)
     n, i, rows = _rows(cfg, mesh)
     if exchange:
         cfg = dataclasses.replace(cfg, exchange_axis=TILE_AXIS)
@@ -143,7 +141,6 @@ def render_sharded_with_stats(scene: Scene, camera: Camera,
                               mesh: DeviceMesh):
     """Full sharded render (all spp, rows over the mesh) and the int64
     ray-query count summed over the ranks; both on every rank."""
-    _check_config(cfg)
     n, i, rows = _rows(cfg, mesh)
     group = mesh.get_group(TILE_AXIS)
     keys = rng_mod.split(key.to(scene.device), cfg.spp)
@@ -166,7 +163,6 @@ def render_sharded_2d(scene: Scene, camera: Camera, key: torch.Tensor,
     x spp / n_spp samples (keys by global sample index), the sample sums
     all-reduce over `spp`, the rows assemble over `tiles`.  Equal to
     `render()` up to the order of the spp sum."""
-    _check_config(cfg)
     nt, i, rows = _rows(cfg, mesh)
     ns = axis_size(mesh, SPP_AXIS)
     if cfg.spp % ns:

@@ -17,6 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..accel.bvh import BVH, LEAF_SIZE, build_bvh
 from ..accel.clusters import (SOUP_ROWS, ClusterGrid, build_clusters,
                               pack_soup_host)
 
@@ -236,8 +237,10 @@ class Scene:
     emitters: EmitterTable
     directional: DirectionalLight
     env: EnvMap | None
-    # The block tracer's cluster grid (accel/clusters.py, `with_clusters`);
-    # None => the resident or brute tracer.
+    # Acceleration structures, None when absent: the BVH of the stack-walk
+    # tracer (accel/bvh.py, `with_bvh`) and the block tracers' cluster grid
+    # (accel/clusters.py, `with_clusters`), which wins when both are set.
+    bvh: BVH | None = None
     clusters: ClusterGrid | None = None
     # Static flags: the integrator skips whole light paths / texture slots.
     has_emitters: bool = False
@@ -389,6 +392,18 @@ def map_tensors(obj, fn):
 
 def _to_device(obj, device):
     return map_tensors(obj, lambda t: t.to(device))
+
+
+def with_bvh(scene: Scene) -> Scene:
+    """Build the BVH (host numpy builder, which the reference's native
+    builder equals bit for bit) and attach it, as tensors on the scene's
+    device; the stack-walk tracer (ops/traverse.py) needs it.  Its leaves
+    hold at most `LEAF_SIZE` triangles, the count the walk tests."""
+    bvh = build_bvh(_np(scene.geometry.positions),
+                    _np(scene.geometry.indices), leaf_size=LEAF_SIZE)
+    bvh = BVH(**{f.name: torch.from_numpy(getattr(bvh, f.name))
+                 for f in dataclasses.fields(BVH)})
+    return dataclasses.replace(scene, bvh=_to_device(bvh, scene.device))
 
 
 def with_clusters(scene: Scene) -> Scene:

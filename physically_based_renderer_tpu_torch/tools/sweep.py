@@ -1,9 +1,9 @@
-"""Time variants of K4, K5b, K2, P1, P3-P8 against the tree's own
+"""Time variants of K4, K5b, K2, P1-P8 against the tree's own
 kernels, on the card.
 
     python -m physically_based_renderer_tpu_torch.tools.sweep \
         [--other NAME=DIR:fused.cu,gather.cu ...] [--variants ...] \
-        [--cases k4,k5b,k2,p1,p3,p4,p5,p6,p7,p8]
+        [--cases k4,k5b,k2,p1,p2,p3,p4,p5,p6,p7,p8]
 
 A variant is one source of `csrc/` with named textual edits (VARIANTS; an
 edit must match the source exactly once, so a stale one fails; a variant
@@ -35,7 +35,12 @@ calls of one dense cornell frame (512x512, 4 spp, 4 bounces;
 bounces' closest hits and the shadow rays' any hits, each kind's calls in
 turn (exact against the plain version); P1 on the tool's all-pass boxes
 and on trees of 5,001 and 8,191 nodes (`tools/probe2.py::tree_boxes`,
-exact); P3 on the probe's data and on `tools/probe2.py::onehot_edge_inputs`
+exact); P2 on the probe's tile by its elementwise route and by the kept
+exchange route (`relayout(x, "exchange")`; another checkout's P2 is
+called with the same exchange flag, so on the exchange case it runs its
+own exchanging kernel, its `relayout` before the elementwise route, and
+on the elementwise case that kernel's instantiation without moves; bit
+for bit); P3 on the probe's data and on `tools/probe2.py::onehot_edge_inputs`
 (exact, NaN for NaN); P4 at the five shapes of
 `tools/probe2.py::GATHER_SHAPES` on the probe's data, checked also with
 indices outside the axis and -0.0 in x (exact); P5 at the ten shapes of `tools/probe_mosaic.py::GATHER_CASES` on
@@ -527,6 +532,12 @@ VARIANTS = {
                                      "constexpr int kStackThreads = 256;")]),
     "p1_threads1024": ("probes.cu", [("constexpr int kStackThreads = 512;",
                                       "constexpr int kStackThreads = 1024;")]),
+    # P2's elementwise route: one warp of 8 float4s a lane; 128 threads
+    # of two.
+    "p2_warp": ("probes.cu", [("constexpr int kRelayoutThreads = 256;",
+                               "constexpr int kRelayoutThreads = 32;")]),
+    "p2_threads128": ("probes.cu", [("constexpr int kRelayoutThreads = 256;",
+                                     "constexpr int kRelayoutThreads = 128;")]),
     # P3: output rows a CTA (two threads a row).
     "p3_outs64": ("probes.cu", [("constexpr int kOhOuts = 128;",
                                  "constexpr int kOhOuts = 64;")]),
@@ -807,6 +818,18 @@ P5_SWEEP_SHAPES = ((16, 16384, 1, 4), (64, 4096, 1, 8), (4096, 128, 0, 1),
                    (256, 512, 0, 1), (256, 512, 1, 1))
 
 
+def p2_cases(dev):
+    """{label: (x, route)}: the probe's tile by both routes."""
+    x = torch.from_numpy(probe2.relayout_input()).to(dev)
+    return {f"P2 [8,128] {route}": (x, route)
+            for route in probes.RELAYOUT_ROUTES}
+
+
+def p2_check(case):
+    if not torch.equal(probes.relayout(*case), probes.relayout_plain(case[0])):
+        raise AssertionError("P2 differs from its plain version")
+
+
 def p3_cases(dev):
     """{label: (win, rows)}: the probe's data and the edge data."""
     t = lambda a: torch.from_numpy(a).to(dev)
@@ -931,9 +954,10 @@ def p8_check(case):
         raise AssertionError("P8 differs from its plain version")
 
 
-CASES = ("k4", "k5b", "k2", "p1", "p3", "p4", "p5", "p6", "p7", "p8")
+CASES = ("k4", "k5b", "k2", "p1", "p2", "p3", "p4", "p5", "p6", "p7", "p8")
 CASE_SOURCES = {"k4": "fused.cu", "k5b": "gather.cu", "k2": "resident.cu",
-                "p1": "probes.cu", "p3": "probes.cu", "p4": "probes.cu",
+                "p1": "probes.cu", "p2": "probes.cu", "p3": "probes.cu",
+                "p4": "probes.cu",
                 "p5": "mosaic.cu", "p6": "mosaic.cu", "p7": "mosaic.cu",
                 "p8": "mosaic.cu"}
 
@@ -996,6 +1020,11 @@ def main(argv=None) -> int:
                 cases.append(("p1", label, "probes.cu", b, p1_check,
                               lambda b=b: probes.scalar_stack(b), 200,
                               "probe_scalar_stack_kernel"))
+        if "p2" in chosen:
+            cases += [("p2", label, "probes.cu", case, p2_check,
+                       lambda c=case: probes.relayout(*c), 200,
+                       "probe_relayout")
+                      for label, case in p2_cases(dev).items()]
         if "p3" in chosen:
             cases += [("p3", label, "probes.cu", case, p3_check,
                        lambda c=case: probes.onehot_mm(*c), 200,

@@ -322,8 +322,8 @@ def test_auto_tracer_picks_the_block_tracer():
     no_grid = types.scene_from_numpy(scene_arrays(jtypes.make_scene(
         jproc.make_uv_sphere(rings=20, sectors=20),
         jtypes.Materials.default(1))))
-    with pytest.raises(NotImplementedError):
-        path._auto_tracer(no_grid)
+    assert path._auto_tracer(no_grid) == "brute"
+    assert path._auto_tracer(types.with_bvh(no_grid)) == "bvh"
     with pytest.raises(ValueError, match="cluster grid"):
         path.closest_hit(no_grid, torch.zeros(1, 3), torch.ones(1, 3), 0.0,
                          path.RenderConfig(tracer="pallas"))

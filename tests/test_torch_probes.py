@@ -188,8 +188,8 @@ def test_scalar_stack_rejects_bad_boxes():
 
 def test_relayout_plain_on_the_probe_input(ref_probe2, capsys):
     x = probe2.relayout_input()
-    for exchange in (True, False):
-        got = probes.relayout(torch.from_numpy(x), exchange=exchange).numpy()
+    for route in probes.RELAYOUT_ROUTES:
+        got = probes.relayout(torch.from_numpy(x), route).numpy()
         np.testing.assert_array_equal(got, probe2.relayout_expected())
     assert "ok=True" in _run_ref(ref_probe2, "relayout", capsys)
 
@@ -203,6 +203,8 @@ def test_relayout_plain_other_seeds(seed):
                                   want.reshape(8, 128))
     with pytest.raises(ValueError):
         probes.relayout(torch.zeros(128, 8))
+    with pytest.raises(ValueError):
+        probes.relayout(torch.from_numpy(x), "column")
 
 
 # --------------------------------------------------------------------- P3

@@ -2,24 +2,32 @@
 kernel in interpret mode and against brute force; the CUDA kernel against
 the plain version on the card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from physically_based_renderer_tpu.core.camera import Camera as JCamera
+from physically_based_renderer_tpu.integrator.path import (
+    RenderConfig as JRenderConfig, render_with_stats as j_render_with_stats)
 from physically_based_renderer_tpu.ops.intersect import (
     intersect_brute as j_brute, occluded_brute as j_occluded)
 from physically_based_renderer_tpu.ops.resident import (
     intersect_resident as j_resident)
+from physically_based_renderer_tpu.scene import procedural as jproc
 from physically_based_renderer_tpu.scene import types as jtypes
 from physically_based_renderer_tpu.scene.procedural import (
     make_cornell_box as j_cornell, make_random_tris as j_random_tris)
+from physically_based_renderer_tpu_torch.core import rng
+from physically_based_renderer_tpu_torch.core.camera import camera_from_numpy
 from physically_based_renderer_tpu_torch.integrator import path
 from physically_based_renderer_tpu_torch.ops import cuda_lib, resident
 from physically_based_renderer_tpu_torch.ops.intersect import (
     BIG, intersect_brute, occluded_brute)
+from physically_based_renderer_tpu_torch.scene import types
 from physically_based_renderer_tpu_torch.scene.types import scene_from_numpy
-from torch_parity import scene_arrays
+from torch_parity import assert_render_agrees, flat, scene_arrays
 
 torch.set_num_threads(1)
 
@@ -199,14 +207,51 @@ def test_wrapper_checks_and_cpu_dispatch(cornell):
 
 
 def test_auto_tracer_dispatch(cornell):
+    """Up to 512 triangles the resident tracer; above, without a cluster
+    grid, the BVH walk where the scene has a BVH, else brute force (the
+    reference's order); a block tracer needs the grid."""
     _, port = cornell
     assert path._auto_tracer(port) == "resident"
     big = _port_of(j_random_tris(resident.RESIDENT_AUTO_MAX_TRIS + 1, seed=8))
-    with pytest.raises(NotImplementedError):
-        path._auto_tracer(big)
-    cfg = path.RenderConfig(tracer="block")
-    with pytest.raises(NotImplementedError):
-        path.closest_hit(port, torch.zeros(1, 3), torch.ones(1, 3), 0.0, cfg)
+    assert path._auto_tracer(big) == "brute"
+    assert path._auto_tracer(types.with_bvh(big)) == "bvh"
+    for tracer in ("block", "pallas"):
+        with pytest.raises(ValueError, match="cluster grid"):
+            path.closest_hit(port, torch.zeros(1, 3), torch.ones(1, 3), 0.0,
+                             path.RenderConfig(tracer=tracer))
+    with pytest.raises(ValueError, match="unknown tracer"):
+        path.closest_hit(port, torch.zeros(1, 3), torch.ones(1, 3), 0.0,
+                         path.RenderConfig(tracer="bvh2"))
+
+
+@pytest.mark.parametrize("bvh", [False, True])
+def test_scene_above_the_resident_limit_without_a_grid_renders(bvh):
+    """A 513-triangle scene without a cluster grid renders through tracer
+    "auto" as the reference renders it (its auto tracer: the BVH walk with
+    a BVH, else brute force): PIXEL_FRAC of the pixels within ATOL + RTOL
+    |ref|, mean and ray count within 0.5%."""
+    ref = jtypes.make_scene(
+        jproc.make_uv_sphere(radius=1.0, rings=19, sectors=14),
+        jtypes.Materials.default(1),
+        env=jtypes.EnvMap.constant((0.8, 0.9, 1.0)))
+    if bvh:
+        ref = jtypes.with_bvh(ref)
+    port = types.scene_from_numpy(scene_arrays(ref))
+    if bvh:
+        port = types.with_bvh(port)
+    assert port.geometry.num_tris > resident.RESIDENT_AUTO_MAX_TRIS
+    assert path._tracer(port, path.RenderConfig()) == ("bvh" if bvh
+                                                       else "brute")
+    jcam = JCamera.make(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
+                        fov_y=1.0)
+    small = dict(width=12, height=12, spp=2, max_bounces=2)
+    jfilm, jcount = j_render_with_stats(ref, jcam, jax.random.key(4),
+                                        JRenderConfig(**small))
+    film, count = path.render_with_stats(port, camera_from_numpy(flat(jcam)),
+                                         rng.key(4),
+                                         path.RenderConfig(**small))
+    assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),
+                         int(count), float(jcount))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -11,19 +11,27 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from physically_based_renderer_tpu.core.camera import Camera as JCamera
 from physically_based_renderer_tpu.integrator import shading as jshading
+from physically_based_renderer_tpu.integrator.path import (
+    RenderConfig as JRenderConfig, render_with_stats as j_render_with_stats)
 from physically_based_renderer_tpu.models import lights as jlights
 from physically_based_renderer_tpu.ops import texture as jtex
 from physically_based_renderer_tpu.ops.intersect import (
     intersect_brute as j_brute)
 from physically_based_renderer_tpu.scene import procedural as jproc
 from physically_based_renderer_tpu.scene import types as jtypes
-from physically_based_renderer_tpu_torch.integrator import shading
+from physically_based_renderer_tpu_torch.core import rng as rng_mod
+from physically_based_renderer_tpu_torch.core.camera import camera_from_numpy
+from physically_based_renderer_tpu_torch.integrator import path, shading
 from physically_based_renderer_tpu_torch.models import lights
 from physically_based_renderer_tpu_torch.ops import texture
 from physically_based_renderer_tpu_torch.ops.intersect import intersect_brute
 from physically_based_renderer_tpu_torch.scene import procedural, types
-from torch_parity import assert_records_equal, np_, scene_arrays
+from torch_parity import (assert_records_equal, assert_render_agrees, flat,
+                          np_, scene_arrays)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -226,3 +234,25 @@ def test_textured_shade_surface_matches_reference(name, cone):
                    np.asarray(getattr(jsp, f.name))[ok], **tol)
     # the textures really vary over the hits
     assert float(np_(sp.bsdf.base_color)[ok].std()) > 0.05
+
+
+def test_cornell_tex256_render_matches_reference():
+    """The `cornell_tex256` config's scene (256x256 maps: mip levels past
+    3) rendered per pixel against the reference at the same key, 16x16 x 2
+    spp x 2 bounces (PIXEL_FRAC within ATOL + RTOL |ref|, mean and ray
+    count within 0.5%)."""
+    ref = jproc.make_cornell_box(metallic_tall_block=True, roughness=0.25,
+                                 textured=True, tex_size=256)
+    jcam = JCamera.make(position=(0.0, 1.0, 3.9), target=(0.0, 1.0, 0.0),
+                        fov_y=0.95)
+    small = dict(width=16, height=16, spp=2, max_bounces=2)
+    jfilm, jcount = j_render_with_stats(ref, jcam, jax.random.key(0),
+                                        JRenderConfig(**small,
+                                                      tracer="resident"))
+    port = types.scene_from_numpy(scene_arrays(ref))
+    film, count = path.render_with_stats(port, camera_from_numpy(flat(jcam)),
+                                         rng_mod.key(0),
+                                         path.RenderConfig(**small))
+    assert max(max(hw) for hw in port.textures.shapes) == 256
+    assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),
+                         int(count), float(jcount))

@@ -100,6 +100,19 @@ def render_agreement(img: np.ndarray, ref: np.ndarray):
     return float(ok.mean()), int((~ok).sum())
 
 
+def assert_render_agrees(img, ref, count=None, ref_count=None):
+    """At least PIXEL_FRAC of the pixels within ATOL + RTOL |ref|, the film
+    means within MEAN_REL and, where given, the ray counts within
+    COUNT_REL."""
+    frac, n_bad = render_agreement(img, ref)
+    print(f"{n_bad} of {img.shape[0] * img.shape[1]} pixels outside "
+          f"tolerance ({frac:.4%} agree)")
+    assert frac >= PIXEL_FRAC
+    assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
+    if count is not None:
+        assert abs(count / ref_count - 1.0) <= COUNT_REL
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""
