@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card.  Phases, each
 of which raises on failure (an uncaught exception exits non-zero):
 
   0. device check: no CUDA -> exit 1; print the card's name and power limit;
-  1. build the CUDA kernels from physically_based_renderer_tpu_torch/csrc/;
+  1. build the CUDA kernels from physically_based_renderer_tpu_torch/csrc/,
+     and the native builders from native/bvh_builder.cpp with g++
+     (accel/native.py, into build/torch_native/); fail if they do not load;
   2. K2 (resident tracer) against its plain-torch version on the card:
      Cornell soup with 512x512 camera rays and random interior rays, closest
      and any-hit, t_min 0 and 1e-3, per-ray t_max; dead lanes (t_max 0,
@@ -74,6 +76,24 @@ of which raises on failure (an uncaught exception exits non-zero):
      spp, 4 bounces, all samples one ray stream: 9 K2, 9 K5a) against the
      sample loop (PIXEL_FRAC of the pixels within tolerance: only the order
      of the film sums differs; equal ray counts);
+ 14. (after 6c) the modules ported last, each main-path run with the counts
+     reset just before it: `--blinn-phong` through the CLI on `cornell`
+     and `helmet` at 512x512 (frame s, the run's peak device memory, K3
+     and K5a launches; helmet's hit triangles against K1's camera closest
+     hit on the same pixel-centre rays, MAX_MISMATCH_FRAC and T_REL;
+     cornell against the plain path on the CPU; both against the
+     reference's goldens tests/data/cornell_bp_64_golden.npy and
+     helmet_bp_32_golden.npy); `cornell --debug-checks` through the CLI at
+     512x512 x 4 spp x 4 bounces beside the same render unchecked (the
+     ratio is the checks' cost; the images bit-equal), then at 8x8 a NaN
+     base colour and an out-of-range material id raising, and
+     `--debug-checks` beside `--tiles 2` or `--blinn-phong` returning 2;
+     `helmet_proc` (512x512 x 1 spp) on a cluster grid without a packed
+     soup through K1 (7 launches) against the packed grid (equal pixels
+     and ray counts); the native builders (built in phase 1) against the
+     numpy builders on helmet's mesh, bit for bit, both timed; one K4
+     cornell frame and its K3 under utils/profiling.device_trace, whose
+     Chrome trace must name both kernels;
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -247,6 +267,26 @@ ROUTE_LAUNCHES = {
     "batch_spp": {"fused": 0, "resident": 9, "trace_blocks": 0, "tonemap": 0,
                   "gather_fwd": 9, "gather_bwd": 0},
 }
+# Phase 14's Blinn-Phong frames through the CLI: K5a gathers one tri_attrs
+# row a pixel, plus a level-0 fetch for each texture slot the scene uses
+# (none on cornell, four on helmet); one K3 tonemaps the frame.  The checked
+# cornell frame (--debug-checks) renders the dense path with the tracer
+# pinned to brute force: 4 spp x (5 tri_attrs rows + 4 emitter rows) K5a
+# and one K3.  The soup-less helmet_proc grid at 1 spp: 4 closest + 3 env
+# shadow K1 calls and a quarter of the frame's 96 K5a.
+MODULE_SIZE = 512
+MODULE_LAUNCHES = {
+    "blinn_phong_cornell": {"fused": 0, "resident": 0, "trace_blocks": 0,
+                            "tonemap": 1, "gather_fwd": 1, "gather_bwd": 0},
+    "blinn_phong_helmet": {"fused": 0, "resident": 0, "trace_blocks": 0,
+                           "tonemap": 1, "gather_fwd": 5, "gather_bwd": 0},
+    "debug_checks_cornell": {"fused": 0, "resident": 0, "trace_blocks": 0,
+                             "tonemap": 1, "gather_fwd": 36,
+                             "gather_bwd": 0},
+    "soupless_helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 7,
+                             "tonemap": 0, "gather_fwd": 24,
+                             "gather_bwd": 0},
+}
 # The bvh frame at 1 spp x 3 bounces is held per pixel to the exact
 # brute-force tracer on this band of rows (first row, rows) at the same
 # key: brute force over the whole frame would take minutes.  Against the
@@ -323,6 +363,317 @@ SMEM_LOAD_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
 # (1,880 triangles), at the CLI's default RenderConfig (256x256, 4 spp, 1
 # bounce).
 SMALL_GLB_SCALE = 0.02
+
+
+def phase_modules(dev, counters, tmp):
+    """Phase 14: the modules ported last.  --blinn-phong through the CLI on
+    cornell and helmet at 512x512 (frame s, peak memory, launches; helmet's
+    hit triangles against K1's camera closest hit on the same pixel-centre
+    rays, cornell against the plain path on the CPU, both against the
+    reference's goldens); --debug-checks on cornell at the config's size
+    beside the same render unchecked, and its failures at a small size on
+    the card; a cluster grid without a packed soup through K1; the native
+    builders against the numpy ones on helmet; a K4 frame under
+    utils/profiling.device_trace.  Each main-path run has the counts reset
+    just before it."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.accel import bvh as bvh_mod
+    from physically_based_renderer_tpu_torch.accel import clusters
+    from physically_based_renderer_tpu_torch.accel import native
+    from physically_based_renderer_tpu_torch.apps import render
+    from physically_based_renderer_tpu_torch.core import morton
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.core.camera import (
+        Camera, generate_rays_flat)
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.models import blinn_phong
+    from physically_based_renderer_tpu_torch.ops import blocktrace, tonemap
+    from physically_based_renderer_tpu_torch.ops.intersect import (
+        intersect_brute)
+    from physically_based_renderer_tpu_torch.scene import procedural, types
+    from physically_based_renderer_tpu_torch.utils import (config, debug,
+                                                           profiling)
+
+    def reset():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    def cli(label, argv):
+        """The render CLI with --stats: (HDR image, stats, launches, peak
+        device bytes), the counts and the peak reset just before it."""
+        png, npy = Path(tmp) / f"{label}.png", Path(tmp) / f"{label}.npy"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset()
+        stats = run_cli(argv + ["-o", str(png), "--hdr-output", str(npy),
+                                "--stats", "--device", "cuda"])
+        got = counts()
+        # The run's own peak, above what was allocated before it.
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if png.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"{label}: the CLI wrote no PNG")
+        img = np.load(npy)
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{label}: the frame is not finite")
+        return img, stats, got, peak
+
+    def held(label, img, ref):
+        frac, n_bad = render_agreement(img, ref)
+        mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+        print(f"{label}: {n_bad} of {img.shape[0] * img.shape[1]} pixels "
+              f"differ, mean rel {mean_rel:.3g}")
+        if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
+            raise AssertionError(f"{label} disagrees")
+        return {"pixel_frac": frac, "pixels_differ": n_bad,
+                "mean_rel": mean_rel}
+
+    out, runs = {}, {}
+    data = ROOT / "tests" / "data"
+    goldens = {"cornell": (data / "cornell_bp_64_golden.npy", 64),
+               "helmet": (data / "helmet_bp_32_golden.npy", 32)}
+    for name in ("cornell", "helmet"):
+        label = f"blinn_phong_{name}"
+        img, stats, got, peak = cli(label, [name, "--blinn-phong", "--width",
+                                            str(MODULE_SIZE), "--height",
+                                            str(MODULE_SIZE)])
+        if img.shape != (MODULE_SIZE, MODULE_SIZE, 3) or stats[
+                "rays"] != MODULE_SIZE ** 2:
+            raise AssertionError(f"{label}: {img.shape}, {stats['rays']} rays")
+        if got != MODULE_LAUNCHES[label]:
+            raise AssertionError(f"{label} launches {got}, expected "
+                                 f"{MODULE_LAUNCHES[label]}")
+        print(f"{label} {MODULE_SIZE}x{MODULE_SIZE}: "
+              f"{stats['seconds']:.3f} s, peak device "
+              f"memory {peak / 2**30:.3f} GiB, brute-force chunk "
+              f"{blinn_phong.brute_chunk(MODULE_SIZE ** 2)} triangles, "
+              f"launches {got} [{card_line()}]")
+        bc = config.get(name)
+        runs[label] = {"seconds": stats["seconds"], "peak_bytes": peak,
+                       "film_mean": float(img.mean()), "launches": got,
+                       "chunk": blinn_phong.brute_chunk(MODULE_SIZE ** 2)}
+        path_g, size = goldens[name]
+        gimg, _, _, _ = cli(f"{label}_golden", [
+            name, "--blinn-phong", "--width", str(size), "--height",
+            str(size)])
+        runs[label]["golden"] = held(f"{label} golden {size}x{size}", gimg,
+                                     np.load(path_g))
+        if name == "cornell":
+            scene, cam = config.build_scene(bc.scene)
+            t0 = time.perf_counter()
+            ref = blinn_phong.render_blinn_phong(scene, cam, MODULE_SIZE,
+                                                 MODULE_SIZE).numpy()
+            runs[label]["cpu_plain_s"] = time.perf_counter() - t0
+            runs[label]["cpu_plain"] = held(f"{label} against the CPU", img,
+                                            ref)
+            continue
+        # helmet: the frame's hit triangles against K1's camera closest hit
+        # on the same pixel-centre rays, in morton order as the frame's.
+        scene, cam = config.build_scene(bc.scene, dev)
+        o, d = generate_rays_flat(cam, MODULE_SIZE, MODULE_SIZE)
+        pix = torch.from_numpy(morton.morton_pixel_ids(
+            MODULE_SIZE, MODULE_SIZE)).to(dev).long()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            v0, v1, v2 = scene.geometry.tri_vertices()
+            hb = intersect_brute(o, d, v0, v1, v2, t_min=0.0,
+                                 chunk=blinn_phong.brute_chunk(o.shape[0]))
+            torch.cuda.synchronize()
+            brute_s = time.perf_counter() - t0
+            hk = blocktrace.intersect_blocks_pallas(
+                scene.clusters, o[pix].contiguous(), d[pix].contiguous(),
+                t_min=0.0, block=bc.render.block_size,
+                max_u=bc.render.max_u, chunk=bc.render.chunk)
+        tri_k = torch.empty_like(hk.tri)
+        tri_k[pix] = hk.tri
+        t_k = torch.empty_like(hk.t)
+        t_k[pix] = hk.t
+        diff = tri_k != hb.tri
+        n_diff = int(diff.sum())
+        both = (tri_k >= 0) & (hb.tri >= 0)
+        rel = (t_k - hb.t).abs() / hb.t.abs().clamp_min(1e-30)
+        # Where the winners differ (shared-edge ties) t must agree; where
+        # they agree t is only printed: the brute-force tracer is torch
+        # ops, K1 a kernel of its own rounding (-fmad=false, rcp_rn).
+        tie_rel = float(rel[both & diff].max()) if bool(
+            (both & diff).any()) else 0.0
+        same_rel = float(rel[both & ~diff].max())
+        print(f"{label}: brute-force camera hits {brute_s:.3f} s; "
+              f"{int((hb.tri >= 0).sum())} of {o.shape[0]} rays hit, "
+              f"{n_diff} hit triangles differ from K1's (t rel there "
+              f"{tie_rel:.3g}); t rel where they agree {same_rel:.3g} "
+              f"[{card_line()}]")
+        if (n_diff > MAX_MISMATCH_FRAC * o.shape[0] or tie_rel > T_REL
+                or bool((diff & ~both).any())):
+            raise AssertionError(f"{label}: hits disagree with K1's")
+        runs[label]["k1_hits"] = {"rays": o.shape[0], "tri_differ": n_diff,
+                                  "tie_t_rel": tie_rel,
+                                  "same_t_rel": same_rel,
+                                  "brute_s": brute_s}
+        del scene, hb, hk
+    out.update(runs)
+
+    # --debug-checks on cornell at the config's size, beside the same
+    # render with the checks off (the brute-force tracer, as it pins).
+    label = "debug_checks_cornell"
+    img, stats, got, _ = cli(label, ["cornell", "--debug-checks", "--width",
+                                     str(MODULE_SIZE), "--height",
+                                     str(MODULE_SIZE)])
+    if got != MODULE_LAUNCHES[label]:
+        raise AssertionError(f"{label} launches {got}, expected "
+                             f"{MODULE_LAUNCHES[label]}")
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, dev)
+    cfg = dataclasses.replace(bc.render, tracer="brute", width=MODULE_SIZE,
+                              height=MODULE_SIZE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain = path.render(scene, cam, rng_mod.key(0, dev), cfg).mean()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(img, plain.cpu().numpy()))
+    print(f"{label} {MODULE_SIZE}x{MODULE_SIZE} x {cfg.spp} spp x "
+          f"{cfg.max_bounces} bounces: "
+          f"{stats['seconds']:.3f} s checked, {plain_s:.3f} s "
+          f"unchecked ({stats['seconds'] / plain_s:.3f}x), image equal "
+          f"{equal}, launches {got} [{card_line()}]")
+    if not equal:
+        raise AssertionError("the checked render differs from render()")
+    out[label] = {"seconds": stats["seconds"], "unchecked_s": plain_s,
+                  "ratio": stats["seconds"] / plain_s, "launches": got}
+
+    # Its failures, at 8x8 on the card.
+    small = procedural.make_triangle_scene()
+    g, m = small.geometry, small.materials
+    bad_mat = dataclasses.replace(small, geometry=dataclasses.replace(
+        g, tri_material=torch.full_like(g.tri_material, 7)))
+    nan = dataclasses.replace(small, materials=dataclasses.replace(
+        m, base_color_factor=torch.full_like(m.base_color_factor,
+                                             float("nan"))))
+    cam8 = Camera.make(position=(0.0, 0.0, 2.5), target=(0.0, 0.0, 0.0),
+                       fov_y=0.8, device=dev)
+    cfg8 = path.RenderConfig(width=8, height=8, spp=1, max_bounces=1)
+    key = rng_mod.key(0, dev)
+    failures = {}
+    for case, sc, exc in (("material_ids", bad_mat, debug.IndexCheckError),
+                          ("nan", nan, debug.NonFiniteRenderError)):
+        try:
+            debug.checked_render(types.upload_scene(sc, dev), cam8, key,
+                                 cfg8)
+        except exc as e:
+            failures[case] = str(e)
+        else:
+            raise AssertionError(f"checked_render let {case} through")
+    if "material ids" not in failures["material_ids"]:
+        raise AssertionError(f"the index error names no site: {failures}")
+    debug.checked_render(types.upload_scene(small, dev), cam8, key, cfg8)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rcs = [render.main(["triangle", "--debug-checks", *extra, "-o",
+                            str(Path(tmp) / "never.png")])
+               for extra in (["--tiles", "2"], ["--blinn-phong"])]
+    if rcs != [2, 2] or (Path(tmp) / "never.png").exists():
+        raise AssertionError(f"--debug-checks with --tiles/--blinn-phong "
+                             f"returned {rcs}")
+    print(f"debug checks on the card: {failures}; --tiles 2 and "
+          f"--blinn-phong beside --debug-checks return {rcs}")
+    out["debug_failures"] = failures
+
+    # A cluster grid without a packed soup: K1 on a soup packed at trace
+    # time, against the packed grid at the same key.
+    bc = config.get("helmet_proc")
+    cfg = dataclasses.replace(bc.render, spp=1, width=MODULE_SIZE,
+                              height=MODULE_SIZE)
+    scene, cam = config.build_scene(bc.scene, dev)
+    gm = scene.geometry
+    grid = clusters.build_clusters(gm.positions.cpu().numpy(),
+                                   gm.indices.cpu().numpy())
+    bare = dataclasses.replace(scene, clusters=types.upload_scene(grid, dev))
+    label = "soupless_helmet_proc"
+    res = {}
+    for which, sc in ((label, bare), ("packed", scene)):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film, count = path.render_with_stats(sc, cam, rng_mod.key(0, dev),
+                                             cfg)
+        img = film.mean().cpu().numpy()
+        res[which] = (img, int(count), time.perf_counter() - t0, counts())
+    img, count, secs, got = res[label]
+    ref, ref_count, ref_s, _ = res["packed"]
+    if got != MODULE_LAUNCHES[label]:
+        raise AssertionError(f"{label} launches {got}, expected "
+                             f"{MODULE_LAUNCHES[label]}")
+    n_bad = int((img != ref).any(-1).sum())
+    print(f"{label} {MODULE_SIZE}x{MODULE_SIZE} x 1 spp: {secs:.3f} s "
+          f"({ref_s:.3f} s packed), "
+          f"{count} ray queries ({ref_count}), {n_bad} pixels differ, "
+          f"launches {got} [{card_line()}]")
+    if n_bad or count != ref_count:
+        raise AssertionError("the soup-less grid renders differently")
+    out[label] = {"seconds": secs, "packed_s": ref_s, "rays": count,
+                  "launches": got}
+    del scene, bare
+
+    # The native builders on helmet's mesh against the numpy builders.
+    if not native.available():
+        raise AssertionError(f"native library: {native.BUILD_ERROR}")
+    scene, _ = config.build_scene(config.get("helmet").scene)
+    pos = scene.geometry.positions.numpy()
+    idx = scene.geometry.indices.numpy()
+    times = {}
+    for what, fns, fields in (
+            ("bvh", (bvh_mod.build_bvh, native.build_bvh_native),
+             ("node_min", "node_max", "node_left", "node_right",
+              "tri_order")),
+            ("clusters", (clusters.build_clusters,
+                          native.build_clusters_native),
+             ("aabb_min", "aabb_max", "tri_id", "parent_min",
+              "parent_max"))):
+        built = []
+        for who, fn in zip(("numpy", "native"), fns):
+            t0 = time.perf_counter()
+            with profiling.timed(f"helmet {what}, {who} builder"):
+                built.append(fn(pos, idx))
+            times[f"{what}_{who}_s"] = time.perf_counter() - t0
+        for f in fields:
+            a, b = (np.asarray(getattr(x, f)) for x in built)
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"native {what}.{f} differs")
+    print(f"native builders on helmet ({len(idx)} triangles), bit-equal: "
+          f"BVH {times['bvh_numpy_s']:.3f} s numpy, "
+          f"{times['bvh_native_s']:.4f} s native; cluster grid "
+          f"{times['clusters_numpy_s']:.3f} s numpy, "
+          f"{times['clusters_native_s']:.4f} s native (the card's host) "
+          f"[{card_line()}]")
+    out["native"] = {**times, "build_s": native.BUILD_SECONDS}
+
+    # One K4 cornell frame and its K3 tonemap under device_trace.
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, dev)
+    path.render_with_stats(scene, cam, rng_mod.key(0, dev), bc.render)
+    logdir = Path(tmp) / "trace"
+    with profiling.device_trace(logdir):
+        film, _ = path.render_with_stats(scene, cam, rng_mod.key(0, dev),
+                                         bc.render)
+        tonemap.tonemap(film.mean().contiguous())
+    trace = json.loads((logdir / "trace.json").read_text())
+    kernels = sorted({e.get("name", "") for e in trace["traceEvents"]
+                      if e.get("cat") == "kernel"})
+    named = {k: any(k in n for n in kernels)
+             for k in ("fused_kernel", "tonemap_kernel")}
+    print(f"device_trace of a K4 cornell frame: {len(kernels)} kernel "
+          f"names, {named}")
+    if not all(named.values()):
+        raise AssertionError(f"the trace misses a kernel: {kernels[:20]}")
+    out["device_trace"] = {"kernel_names": len(kernels), **named}
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -2790,10 +3141,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
 
-    # 1. build
+    # 1. build the kernels, and the native builders from native/
     cuda_lib.library()
     build_s = cuda_lib.BUILD_SECONDS
     print(f"build: {build_s:.2f} s into {cuda_lib.build_dir()}")
+    from physically_based_renderer_tpu_torch.accel import native
+    if not native.available():
+        raise AssertionError(f"the native library did not build: "
+                             f"{native.BUILD_ERROR}")
+    print(f"native builders: built in {native.BUILD_SECONDS:.2f} s")
 
     # 2-3. kernels against their plain versions
     k2, k2_ms, k2_plain_ms = phase_k2(dev)
@@ -2925,6 +3281,13 @@ def main() -> int:
         for label, run in routes.items():
             for k in launches:
                 launches[k][label] = run["launches"][k]
+
+        # 14. --blinn-phong, --debug-checks, the soup-less grid, the native
+        # builders and device_trace
+        modules = phase_modules(dev, counters, tmp)
+        for label in MODULE_LAUNCHES:
+            for k in launches:
+                launches[k][label] = modules[label]["launches"][k]
 
         # 6b. a .glb by path, a truncated one, the report CLI
         by_path = phase_glb_path(dev, tmp, counters)
@@ -3082,6 +3445,7 @@ def main() -> int:
         "probes_p5_p8": mosaic_times, "sharded": sharded,
         "profiled_frames": frames,
         "main_paths": runs, "routes": routes, "goldens": goldens,
+        "modules": modules,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,

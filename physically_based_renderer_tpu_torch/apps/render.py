@@ -20,8 +20,15 @@ never K4, as in the reference; the ray count summed over the ranks).
 Under `torchrun --nproc-per-node N` each process is a rank; run plainly,
 the CLI starts N local ranks itself (gloo with `--device cpu`, NCCL with
 one GPU a rank on `cuda`; more ranks than GPUs exits 2).  Rank 0 writes
-the outputs.  `--blinn-phong` and `--debug-checks` are not ported yet and
-raise.
+the outputs.
+
+`--blinn-phong` renders the headlight debug shading instead
+(models/blinn_phong.py: one ray a pixel, the brute-force tracer; `rays`
+is W x H) and ignores `--tiles`, as the reference does.
+`--debug-checks` renders through utils/debug.py `checked_render` (index
+checks at every unclipped gather, the tracer pinned to bvh or brute, a
+finite-film check; `rays` is null); beside `--tiles` or `--blinn-phong`
+it prints `error: ...` and returns 2.
 """
 
 from __future__ import annotations
@@ -49,9 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-nee", action="store_true")
     p.add_argument("--no-mis", action="store_true")
     p.add_argument("--blinn-phong", action="store_true",
-                   help="reference-parity headlight shading (not ported)")
+                   help="reference-parity headlight shading")
     p.add_argument("--debug-checks", action="store_true",
-                   help="NaN/Inf/OOB checks (not ported)")
+                   help="NaN/Inf/out-of-bounds checks (validation mode)")
     p.add_argument("--tiles", type=int, default=0,
                    help="shard rows over N ranks, one device a rank")
     p.add_argument("--stats", action="store_true",
@@ -64,10 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    for flag, on in (("--blinn-phong", args.blinn_phong),
-                     ("--debug-checks", args.debug_checks)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if args.debug_checks and (args.tiles or args.blinn_phong):
+        print("error: --debug-checks cannot be combined with --tiles or "
+              "--blinn-phong (the checks wrap the dense single-device "
+              "integrator only)", file=sys.stderr)
+        return 2
 
     import numpy as np
     import torch
@@ -82,7 +90,7 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: CUDA is not available")
     mesh = None
-    if args.tiles:
+    if args.tiles and not args.blinn_phong:
         from ..parallel import distributed, sharding
         rc = distributed.run_tiles(args.tiles, args.device, __spec__.name,
                                    argv)
@@ -129,15 +137,24 @@ def main(argv=None) -> int:
     sync()
     t0 = time.perf_counter()
     key = rng.key(args.seed, device)
-    if mesh is None:
+    if args.blinn_phong:
+        from ..models.blinn_phong import render_blinn_phong
+        with torch.no_grad():
+            hdr = render_blinn_phong(scene, camera, rcfg.width, rcfg.height)
+        count = rcfg.width * rcfg.height
+    elif args.debug_checks:
+        from ..utils.debug import checked_render
+        film, count = checked_render(scene, camera, key, rcfg), None
+    elif mesh is None:
         film, count = render_with_stats(scene, camera, key, rcfg)
     else:
         film, count = sharding.render_sharded_with_stats(scene, camera, key,
                                                          rcfg, mesh)
-    hdr = film.mean()
+    if not args.blinn_phong:
+        hdr = film.mean()
     sync()
     dt = time.perf_counter() - t0
-    rays = int(count)
+    rays = None if count is None else int(count)
     if mesh is not None and mesh.get_rank() != 0:
         return 0
 
@@ -152,8 +169,9 @@ def main(argv=None) -> int:
         dev_name = (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu")
         print(json.dumps({"rays": rays, "seconds": dt,
-                          "rays_per_s": rays / dt, "device": dev_name,
-                          "tiles": args.tiles or 1}),
+                          "rays_per_s": None if rays is None else rays / dt,
+                          "device": dev_name,
+                          "tiles": 1 if mesh is None else args.tiles}),
               file=sys.stderr)
     return 0
 

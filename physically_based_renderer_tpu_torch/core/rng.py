@@ -114,6 +114,34 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
     return bits_to_uniform(random_bits(k, n)).reshape(shape)
 
 
+def pixel_keys(base: torch.Tensor, n_pixels: int) -> torch.Tensor:
+    """One key per pixel from a single key -> int64[n_pixels, 2]."""
+    return split(base, n_pixels)
+
+
+def fold(keys: torch.Tensor, *data) -> torch.Tensor:
+    """Fold integers (or integer tensors) into keys [..., 2], in order."""
+    for x in data:
+        keys = fold_in(keys, x)
+    return keys
+
+
+def sample_key(base: torch.Tensor, sample_idx, bounce,
+               stream) -> torch.Tensor:
+    """Key of a (sample, bounce, stream) from a per-frame base key."""
+    return fold(base, sample_idx, bounce, stream)
+
+
+def uniform2(k: torch.Tensor, shape) -> torch.Tensor:
+    """U[0,1)^2 over a batch shape -> f32[*shape, 2], for one key."""
+    return uniform(k, tuple(shape) + (2,))
+
+
+def uniform1(k: torch.Tensor, shape) -> torch.Tensor:
+    """U[0,1) over a batch shape -> f32[*shape], for one key."""
+    return uniform(k, shape)
+
+
 def ray_keys(sample_key: torch.Tensor, pixel_ids: torch.Tensor) -> torch.Tensor:
     """One key per ray from a per-sample key and GLOBAL pixel ids -> [N, 2].
 

@@ -2,8 +2,9 @@
 
 Hill's ACES fit with the reference shader's constants (row-vector
 convention: out = color @ M), the RRT+ODT rational, gamma 2.2, clamp to
-[0, 1].  The 3x3 mixes are written as explicit multiply-adds, not `@`, so
-no matmul precision mode (TF32) can touch them.  The tonemap kernel
+[0, 1]; and the exact sRGB transfer pair.  The 3x3 mixes are written as
+explicit multiply-adds, not `@`, so no matmul precision mode (TF32) can
+touch them.  The tonemap kernel
 (`ops/tonemap.py`, K3) is held against `aces_gamma`.
 """
 
@@ -49,3 +50,19 @@ def aces_gamma(hdr: torch.Tensor, gamma: float = 2.2) -> torch.Tensor:
     """Full post chain: ACES fit -> gamma 2.2 -> clamp [0, 1]."""
     ldr = gamma_correct(aces_tonemap(hdr), gamma)
     return torch.clamp(ldr, 0.0, 1.0)
+
+
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """Exact sRGB OETF on [0, 1]-clamped linear values."""
+    c = torch.clamp(c, 0.0, 1.0)
+    lo = c * 12.92
+    hi = 1.055 * torch.pow(torch.clamp_min(c, 1e-7), 1.0 / 2.4) - 0.055
+    return torch.where(c <= 0.0031308, lo, hi)
+
+
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    """Inverse sRGB OETF (decoding 8-bit albedo texels)."""
+    c = torch.clamp(c, 0.0, 1.0)
+    lo = c / 12.92
+    hi = torch.pow((c + 0.055) / 1.055, 2.4)
+    return torch.where(c <= 0.04045, lo, hi)

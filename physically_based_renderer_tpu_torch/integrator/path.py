@@ -157,7 +157,7 @@ def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
             return intersect_blocks_pallas(
                 scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
                 block=cfg.block_size, max_u=cfg.max_u, sort=sort,
-                chunk=cfg.chunk)
+                chunk=cfg.chunk, geometry=scene.geometry)
 
         return _maybe_exchange(tr, o, d, t_max, cfg)
     if tracer == "bvh":
@@ -186,7 +186,7 @@ def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig,
             return intersect_blocks_pallas(
                 scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
                 any_hit=True, block=cfg.block_size, max_u=cfg.max_u,
-                sort=cfg.resort, chunk=cfg.chunk)
+                sort=cfg.resort, chunk=cfg.chunk, geometry=scene.geometry)
 
         return _maybe_exchange(tr, o, d, t_max, cfg)
     if tracer == "bvh":

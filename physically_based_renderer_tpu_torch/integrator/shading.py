@@ -22,6 +22,7 @@ from ..ops.gather import take_rows
 from ..ops.intersect import Hit
 from ..ops.texture import META_W, build_pyramid, sample_slot, texture_meta
 from ..scene.types import MIP_LINEAR, Scene
+from ..utils import debug
 
 # Column offsets of the packed per-triangle attribute row (pack_tri_attrs).
 COL_MAT = 47
@@ -59,11 +60,13 @@ def pack_tri_attrs(scene: Scene) -> torch.Tensor:
     from ..models.lights import dense_tri_pdf_area
     g = scene.geometry
     m = scene.materials
-    i0, i1, i2 = g.indices[:, 0], g.indices[:, 1], g.indices[:, 2]
+    idx = debug.check_index("vertex ids", g.indices, g.positions.shape[0])
+    i0, i1, i2 = idx[:, 0], idx[:, 1], idx[:, 2]
     v0 = g.positions[i0]
     e1 = g.positions[i1] - v0
     e2 = g.positions[i2] - v0
-    tm = g.tri_material
+    tm = debug.check_index("material ids", g.tri_material,
+                           m.base_color_factor.shape[0])
 
     uv0, uv1, uv2 = g.uvs[i0], g.uvs[i1], g.uvs[i2]
     duv1 = uv1 - uv0
@@ -77,7 +80,8 @@ def pack_tri_attrs(scene: Scene) -> torch.Tensor:
     meta_tab = torch.from_numpy(texture_meta(scene.textures)).to(scene.device)
 
     def slot_meta(ids):
-        rows = meta_tab[torch.clamp_min(ids, 0)]
+        rows = meta_tab[debug.check_index(
+            "texture ids", torch.clamp_min(ids, 0), meta_tab.shape[0])]
         return torch.where((ids >= 0)[:, None], rows, -1.0)[tm]
 
     return torch.cat([

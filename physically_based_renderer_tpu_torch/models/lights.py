@@ -21,6 +21,7 @@ from ..ops.intersect import BIG
 from ..ops.texture import (build_pyramid, sample_env_bilinear, sample_slot,
                            texture_meta)
 from ..scene.types import Scene
+from ..utils import debug
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +43,9 @@ def dense_tri_pdf_area(scene: Scene) -> torch.Tensor:
                         device=scene.device)
     p = torch.where(em.valid, em.pdf_tri / torch.clamp_min(em.area, 1e-12),
                     0.0)
-    return dense.index_add(0, em.tri_idx.long(), p)
+    tri = debug.check_index("emitter triangles", em.tri_idx,
+                            scene.geometry.num_tris)
+    return dense.index_add(0, tri.long(), p)
 
 
 def pack_emitter_attrs(scene: Scene) -> torch.Tensor:
@@ -51,13 +54,15 @@ def pack_emitter_attrs(scene: Scene) -> torch.Tensor:
     emissive-texture slot id (-1 = untextured)."""
     em = scene.emitters
     g = scene.geometry
-    idx = g.indices[em.tri_idx]
+    tri = debug.check_index("emitter triangles", em.tri_idx, g.num_tris)
+    idx = debug.check_index("vertex ids", g.indices[tri], g.positions.shape[0])
     v0 = g.positions[idx[:, 0]]
     v1 = g.positions[idx[:, 1]]
     v2 = g.positions[idx[:, 2]]
     pdf_a = torch.where(em.valid,
                         em.pdf_tri / torch.clamp_min(em.area, 1e-12), 0.0)
-    mat = g.tri_material[em.tri_idx]
+    mat = debug.check_index("material ids", g.tri_material[tri],
+                            scene.materials.emissive_factor.shape[0])
     radiance = scene.materials.emissive_factor[mat]
     uv0 = g.uvs[idx[:, 0]]
     duv1 = g.uvs[idx[:, 1]] - uv0
@@ -94,6 +99,8 @@ def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
         scaled = u1 * m
         slot = torch.clamp(scaled.to(torch.int32), 0, m - 1)
         frac = scaled - slot.to(torch.float32)
+        slot = debug.check_index("emitter alias", slot,
+                                 em.alias_prob.shape[0])
         accept = frac < em.alias_prob[slot]
         e_idx = torch.where(accept, slot, em.alias_idx[slot])
     e_idx = torch.clamp(e_idx, 0, m - 1)
@@ -119,7 +126,9 @@ def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
             rows.device)
         tex_id = rows[:, 19].to(torch.int32)
         meta = torch.where((tex_id >= 0)[:, None],
-                           meta_tab[torch.clamp_min(tex_id, 0)], -1.0)
+                           meta_tab[debug.check_index(
+                               "texture ids", torch.clamp_min(tex_id, 0),
+                               meta_tab.shape[0])], -1.0)
         tex = sample_slot(pyramid, meta, uv_l, None)
         radiance = radiance * tex[:, :3]
     ng = math3d.cross(e1, e2)
@@ -168,8 +177,10 @@ def sample_env(scene: Scene, n_rays: int, u2: torch.Tensor) -> LightSample:
     h, w = env.data.shape[0], env.data.shape[1]
     m = h * w
     slot = torch.clamp((u2[:, 0] * m).to(torch.int32), 0, m - 1)
+    slot = debug.check_index("env alias", slot, env.alias_prob.shape[0])
     accept = u2[:, 1] < env.alias_prob[slot]
-    texel = torch.where(accept, slot, env.alias_idx[slot])
+    texel = debug.check_index(
+        "env alias", torch.where(accept, slot, env.alias_idx[slot]), m)
     row = texel // w
     col = texel - row * w
     theta = (row.to(torch.float32) + 0.5) / h * math.pi

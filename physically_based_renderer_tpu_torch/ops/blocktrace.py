@@ -14,7 +14,9 @@ rays, or direction-binned rays when `sort`):
      the cluster boxes, then the U nearest candidates by entry distance,
      through the parent boxes first when the grid has more than 4 U
      clusters;
-  3. K1 (ops/trace_blocks.py) streams the candidates' soups per block;
+  3. K1 (ops/trace_blocks.py) streams the candidates' soups per block
+     (the grid's packed soup, or one `pack_soup` makes from the current
+     geometry when the grid carries none);
   4. the flat winner u * K + k decodes to a triangle id.
 
 The search is detached; `integrator/shading.py` re-intersects the winner
@@ -37,7 +39,8 @@ import math
 
 import torch
 
-from ..accel.clusters import ClusterGrid, cluster_tri_soup
+from ..accel.clusters import (ClusterGrid, _check_k, _pack_soup,
+                              cluster_tri_soup)
 from .intersect import BIG, Hit, inv_dir, mt_rows
 from .trace_blocks import trace_blocks
 
@@ -183,19 +186,33 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
     return u_idx, u_entry, n_valid, ob, db, tmb
 
 
+def pack_soup(grid: ClusterGrid, geometry) -> torch.Tensor:
+    """The detached soup f32[C+1, 9, K] of the current geometry (the
+    all-zero sentinel cluster last), for a grid that carries none: K1's
+    input packed at trace time, as the reference packs it inside the trace.
+    The k=32 layout is not ported."""
+    _check_k(grid)
+    return _pack_soup(*cluster_tri_soup(
+        grid.tri_id, geometry.positions.detach(), geometry.indices))
+
+
 def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
                  block: int = 256, max_u: int = 48, sort: bool = False,
-                 chunk: int = 4):
+                 chunk: int = 4, geometry=None):
     """Phase A up to K1's inputs -> (args, perm).
 
     `args` = (u_idx, o, d, t_max, soup, n_valid, entry) for
     ops.trace_blocks.trace_blocks: root-culled, optionally direction-sorted
     rays padded to whole blocks (padding lanes: origin 3e30, t_max 0), and
     candidate lists padded with the sentinel to whole chunks.  `perm` is
-    the sort permutation (None without `sort`)."""
-    if grid.soup is None:
-        raise ValueError("the cluster grid has no packed soup "
-                         "(accel.clusters.pack_soup_host)")
+    the sort permutation (None without `sort`).  A grid without a packed
+    soup takes one packed from `geometry` (pack_soup)."""
+    soup = grid.soup
+    if soup is None:
+        if geometry is None:
+            raise ValueError("the cluster grid has no packed soup: pass "
+                             "the geometry to pack it from")
+        soup = pack_soup(grid, geometry)
     n = o.shape[0]
     o_s = o.detach().to(torch.float32)
     d_s = d.detach().to(torch.float32)
@@ -224,14 +241,15 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
         u_entry = torch.cat([u_entry, u_entry.new_full((nb, extra), BIG)],
                             dim=1)
     return ((u_idx.contiguous(), ob.contiguous(), db.contiguous(),
-             tmb.contiguous(), grid.soup, n_valid, u_entry.contiguous()),
+             tmb.contiguous(), soup, n_valid, u_entry.contiguous()),
             perm)
 
 
 def intersect_blocks_pallas(grid: ClusterGrid, o, d, t_min: float = 1e-4,
                             t_max=BIG, any_hit: bool = False,
                             block: int = 256, max_u: int = 48,
-                            sort: bool = False, chunk: int = 4):
+                            sort: bool = False, chunk: int = 4,
+                            geometry=None):
     """Block tracer through K1 (the reference's route name "pallas"; on the
     card K1 is the CUDA kernel of ops/trace_blocks.py).
 
@@ -239,10 +257,11 @@ def intersect_blocks_pallas(grid: ClusterGrid, o, d, t_min: float = 1e-4,
     `lean` form, since shade_surface re-derives attached barycentrics);
     any_hit -> bool[N].  t_max is a scalar or f32[N].  sort=True
     stable-sorts the rays by (dead, direction bin) before blocking and
-    unscrambles the outputs, for direction-scattered streams."""
+    unscrambles the outputs, for direction-scattered streams.  `geometry`
+    packs the soup of a grid that carries none."""
     n = o.shape[0]
     args, perm = block_inputs(grid, o, d, t_min, t_max, block, max_u, sort,
-                              chunk)
+                              chunk, geometry)
     out = trace_blocks(*args, t_min=t_min, any_hit=any_hit, chunk=chunk)
     if any_hit:
         occ = out.reshape(-1)[:n]

@@ -8,8 +8,9 @@ with the +1 wrap baked in, so a bilinear fetch is one [N, 16] row gather
 and filter metadata rides the per-triangle attribute row
 (integrator/shading.pack_tri_attrs), so a fetch needs no metadata gather.
 The pyramid is built from `TextureStack.texels` with plain torch ops, so
-gradients can reach the texels.  Mirror wrap folds the continuous
-coordinate (u' = 1 - |1 - u mod 2|).
+gradients can reach the texels; it is the quads tensor itself (the
+reference wraps it in a one-field `TexturePyramid` record).  Mirror wrap
+folds the continuous coordinate (u' = 1 - |1 - u mod 2|).
 """
 
 from __future__ import annotations
@@ -200,6 +201,19 @@ def sample_slot(quads: torch.Tensor, meta: torch.Tensor, uv: torch.Tensor,
         q1, fx1, fy1 = _fetch_level(quads, safe, u, v, l1)
         out = out * (1.0 - frac) + _lerp_quad(q1, fx1, fy1, nearest) * frac
     return torch.where(has[:, None], out, default)
+
+
+def sample_bilinear(stack: TextureStack, tex_idx: torch.Tensor,
+                    uv: torch.Tensor, default: float = 1.0) -> torch.Tensor:
+    """Level-0 bilinear fetch by texture index -> f32[N, 4] (tests and
+    tools; the integrator uses sample_slot with the metadata riding the
+    attribute row).  tex_idx int[N]; entries < 0 return `default`.  The
+    metadata rows and the texels are both K5a gathers on the card."""
+    quads = build_pyramid(stack)
+    meta_tab = torch.from_numpy(texture_meta(stack)).to(quads.device)
+    rows = take_rows(meta_tab, torch.clamp_min(tex_idx, 0))
+    rows = torch.where((tex_idx >= 0)[:, None], rows, -1.0)
+    return sample_slot(quads, rows, uv, lod=None, default=default)
 
 
 def env_quads(data: torch.Tensor) -> torch.Tensor:

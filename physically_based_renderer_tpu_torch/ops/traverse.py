@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..accel.bvh import BVH, LEAF_SIZE, MAX_DEPTH
+from ..utils import debug
 from .intersect import BIG, Hit, inv_dir, mt_rows
 
 CHECK_EVERY = 8   # steps between two tests of the working set
@@ -74,7 +75,9 @@ def _walk(bvh: BVH, tv0, te1, te2, o, d, t_min: float, t_max,
         running = sp > 0
         if any_hit:
             running &= best_i < 0
-        node = stack[rows, torch.clamp_min(sp - 1, 0)]
+        node = debug.check_index("bvh nodes",
+                                 stack[rows, torch.clamp_min(sp - 1, 0)],
+                                 last_node + 1)
         sp = sp - running.to(torch.int64)
         left = bvh.node_left[node].long()
         right = bvh.node_right[node].long()
@@ -97,7 +100,9 @@ def _walk(bvh: BVH, tv0, te1, te2, o, d, t_min: float, t_max,
         # leaf's "children" (its start and count) are clamped into the node
         # table, as the reference's gathers clamp, and go unused
         inner = running & ~is_leaf
-        kids = torch.stack([left, right], dim=1).clamp(0, last_node)
+        kids = debug.check_index("bvh nodes", torch.stack([left, right], 1),
+                                 last_node + 1, skip=is_leaf[:, None])
+        kids = kids.clamp(0, last_node)
         hit, t_in = _slab(bvh.node_min[kids], bvh.node_max[kids],
                           o[:, None], inv_d[:, None], t_min, best_t[:, None])
         (l_idx, r_idx), (hit_l, hit_r) = kids.unbind(1), hit.unbind(1)
@@ -126,8 +131,11 @@ def intersect_bvh(bvh: BVH, geometry, o: torch.Tensor, d: torch.Tensor,
     t_max_arr = torch.broadcast_to(torch.as_tensor(
         t_max, dtype=torch.float32, device=o.device), (n,))
     # The triangles in BVH order, detached, as the search reads them.
-    tri = geometry.indices.long()[bvh.tri_order.long()]       # [T, 3]
+    order = debug.check_index("bvh triangles", bvh.tri_order.long(),
+                              geometry.num_tris)
     p = geometry.positions.detach()
+    tri = debug.check_index("vertex ids", geometry.indices.long()[order],
+                            p.shape[0])                       # [T, 3]
     tv0 = p[tri[:, 0]]
     te1 = p[tri[:, 1]] - tv0
     te2 = p[tri[:, 2]] - tv0
@@ -142,7 +150,7 @@ def intersect_bvh(bvh: BVH, geometry, o: torch.Tensor, d: torch.Tensor,
     w0 = pa[widx[:, 0]]
     t, u, v, _ = mt_rows(o, d, w0, pa[widx[:, 1]] - w0,
                          pa[widx[:, 2]] - w0, t_min, BIG)
-    orig_tri = torch.where(found, bvh.tri_order.long()[win], -1).to(
+    orig_tri = torch.where(found, order[win], -1).to(
         torch.int32)
     return Hit(t=torch.where(found, t, BIG), tri=orig_tri,
                u=torch.where(found, u, 0.0), v=torch.where(found, v, 0.0))

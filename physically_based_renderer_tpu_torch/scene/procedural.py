@@ -241,6 +241,18 @@ def make_uv_sphere(radius: float = 1.0, rings: int = 16, sectors: int = 32,
         uvs=np.asarray(uvs, np.float32), normals=np.asarray(normals))
 
 
+def make_random_tris(n: int, seed: int = 0,
+                     extent: float = 1.0) -> Geometry:
+    """Random triangle soup for BVH stress tests (the reference's numpy
+    draws, so the same bytes)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    offs = rng.normal(0.0, 0.1 * extent, (n, 3, 3)).astype(np.float32)
+    verts = (centers[:, None, :] + offs).reshape(-1, 3)
+    faces = np.arange(n * 3, dtype=np.int32).reshape(n, 3)
+    return _geometry_from_arrays(verts, faces, [0] * n)
+
+
 def make_checker_texture(size: int = 256, squares: int = 8,
                          c0=(0.8, 0.8, 0.8), c1=(0.2, 0.3, 0.6)):
     """Procedural checkerboard RGBA texture (linear) f32[size, size, 4]."""

@@ -17,9 +17,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..accel.bvh import BVH, LEAF_SIZE, build_bvh
-from ..accel.clusters import (SOUP_ROWS, ClusterGrid, build_clusters,
-                              pack_soup_host)
+from ..accel.bvh import BVH, LEAF_SIZE
+from ..accel.clusters import SOUP_ROWS, ClusterGrid, pack_soup_host
+from ..accel.native import (build_alias_native, build_bvh_fast,
+                            build_clusters_fast)
+from ..utils import debug
 
 # Texture wrap modes / filters: same encoding as the reference.
 WRAP_REPEAT = 0
@@ -67,7 +69,8 @@ class Geometry:
 
     def tri_vertices(self):
         """Per-triangle corner positions -> (v0, v1, v2) each f32[T, 3]."""
-        p, i = self.positions, self.indices
+        p = self.positions
+        i = debug.check_index("vertex ids", self.indices, p.shape[0])
         return p[i[:, 0]], p[i[:, 1]], p[i[:, 2]]
 
 
@@ -258,7 +261,12 @@ def _build_alias_table(p: np.ndarray):
     """Walker/Vose alias table for a discrete distribution p (sums to 1).
 
     Sampling: slot j ~ U{0..M-1}; return j if u < prob[j] else alias[j].
+    The native builder when it loads (accel/native.py: the same stacks in
+    the same order, so the same bytes), else this loop.
     """
+    native = build_alias_native(p)
+    if native is not None:
+        return native
     p = np.asarray(p, np.float64)
     m = p.size
     scaled = p * m
@@ -395,12 +403,12 @@ def _to_device(obj, device):
 
 
 def with_bvh(scene: Scene) -> Scene:
-    """Build the BVH (host numpy builder, which the reference's native
-    builder equals bit for bit) and attach it, as tensors on the scene's
+    """Build the BVH (the native builder, or the numpy one it equals bit
+    for bit: accel/native.py) and attach it, as tensors on the scene's
     device; the stack-walk tracer (ops/traverse.py) needs it.  Its leaves
     hold at most `LEAF_SIZE` triangles, the count the walk tests."""
-    bvh = build_bvh(_np(scene.geometry.positions),
-                    _np(scene.geometry.indices), leaf_size=LEAF_SIZE)
+    bvh = build_bvh_fast(_np(scene.geometry.positions),
+                         _np(scene.geometry.indices), leaf_size=LEAF_SIZE)
     bvh = BVH(**{f.name: torch.from_numpy(getattr(bvh, f.name))
                  for f in dataclasses.fields(BVH)})
     return dataclasses.replace(scene, bvh=_to_device(bvh, scene.device))
@@ -408,11 +416,11 @@ def with_bvh(scene: Scene) -> Scene:
 
 def with_clusters(scene: Scene) -> Scene:
     """Build the cluster grid (`accel.clusters.CLUSTER_K` triangles a
-    cluster) and its packed soup (host numpy builder) and attach it; the
-    block tracer (ops/blocktrace.py) needs it."""
+    cluster; the native builder, or the numpy one it equals) and its packed
+    soup, and attach it; the block tracer (ops/blocktrace.py) needs it."""
     pos = _np(scene.geometry.positions)
     idx = _np(scene.geometry.indices)
-    grid = pack_soup_host(build_clusters(pos, idx), pos, idx)
+    grid = pack_soup_host(build_clusters_fast(pos, idx), pos, idx)
     return dataclasses.replace(scene, clusters=_to_device(grid, scene.device))
 
 

@@ -1,7 +1,8 @@
 """Write the reference goldens that the PyTorch port is held against on the card.
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py \
-        [cornell|helmet_proc|helmet|cornell_ggx_fused|cornell_grad]
+        [cornell|helmet_proc|helmet|cornell_ggx_fused|cornell_grad|
+         cornell_bp|helmet_bp]
 
 Renders with the JAX package on the CPU and saves the mean HDR image:
 
@@ -30,9 +31,15 @@ Renders with the JAX package on the CPU and saves the mean HDR image:
     (`<case>/target`), the parameters are the scene's own values, and the
     file holds `<case>/loss` and `<case>/grad/<field>`, the reference's
     jax.grad of pixel_loss(render(apply_params(scene, p), key 0).mean(),
-    target) (`key`).
+    target) (`key`);
+  * cornell_bp, helmet_bp: the headlight Blinn-Phong debug shading
+    (`models/blinn_phong.py::render_blinn_phong`, the `--blinn-phong` CLI
+    path) of the `cornell` config at 64x64 and of the `helmet` config at
+    full geometry at 32x32 (the asset authored into a temporary
+    directory), f32[S, S, 3] in tests/data/cornell_bp_64_golden.npy and
+    tests/data/helmet_bp_32_golden.npy.
 
-With no argument it writes all five.  `chip_smoke.py` compares the port's
+With no argument it writes all seven.  `chip_smoke.py` compares the port's
 GPU renders and gradients with them using numpy alone;
 tests/test_torch_render.py checks that the committed image files still
 match fresh renders, tests/test_torch_grad.py holds the port's CPU
@@ -56,6 +63,12 @@ HELMET = dict(config="helmet_proc", size=32, spp=1, bounces=2, seed=0,
 # The helmet golden: the .glb asset, as HELMET.
 HELMET_GLB = dict(config="helmet", size=32, spp=2, bounces=3, seed=0,
                   tracer="pallas", path=HERE / "helmet_32_golden.npy")
+
+# The Blinn-Phong goldens: name -> (config, size, path).
+BLINN_PHONG = {"cornell_bp": dict(config="cornell", size=64,
+                                  path=HERE / "cornell_bp_64_golden.npy"),
+               "helmet_bp": dict(config="helmet", size=32,
+                                 path=HERE / "helmet_bp_32_golden.npy")}
 
 # The fused golden: (config, size, spp, bounces, seed, path).
 FUSED = dict(config="cornell_ggx", size=64, spp=2, bounces=2, seed=0,
@@ -108,22 +121,45 @@ def render_helmet_golden() -> np.ndarray:
                    h["tracer"])
 
 
-def render_helmet_glb_golden() -> np.ndarray:
+def _in_asset_cache(fn):
+    """fn() with the helmet asset authored into a temporary directory."""
     import os
     import tempfile
 
-    h = HELMET_GLB
     with tempfile.TemporaryDirectory() as cache:
         old = os.environ.get("PBR_ASSET_CACHE")
         os.environ["PBR_ASSET_CACHE"] = cache
         try:
-            return _render(h["config"], h["size"], h["spp"], h["bounces"],
-                           h["seed"], h["tracer"])
+            return fn()
         finally:
             if old is None:
                 del os.environ["PBR_ASSET_CACHE"]
             else:
                 os.environ["PBR_ASSET_CACHE"] = old
+
+
+def render_helmet_glb_golden() -> np.ndarray:
+    h = HELMET_GLB
+    return _in_asset_cache(lambda: _render(
+        h["config"], h["size"], h["spp"], h["bounces"], h["seed"],
+        h["tracer"]))
+
+
+def render_blinn_phong_golden(name: str) -> np.ndarray:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from physically_based_renderer_tpu.models.blinn_phong import (
+        render_blinn_phong)
+    from physically_based_renderer_tpu.utils.config import build_scene, get
+
+    b = BLINN_PHONG[name]
+
+    def run():
+        scene, camera = build_scene(get(b["config"]).scene)
+        return np.asarray(render_blinn_phong(scene, camera, b["size"],
+                                             b["size"]), np.float32)
+    return _in_asset_cache(run)
 
 
 def render_fused_golden() -> np.ndarray:
@@ -184,8 +220,14 @@ def grad_golden() -> dict:
 def main(argv) -> int:
     sys.path.insert(0, str(HERE.parent.parent))
     which = argv[1:] or ["cornell", "helmet_proc", "helmet",
-                         "cornell_ggx_fused", "cornell_grad"]
+                         "cornell_ggx_fused", "cornell_grad", *BLINN_PHONG]
     for name in which:
+        if name in BLINN_PHONG:
+            img = render_blinn_phong_golden(name)
+            np.save(BLINN_PHONG[name]["path"], img)
+            print(f"wrote {BLINN_PHONG[name]['path']} {img.shape} mean "
+                  f"{img.mean():.6f}")
+            continue
         if name == "cornell_grad":
             arrays = grad_golden()
             np.savez_compressed(GRAD["path"], **arrays)

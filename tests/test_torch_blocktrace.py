@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from physically_based_renderer_tpu.accel import clusters as jclusters
 from physically_based_renderer_tpu.ops import blocktrace as jbt
 from physically_based_renderer_tpu.ops.pallas_trace import (
     trace_blocks_pallas as j_trace_blocks)
@@ -396,3 +397,65 @@ def test_resort_reaches_the_tracer(sphere48, monkeypatch, resort):
     path.render_with_stats(scene, cam, rng.key(0), cfg)
     assert seen == [(False, False), (True, resort), (False, resort),
                     (True, resort), (False, resort)]
+
+
+@pytest.mark.parametrize("tracer", ["pallas", "block"])
+def test_grid_without_packed_soup_renders_as_the_reference(tracer,
+                                                           monkeypatch):
+    """A cluster grid from build_clusters alone (no pack_soup_host): the
+    reference packs the soup inside its trace, so does the port (pack_soup,
+    on K1's route), instead of refusing the grid.  helmet24 (1,152
+    triangles) at 16x16 x 1 spp x 2 bounces against the reference at the
+    same key (its K1 in interpret mode; tracer "block" needs no soup):
+    every pixel within ATOL + RTOL |ref| of PIXEL_FRAC, equal ray counts,
+    and equal to the packed grid's render bit for bit."""
+    from physically_based_renderer_tpu.core.camera import Camera as JCamera
+    from physically_based_renderer_tpu.integrator.path import (
+        RenderConfig as JRenderConfig, render_with_stats as j_render)
+    from physically_based_renderer_tpu_torch.accel.clusters import (
+        build_clusters)
+    from physically_based_renderer_tpu_torch.core import rng
+    from physically_based_renderer_tpu_torch.core.camera import (
+        camera_from_numpy)
+    from torch_parity import assert_render_agrees
+
+    base = jproc.make_helmet_class_scene(24, 24)
+    g = base.geometry
+    ref = base.replace(clusters=jclusters.build_clusters(
+        np.asarray(g.positions), np.asarray(g.indices)))
+    assert ref.clusters.soup is None
+    jcam = JCamera.make(position=(0.0, 0.1, 3.0), target=(0.0, 0.0, 0.0),
+                        fov_y=1.0)
+    kw = dict(width=16, height=16, spp=1, max_bounces=2, tracer=tracer)
+    jfilm, jcount = j_render(ref, jcam, jax.random.key(3),
+                             JRenderConfig(**kw))
+
+    port = types.scene_from_numpy(scene_arrays(base))
+    grid = build_clusters(port.geometry.positions.numpy(),
+                          port.geometry.indices.numpy())
+    packs = []
+    real = bt.pack_soup
+    monkeypatch.setattr(bt, "pack_soup", lambda *a: packs.append(1)
+                        or real(*a))
+    cam = camera_from_numpy(flat(jcam))
+    cfg = path.RenderConfig(**kw)
+    film, count = path.render_with_stats(
+        dataclasses.replace(port, clusters=grid), cam, rng.key(3), cfg)
+    # 3 closest-hit and 2 x 1 env shadow calls take the soup-packing branch.
+    assert len(packs) == (5 if tracer == "pallas" else 0)
+    assert int(count) == int(jcount)
+    assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),
+                         int(count), float(jcount))
+    packed, _ = path.render_with_stats(types.with_clusters(port), cam,
+                                       rng.key(3), cfg)
+    assert torch.equal(film.hdr, packed.hdr)
+
+
+def test_block_inputs_without_soup_or_geometry_refuses():
+    grid = types.with_clusters(types.scene_from_numpy(scene_arrays(
+        jproc.make_helmet_class_scene(8, 8)))).clusters
+    grid = dataclasses.replace(grid, soup=None)
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, 0.0, -1.0]]).expand(4, 3)
+    with pytest.raises(ValueError, match="no packed soup"):
+        bt.block_inputs(grid, o, d, 1e-4)

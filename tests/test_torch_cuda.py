@@ -1014,3 +1014,94 @@ def test_sharded_paths_on_one_nccl_rank(cuda_device, tmp_path):
         assert torch.equal(*losses)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_blinn_phong_on_the_card_matches_the_cpu(cuda_device):
+    """render_blinn_phong on CUDA tensors (shade_surface's gathers through
+    K5a) against the CPU port at 32x32: winners equal but for exact-t ties,
+    so PIXEL_FRAC of the pixels within ATOL + RTOL |cpu|."""
+    from physically_based_renderer_tpu_torch.models import blinn_phong
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, "cpu")
+    want = blinn_phong.render_blinn_phong(scene, cam, 32, 32).numpy()
+    before = gather.LAUNCHES_FWD
+    got = blinn_phong.render_blinn_phong(
+        types.upload_scene(scene, cuda_device),
+        types.upload_scene(cam, cuda_device), 32, 32)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES_FWD == before + 1 and got.device.type == "cuda"
+    frac, _ = render_agreement(got.cpu().numpy(), want)
+    assert frac >= PIXEL_FRAC
+
+
+@pytest.mark.cuda
+def test_debug_checks_on_the_card(cuda_device):
+    """The index flags and the finite-film check on CUDA tensors: an
+    out-of-range material id raises naming the site (no device assert),
+    NaN base colour raises NonFiniteRenderError, a clean scene passes."""
+    from physically_based_renderer_tpu_torch.core.camera import Camera
+    from physically_based_renderer_tpu_torch.scene import procedural
+    from physically_based_renderer_tpu_torch.utils import debug
+    scene = types.upload_scene(procedural.make_triangle_scene(), cuda_device)
+    cam = Camera.make(position=(0.0, 0.0, 2.5), target=(0.0, 0.0, 0.0),
+                      fov_y=0.8, device=cuda_device)
+    cfg = path.RenderConfig(width=8, height=8, spp=1, max_bounces=1)
+    key = rng.key(0, cuda_device)
+    film = debug.checked_render(scene, cam, key, cfg)
+    assert film.hdr.device.type == "cuda"
+    g, m = scene.geometry, scene.materials
+    bad = dataclasses.replace(scene, geometry=dataclasses.replace(
+        g, tri_material=torch.full_like(g.tri_material, 7)))
+    with pytest.raises(debug.IndexCheckError, match="material ids"):
+        debug.checked_render(bad, cam, key, cfg)
+    nan = dataclasses.replace(scene, materials=dataclasses.replace(
+        m, base_color_factor=torch.full_like(m.base_color_factor,
+                                             float("nan"))))
+    with pytest.raises(debug.NonFiniteRenderError, match="non-finite"):
+        debug.checked_render(nan, cam, key, cfg)
+    # The card is still usable after the out-of-range case.
+    assert torch.equal(debug.checked_render(scene, cam, key, cfg).hdr,
+                       film.hdr)
+
+
+@pytest.mark.cuda
+def test_sample_bilinear_through_k5a(cuda_device):
+    from physically_based_renderer_tpu_torch.ops import texture
+    g = np.random.default_rng(5)
+    stack = types.TextureStack.from_images(
+        [g.random((16, 16, 4)).astype(np.float32),
+         g.random((8, 32, 4)).astype(np.float32)])
+    idx = torch.from_numpy(g.integers(-1, 2, 4099).astype(np.int32))
+    uv = torch.from_numpy(g.uniform(-2, 3, (4099, 2)).astype(np.float32))
+    want = texture.sample_bilinear(stack, idx, uv)
+    before = gather.LAUNCHES_FWD
+    got = texture.sample_bilinear(types.upload_scene(stack, cuda_device),
+                                  idx.to(cuda_device), uv.to(cuda_device))
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES_FWD == before + 2   # metadata rows, texel quads
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_grid_without_soup_through_k1(cuda_device):
+    """A cluster grid without a packed soup renders through K1 (the soup
+    packed at trace time) exactly as the packed grid does."""
+    from physically_based_renderer_tpu_torch.accel.clusters import (
+        build_clusters)
+    bc = config.get("helmet_proc")
+    scene, cam = config.build_scene(bc.scene, cuda_device)
+    g = scene.geometry
+    grid = build_clusters(g.positions.cpu().numpy(), g.indices.cpu().numpy())
+    bare = dataclasses.replace(scene, clusters=types.upload_scene(
+        grid, cuda_device))
+    cfg = dataclasses.replace(bc.render, width=64, height=64, spp=1)
+    before = trace_blocks.LAUNCHES
+    film, count = path.render_with_stats(bare, cam, rng.key(0, cuda_device),
+                                         cfg)
+    assert trace_blocks.LAUNCHES > before
+    want, want_count = path.render_with_stats(scene, cam,
+                                              rng.key(0, cuda_device), cfg)
+    assert int(count) == int(want_count)
+    assert torch.equal(film.hdr, want.hdr)

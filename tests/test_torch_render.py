@@ -251,14 +251,21 @@ def test_cli_renders_on_cpu(tmp_path, capsys):
                                   ["helmet", "--blinn-phong", "--device",
                                    "cpu"]])
 def test_cli_unported_paths_raise(argv, tmp_path, monkeypatch):
-    """--blinn-phong and --debug-checks are not ported.  --tiles N without
-    a launcher starts N local ranks that rerun the CLI (recorded here;
-    tests/test_torch_sharding.py runs the ranks)."""
+    """The paths the CLI once refused.  --blinn-phong and --debug-checks now
+    render (here at 8x8 on the CPU: the CLI writes the PNG and returns 0;
+    tests/test_torch_blinn_phong.py and test_torch_debug.py hold their
+    images).  --tiles N without a launcher starts N local ranks that rerun
+    the CLI (recorded here; tests/test_torch_sharding.py runs the ranks)."""
     from physically_based_renderer_tpu_torch.parallel import distributed
-    argv = argv + ["-o", str(tmp_path / "x.png")]
+    out = tmp_path / "x.png"
+    argv = argv + ["-o", str(out)]
     if "--tiles" not in argv:
-        with pytest.raises(NotImplementedError):
-            render_app.main(argv)
+        if "--device" not in argv:
+            argv += ["--device", "cpu"]
+        assert render_app.main(argv + ["--width", "8", "--height", "8",
+                                       "--spp", "1", "--bounces", "1"]) == 0
+        img = np.asarray(Image.open(out).convert("RGB"))
+        assert img.shape == (8, 8, 3)
         return
     argv += ["--device", "cpu"]
     spawned = []
@@ -267,6 +274,21 @@ def test_cli_unported_paths_raise(argv, tmp_path, monkeypatch):
     assert render_app.main(argv) == 0
     assert spawned == [("physically_based_renderer_tpu_torch.apps.render",
                         argv, 2, "gloo")]
+
+
+@pytest.mark.parametrize("extra", [["--tiles", "2"], ["--blinn-phong"]])
+def test_cli_debug_checks_refuses_tiles_and_blinn_phong(extra, tmp_path,
+                                                         monkeypatch):
+    """As in the reference: --debug-checks wraps the single-device dense
+    render only; the CLI prints `error: ...` and returns 2 before it starts
+    a rank or builds a scene."""
+    from physically_based_renderer_tpu_torch.parallel import distributed
+    monkeypatch.setattr(distributed, "spawn_local",
+                        lambda *a: pytest.fail("ranks were started"))
+    assert render_app.main(["cornell", "--debug-checks", *extra, "-o",
+                            str(tmp_path / "x.png"), "--device",
+                            "cpu"]) == 2
+    assert not (tmp_path / "x.png").exists()
 
 
 def test_cli_cuda_without_card_raises(tmp_path):
