@@ -94,6 +94,19 @@ of which raises on failure (an uncaught exception exits non-zero):
      numpy builders on helmet's mesh, bit for bit, both timed; one K4
      cornell frame and its K3 under utils/profiling.device_trace, whose
      Chrome trace must name both kernels;
+ 15. (after 14) the k = 32 sub-cluster route: `helmet` built with
+     SceneSpec.cluster_k = 32 (4,096 sub-clusters; set-up seconds), its
+     frame through render_with_stats at the config's size (512x512, 4 spp,
+     3 bounces; 40 K1 + 184 K5a, counts reset just before it) cold and
+     warm, beside the K = 128 frame and the BVH walk at the same key
+     (pixels that differ, film means, ray counts: printed, not held); K1
+     at K = 32 on the camera closest-hit, env shadow and emitter shadow
+     calls of 262,144 rays (and a bounce closest-hit call), equal to its
+     plain version on every winner, t and mask, each timed beside its
+     work-counted bound, and the same calls on the same rays through the
+     K = 128 grid; then `helmet_proc` at K = 32 with chunk 16 and max_u 96
+     (tools/prof_k32.py's settings) through phase 4's K1 checks, every
+     winner equal;
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -287,6 +300,10 @@ MODULE_LAUNCHES = {
                              "tonemap": 0, "gather_fwd": 24,
                              "gather_bwd": 0},
 }
+# Phase 15's helmet frame on a k = 32 grid through render_with_stats (no
+# CLI, so no K3): the helmet CLI frame's 40 K1 and 184 K5a.
+K32_LAUNCHES = {"fused": 0, "resident": 0, "trace_blocks": 40, "tonemap": 0,
+                "gather_fwd": 184, "gather_bwd": 0}
 # The bvh frame at 1 spp x 3 bounces is held per pixel to the exact
 # brute-force tracer on this band of rows (first row, rows) at the same
 # key: brute force over the whole frame would take minutes.  Against the
@@ -716,12 +733,15 @@ def k1_work(args, best_t, best_flat, chunk: int, tri_id):
     at the first chunk j at or after it whose next entry distance is at
     least max over live lanes of min(t, t_max).  Only live lanes (t_max > 0)
     test, and only real triangles of the clusters in the chunks a block
-    visits count (padding and the sentinel are left out)."""
+    visits count (padding and the sentinel are left out).  The chunk is
+    K1's (`chunk_width`: at K = 32 a multiple of 4)."""
     import torch
+
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
     u_idx, _, _, tm, soup, n_valid, entry = args
     dev = tm.device
     n_u, k = u_idx.shape[1], soup.shape[-1]
-    ch = min(chunk, n_u)
+    ch = tb.chunk_width(chunk, n_u, k)
     w, nct = ch * k, n_u // ch
     live = tm > 0.0
     win_chunk = torch.where(live & (best_flat >= 0), best_flat // w,
@@ -761,7 +781,7 @@ def k1_any_work(args, t_min: float, chunk: int, tri_id):
     u_idx, _, _, tm, soup, n_valid, entry = args
     dev = tm.device
     n_u = u_idx.shape[1]
-    ch = min(chunk, n_u)
+    ch = tb.chunk_width(chunk, n_u, soup.shape[-1])
     nct = n_u // ch
     live = tm > 0.0
     first = torch.full(tm.shape, nct, dtype=torch.int64, device=dev)
@@ -791,6 +811,36 @@ def k1_any_work(args, t_min: float, chunk: int, tri_id):
     run = torch.arange(n_u, device=dev)[None] < visited[:, None] * ch
     read = u_idx[run & (u_idx < n_clusters)]
     return tests, int(torch.unique(read).numel())
+
+
+def k1_call_stats(args, t_min: float, any_hit: bool, chunk: int, tri_id):
+    """One K1 call on these inputs: device ms (torch.profiler), wrapper ms
+    (CUDA events), the ray-triangle tests its data needs (k1_work,
+    k1_any_work), the distinct clusters it reads and its bound.  Bytes: o,
+    d, t_max in and the results out per lane, the candidate lists and
+    entries, the soup of the distinct clusters read, once."""
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+
+    call = functools.partial(tb.trace_blocks, *args, t_min=t_min,
+                             any_hit=any_hit, chunk=chunk)
+    ms, _ = device_ms(call, 50, "trace_blocks_kernel")
+    wrapper_ms = time_ms(call, 50)
+    if any_hit:
+        tests, n_clusters = k1_any_work(args, t_min, chunk, tri_id)
+    else:
+        tests, n_clusters = k1_work(args, *call(), chunk, tri_id)
+    u_idx, o_b, _, _, soup_b, n_valid, _ = args
+    nb, blk = o_b.shape[0], o_b.shape[1]
+    bnd = bound(nb * blk * (12 + 12 + 4 + (1 if any_hit else 8))
+                + u_idx.numel() * 8 + nb * 4
+                + n_clusters * soup_b[0].numel() * 4, tests * MT_FLOPS)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "tests": tests, "clusters_read": n_clusters,
+            "lanes": nb * blk, "block": blk,
+            "chunk": tb.chunk_width(chunk, u_idx.shape[1], soup_b.shape[-1]),
+            "candidates": u_idx.shape[1], "tests_per_s": tests / (ms * 1e-3),
+            "ratio_to_bound": ms / bnd[0]}
 
 
 class TraceStats:
@@ -1119,9 +1169,11 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
-def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
+def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None,
+             cluster_k=None, max_u=None):
     """K1 against its plain version on the rays of config `name`, at that
-    config's block size (and `chunk` clusters a step where given); on a
+    config's block size (and `chunk` clusters a step, `max_u` candidates a
+    block and a grid of `cluster_k` triangles a cluster where given); on a
     scene with area emitters also shadow rays toward them and K5a on the
     emitter table.  `held_to`: the timed calls of a run on the same rays
     at the config's own chunk; each call here is held to that run's work
@@ -1140,15 +1192,17 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
     from physically_based_renderer_tpu_torch.models import lights
     from physically_based_renderer_tpu_torch.ops import blocktrace, gather
     from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
-    from physically_based_renderer_tpu_torch.tools.timing import device_ms
     from physically_based_renderer_tpu_torch.utils import config
 
-    st = TraceStats(f"K1 {name}" + (f" chunk={chunk}" if chunk else ""))
+    st = TraceStats(f"K1 {name}" + (f" chunk={chunk}" if chunk else "")
+                    + (f" k={cluster_k}" if cluster_k else ""))
+    tag = f"K1 {name}" + (f" k={cluster_k}" if cluster_k else "")
     rng = np.random.default_rng(2)
     bc = config.get(name)
-    cfg = (bc.render if chunk is None
-           else dataclasses.replace(bc.render, chunk=chunk))
-    scene, cam = config.build_scene(bc.scene, dev)
+    cfg = dataclasses.replace(bc.render, chunk=chunk or bc.render.chunk,
+                              max_u=max_u or bc.render.max_u)
+    scene, cam = config.build_scene(
+        dataclasses.replace(bc.scene, cluster_k=cluster_k), dev)
     grid = scene.clusters
     kw = dict(block=cfg.block_size, max_u=cfg.max_u, chunk=cfg.chunk)
 
@@ -1180,7 +1234,7 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
         if args[1].shape[1] != cfg.block_size:
             raise AssertionError(f"ray blocks of {args[1].shape[1]}, expected "
                                  f"{cfg.block_size}")
-        print(f"K1 {name} B={cfg.block_size} {label}: candidates per block "
+        print(f"{tag} B={cfg.block_size} {label}: candidates per block "
               f"mean {nv.mean().item():.2f}, max {int(nv.max())}")
         (st.any_hit if any_hit else st.closest)(
             label, *both(args, o.shape[0], t_min, any_hit))
@@ -1264,19 +1318,11 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
     tri_id = grid.tri_id.to(dev)
     st.calls = {}
     for label, (args, t_min, any_hit) in timed.items():
-        call = functools.partial(tb.trace_blocks, *args, t_min=t_min,
-                                 any_hit=any_hit, chunk=cfg.chunk)
-        ms, _ = device_ms(call, 50, "trace_blocks_kernel")
-        wrapper_ms = time_ms(call, 50)
-        if any_hit:
-            tests, n_clusters = k1_any_work(args, t_min, cfg.chunk, tri_id)
-        else:
-            tests, n_clusters = k1_work(args, *call(), cfg.chunk, tri_id)
-        u_idx, o_b, _, _, soup_b, n_valid, _ = args
-        nb, blk = o_b.shape[0], o_b.shape[1]
-        bnd = bound(nb * blk * (12 + 12 + 4 + (1 if any_hit else 8))
-                    + u_idx.numel() * 8 + nb * 4
-                    + n_clusters * soup_b[0].numel() * 4, tests * MT_FLOPS)
+        c = k1_call_stats(args, t_min, any_hit, cfg.chunk, tri_id)
+        ms, wrapper_ms = c["ms"], c["wrapper_ms"]
+        tests, n_clusters = c["tests"], c["clusters_read"]
+        nb, blk = c["lanes"] // c["block"], c["block"]
+        bnd = (c["bound_ms"], c["bound_by"])
         added = None
         if held_to is not None:
             base = held_to[label]
@@ -1289,11 +1335,12 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
         st.calls[label] = {
             "ms": ms, "wrapper_ms": wrapper_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "tests": tests, "clusters_read": n_clusters,
-            "tests_added_by_chunk": added,
+            "tests_added_by_chunk": added, "chunk": c["chunk"],
+            "candidates": c["candidates"],
             "tests_per_s": tests / (ms * 1e-3), "ratio_to_bound": ms / bnd[0]}
         extra = (f"; the chunk's coarser exit adds {added} tests"
                  if added is not None else "")
-        print(f"K1 {name} B={blk} chunk={cfg.chunk} {label} ({nb * blk} "
+        print(f"{tag} B={blk} chunk={cfg.chunk} {label} ({nb * blk} "
               f"lanes): device {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
               f"bound {bnd[0]:.4f} ms ({bnd[1]}; {tests} tests needed, "
               f"{n_clusters} clusters read{extra}), "
@@ -1309,7 +1356,7 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None):
                * o_b.shape[1] * soup_b.shape[-1],
                "clusters_read": cam["clusters_read"],
                "tests_added_by_chunk": cam["tests_added_by_chunk"]}
-    print(f"K1 {name} camera closest work: {st.work['tests']} ray-triangle "
+    print(f"{tag} camera closest work: {st.work['tests']} ray-triangle "
           f"tests needed ({st.work['tests_if_no_exit']} if every lane tested "
           f"every candidate), {st.work['clusters_read']} clusters read")
     return st, ms, plain_ms
@@ -2829,6 +2876,202 @@ def phase_sharded(dev, tmp, counters):
     return out
 
 
+def phase_k32(dev, counters):
+    """Phase 15: the k = 32 sub-cluster route.  `helmet` built with
+    SceneSpec.cluster_k = 32 (set-up timed: the cluster builder and the
+    soup), rendered through render_with_stats at its config (512x512, 4
+    spp, 3 bounces, B = 512, max_u 48, chunk 4), cold then warm, the counts
+    reset just before the cold frame; that frame beside the K = 128 frame
+    and the BVH walk at the same key (pixels that differ, film means, ray
+    counts: measured, not held; phase A's truncation is the reference's
+    own).  K1 at K = 32 on the camera closest-hit, env shadow and emitter
+    shadow calls of 262,144 rays, each equal to its plain version on every
+    winner, t and mask, timed beside its work-counted bound, and the same
+    calls on the same rays through the K = 128 grid.  Then helmet_proc at
+    K = 32 with chunk 16 and max_u 96 (phase_k1)."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import morton
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.core.camera import (
+        generate_rays_at)
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.integrator.shading import (
+        shade_surface)
+    from physically_based_renderer_tpu_torch.models import lights
+    from physically_based_renderer_tpu_torch.ops import blocktrace, traverse
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    from physically_based_renderer_tpu_torch.scene import types
+    from physically_based_renderer_tpu_torch.utils import config
+
+    bc = config.get("helmet")
+    cfg = bc.render
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene, cam = config.build_scene(
+        dataclasses.replace(bc.scene, cluster_k=32), dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = types.with_clusters(scene, k=32)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid = scene.clusters
+    if grid.k != 32 or tuple(grid.soup.shape) != (grid.num_clusters + 1, 9,
+                                                  32):
+        raise AssertionError(f"helmet k=32 grid: k {grid.k}, soup "
+                             f"{tuple(grid.soup.shape)}")
+    scene128 = types.with_clusters(scene)
+    print(f"helmet k=32: {grid.num_clusters} sub-clusters (k=128: "
+          f"{scene128.clusters.num_clusters} clusters); set-up {setup_s:.3f}"
+          f" s (scene, builders and soup), cluster grid and soup alone "
+          f"{grid_s:.3f} s")
+
+    def frame(sc):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        traverse.STEPS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film, count = path.render_with_stats(sc, cam, rng_mod.key(0, dev),
+                                             cfg)
+        img = film.mean().cpu().numpy()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(
+                img).all():
+            raise AssertionError(f"helmet k=32 film: shape {img.shape}, "
+                                 f"finite {bool(np.isfinite(img).all())}")
+        return img, {"seconds": dt, "rays": int(count),
+                     "rays_per_s": int(count) / dt,
+                     "film_mean": float(img.mean()), "launches": got}
+
+    img, cold = frame(scene)
+    if cold["launches"] != K32_LAUNCHES:
+        raise AssertionError(f"helmet k=32 launches {cold['launches']}, "
+                             f"expected {K32_LAUNCHES}")
+    img_warm, warm = frame(scene)
+    out = {"sub_clusters": grid.num_clusters,
+           "clusters_k128": scene128.clusters.num_clusters,
+           "setup_s": setup_s, "grid_s": grid_s, "cold": cold, "warm": warm,
+           "warm_equal_cold": bool(np.array_equal(img, img_warm))}
+    print(f"helmet k=32 512x512 x {cfg.spp} spp x {cfg.max_bounces} bounces:"
+          f" cold {cold['seconds']:.3f} s, warm {warm['seconds']:.3f} s, "
+          f"{cold['rays']} ray queries, {warm['rays_per_s']:.4g} rays/s "
+          f"warm, film mean {cold['film_mean']:.5f}, launches "
+          f"{cold['launches']} [{card_line()}]")
+    bvh_scene = types.with_bvh(dataclasses.replace(scene, clusters=None))
+    for label, sc in (("k=128", scene128), ("bvh", bvh_scene)):
+        other, st = frame(sc)
+        frac, n_bad = render_agreement(img, other)
+        out[label] = {**st, "pixels_differ": n_bad, "pixel_frac": frac,
+                      "film_mean_diff": cold["film_mean"] - st["film_mean"],
+                      "rays_diff": cold["rays"] - st["rays"]}
+        print(f"helmet k=32 against {label} at the same key: {n_bad} of "
+              f"{img.shape[0] * img.shape[1]} pixels differ, film mean "
+              f"{cold['film_mean']:.5f} against {st['film_mean']:.5f} "
+              f"(diff {cold['film_mean'] - st['film_mean']:.3g}), "
+              f"{cold['rays']} ray queries against {st['rays']} (diff "
+              f"{cold['rays'] - st['rays']}); {label} frame "
+              f"{st['seconds']:.3f} s")
+    del bvh_scene
+
+    # The timed calls: 512x512 morton camera rays (as phase_k1), env and
+    # emitter shadow rays from the k=32 camera hits.
+    rng = np.random.default_rng(2)
+    w, h = cfg.width, cfg.height
+    pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
+    keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
+    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
+    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
+                                    (pix // w).float(), jit)
+    n = o_cam.shape[0]
+    hit = path.closest_hit(scene, o_cam, d_cam, 0.0, cfg)
+    active = ~hit.miss
+    sp = shade_surface(scene, hit, o_cam, d_cam)
+    o_b = (sp.pos + sp.ng * cfg.ray_eps).contiguous()
+    u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    es = lights.sample_env(scene, n, u2)
+    t_sh = torch.where(active & es.valid, es.dist * (1.0 - 1e-3), 0.0)
+    u3 = torch.from_numpy(rng.random((n, 3)).astype(np.float32)).to(dev)
+    ls = lights.sample_area_emitters(scene, sp.pos, u3[:, 0], u3[:, 1:],
+                                     emitter_attrs=lights.pack_emitter_attrs(
+                                         scene))
+    t_em = torch.where(active & ls.valid, ls.dist * (1.0 - 1e-3), 0.0)
+    jitter = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(n, 3)).astype(np.float32)).to(dev), dim=-1)
+    d_bounce = torch.nn.functional.normalize(sp.ng + jitter, dim=-1)
+    calls = {"camera closest": (o_cam, d_cam, 0.0, 1e30, False, False),
+             "env shadow any-hit": (o_b, es.wi, cfg.ray_eps, t_sh, True,
+                                    True),
+             "emitter shadow any-hit": (o_b, ls.wi, cfg.ray_eps, t_em, True,
+                                        True),
+             "bounce closest": (o_b, d_bounce, 1e-3,
+                                torch.where(active, 1e30, 0.0), True, False)}
+    timed = ("camera closest", "env shadow any-hit", "emitter shadow any-hit")
+    out["calls"] = {}
+    for k, g in ((32, grid), (128, scene128.clusters)):
+        st = TraceStats(f"K1 helmet k={k}")
+        tri_id = g.tri_id.to(dev)
+        for label, (o, d, t_min, t_max, sort, any_hit) in calls.items():
+            args, _ = blocktrace.block_inputs(
+                g, o, d, t_min, t_max, block=cfg.block_size, max_u=cfg.max_u,
+                sort=sort, chunk=cfg.chunk)
+            kern = tb.trace_blocks(*args, t_min=t_min, any_hit=any_hit,
+                                   chunk=cfg.chunk)
+            plain = tb.trace_blocks_plain(*args, t_min=t_min,
+                                          any_hit=any_hit, chunk=cfg.chunk)
+            torch.cuda.synchronize()
+            flat = lambda x: x.reshape(-1)[:n]
+            if any_hit:
+                st.any_hit(label, flat(kern), flat(plain))
+            else:
+                st.closest(label, (flat(kern[0]), flat(kern[1])),
+                           (flat(plain[0]), flat(plain[1])))
+            if k == 32 and st.mismatch:
+                raise AssertionError(f"K1 at k=32 {label}: {st.mismatch} "
+                                     "winners differ from its plain version")
+            if label not in timed:
+                continue
+            c = k1_call_stats(args, t_min, any_hit, cfg.chunk, tri_id)
+            out["calls"][f"k={k} {label}"] = c
+            print(f"K1 helmet k={k} B={c['block']} chunk={c['chunk']} "
+                  f"{label} ({c['lanes']} lanes, {c['candidates']} "
+                  f"candidates a block): device {c['ms']:.4f} ms, wrapper "
+                  f"{c['wrapper_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']}; {c['tests']} tests needed, "
+                  f"{c['clusters_read']} clusters read), "
+                  f"{c['tests_per_s']:.4g} tests/s, "
+                  f"{c['ratio_to_bound']:.2f}x the bound [{card_line()}]")
+        out[f"k{k}_rays_compared"] = st.rays
+        out[f"k{k}_winner_mismatches"] = st.mismatch
+        out[f"k{k}_max_abs_err"] = st.max_abs_err
+    plain_ms = time_ms(lambda: tb.trace_blocks_plain(
+        *blocktrace.block_inputs(grid, o_cam, d_cam, 0.0, 1e30,
+                                 block=cfg.block_size, max_u=cfg.max_u,
+                                 chunk=cfg.chunk)[0], t_min=0.0,
+        any_hit=False, chunk=cfg.chunk), 3, warmup=1)
+    out["camera_plain_ms"] = plain_ms
+    del scene, scene128, grid
+
+    # helmet_proc at tools/prof_k32.py's settings (chunk 16, max_u 96),
+    # every phase_k1 call held equal to the plain version.
+    proc, proc_ms, proc_plain_ms = phase_k1(dev, "helmet_proc", chunk=16,
+                                            cluster_k=32, max_u=96)
+    if proc.mismatch:
+        raise AssertionError(f"K1 helmet_proc k=32: {proc.mismatch} winners "
+                             "differ from its plain version")
+    out["helmet_proc"] = {"calls": proc.calls, "work": proc.work,
+                          "rays_compared": proc.rays, "ms": proc_ms,
+                          "plain_ms": proc_plain_ms}
+    print(f"K1 262144 helmet_proc camera rays at k=32, chunk=16, max_u=96: "
+          f"kernel {proc_ms:.4f} ms (wrapper {proc.wrapper_ms:.4f}, bound "
+          f"{proc.bound[0]:.4f}), plain {proc_plain_ms:.4f} ms "
+          f"[{card_line()}]")
+    return out
+
+
 def phase_profile_frame(dev, name):
     """One warm frame of config `name` under torch.profiler: launches, the
     device's busy and idle share, K1's and K5a's shares of the device
@@ -3289,6 +3532,11 @@ def main() -> int:
             for k in launches:
                 launches[k][label] = modules[label]["launches"][k]
 
+        # 15. the k = 32 sub-cluster route
+        k32 = phase_k32(dev, counters)
+        for k in launches:
+            launches[k]["helmet_k32"] = k32["cold"]["launches"][k]
+
         # 6b. a .glb by path, a truncated one, the report CLI
         by_path = phase_glb_path(dev, tmp, counters)
         report = phase_report(tmp)
@@ -3355,9 +3603,13 @@ def main() -> int:
         entry("tonemap", "tonemap.cu", "ops/tonemap.py:52",
               k3["max_abs_err"], k3_ms, k3["wrapper_ms"], k3_plain_ms,
               k3["bound"], None),
-        entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
-              k1.max_abs_err, k1_ms, k1.wrapper_ms, k1_plain_ms, k1.bound,
-              None),
+        {**entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
+                 max(k1.max_abs_err, k32["k32_max_abs_err"]), k1_ms,
+                 k1.wrapper_ms, k1_plain_ms, k1.bound, None),
+         "k32_camera_ms": k32["calls"]["k=32 camera closest"]["ms"],
+         "k32_camera_bound_ms": k32["calls"]["k=32 camera closest"][
+             "bound_ms"],
+         "k32_camera_plain_ms": k32["camera_plain_ms"]},
         entry("fused", "fused.cu", "ops/fused.py:402", k4["max_abs_err"],
               k4_ms, k4["wrapper_ms"], k4_plain_ms, k4["bound"], None),
         entry("gather_fwd", "gather.cu", "ops/gather.py:47",
@@ -3445,7 +3697,7 @@ def main() -> int:
         "probes_p5_p8": mosaic_times, "sharded": sharded,
         "profiled_frames": frames,
         "main_paths": runs, "routes": routes, "goldens": goldens,
-        "modules": modules,
+        "modules": modules, "k32": k32,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,

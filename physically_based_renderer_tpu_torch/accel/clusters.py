@@ -1,5 +1,5 @@
 """Cluster grid: the block tracer's acceleration structure (port of
-`accel/clusters.py` for k % 128 == 0).
+`accel/clusters.py`).
 
 Triangles are partitioned into C clusters of at most K triangles (the leaf
 ranges of the BVH builder, accel/bvh.py, padded to exactly K with id -1).
@@ -14,8 +14,14 @@ xyz, e2 xyz.  Padding triangles are degenerate (v0 = 2e30, e1 = e2 = 0)
 and the sentinel cluster C is all zeros, so both reject themselves in the
 kernel through det = 0.  The reference's seven zero rows, which align TPU
 DMAs, are left out.  `refit_clusters` rebuilds boxes and soup on the
-render device when vertex positions are trained.  Not ported:
-`pack_soup32` (the k = 32 TPU layout).
+render device when vertex positions are trained.
+
+Cluster sizes are the reference's: k = 32 (sub-clusters) or a multiple of
+128.  The port keeps the one soup layout f32[C+1, 9, K] for every k, k = 32
+included.  The reference stores a k = 32 soup as four lane-group variants,
+f32[(C+1)*4, 16, 128] (`pack_soup32`), because a TPU DMA copies only
+128-lane aligned tiles; the variants are zero outside their 32 lanes, so
+`unpack_soup32` recovers the compact soup from them exactly.
 """
 
 from __future__ import annotations
@@ -88,9 +94,11 @@ def build_clusters(positions, indices, k: int = CLUSTER_K) -> ClusterGrid:
 
 
 def _check_k(grid: ClusterGrid) -> None:
-    if grid.k % 128:
-        raise ValueError(f"cluster size k={grid.k} is not a multiple of 128 "
-                         "(the k=32 layout is not ported)")
+    """The reference's cluster sizes: k == 32 or k % 128 == 0."""
+    if grid.k != 32 and grid.k % 128:
+        raise ValueError(
+            f"Pallas tracer needs cluster size k == 32 (lane-group variant "
+            f"layout) or k % 128 == 0 (VMEM DMA tiling); got k={grid.k}.")
 
 
 def cluster_tri_soup(tri_id, positions, indices):
@@ -118,10 +126,40 @@ def _pack_soup(v0, e1, e2) -> torch.Tensor:
                      dim=0).contiguous()
 
 
+def pack_soup32(comp) -> torch.Tensor:
+    """The reference's k = 32 sub-cluster soup: components f32[C, 9, 32]
+    in, f32[(C+1)*4, 16, 128] lane-group variants out.  Variant p of a
+    sub-cluster holds component row c at row c, lanes [32p, 32p + 32), and
+    zeros elsewhere; the sentinel's four variants are all zeros.  The port's
+    kernel reads the compact soup (`unpack_soup32` inverts this)."""
+    comp = torch.as_tensor(comp, dtype=torch.float32)
+    c, rows, k = comp.shape
+    if (rows, k) != (SOUP_ROWS, 32):
+        raise ValueError(f"components have shape {tuple(comp.shape)}, "
+                         f"expected [C, {SOUP_ROWS}, 32]")
+    comp16 = torch.cat([comp, comp.new_zeros((c, 16 - rows, k))], dim=1)
+    variants = [torch.cat([comp.new_zeros((c, 16, 32 * p)), comp16,
+                           comp.new_zeros((c, 16, 32 * (3 - p)))], dim=2)
+                for p in range(4)]
+    soup = torch.stack(variants, dim=1).reshape(c * 4, 16, 128)
+    return torch.cat([soup, comp.new_zeros((4, 16, 128))], dim=0)
+
+
+def unpack_soup32(soup) -> torch.Tensor:
+    """A lane-group variant soup f32[(C+1)*4, 16, 128] (`pack_soup32`) ->
+    the compact soup f32[C+1, 9, 32]: variant 0's rows and lanes."""
+    soup = torch.as_tensor(soup, dtype=torch.float32)
+    if soup.dim() != 3 or soup.shape[0] % 4 or soup.shape[1:] != (16, 128):
+        raise ValueError(f"soup has shape {tuple(soup.shape)}, expected "
+                         "[(C+1)*4, 16, 128]")
+    c1 = soup.shape[0] // 4
+    return soup.reshape(c1, 4, 16, 128)[:, 0, :SOUP_ROWS, :32].contiguous()
+
+
 def pack_soup_host(grid: ClusterGrid, positions,
                    indices) -> ClusterGrid:
-    """Attach the packed soup f32[C+1, 9, K] (at build time, on the CPU);
-    the last cluster is the all-zero sentinel."""
+    """Attach the packed soup f32[C+1, 9, K] (at build time, on the CPU;
+    k = 32 too); the last cluster is the all-zero sentinel."""
     _check_k(grid)
     comp = cluster_tri_soup(
         grid.tri_id.cpu(), torch.from_numpy(np.asarray(positions, np.float32)),
@@ -136,7 +174,8 @@ def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
     The inverse-rendering step calls this when vertex positions are trained
     (grad/inverse.py), so a moving mesh never escapes its boxes; boxes grow
     as vertices spread, they never miss.  The soup keeps the port's
-    SOUP_ROWS-row layout.
+    SOUP_ROWS-row layout at every k (the reference repacks k = 32 as
+    `pack_soup32`).
     """
     _check_k(grid)
     v0, e1, e2 = cluster_tri_soup(grid.tri_id, geometry.positions.detach(),

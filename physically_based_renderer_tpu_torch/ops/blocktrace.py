@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from ..accel.clusters import (ClusterGrid, _check_k, _pack_soup,
+from ..accel.clusters import (SOUP_ROWS, ClusterGrid, _check_k, _pack_soup,
                               cluster_tri_soup)
 from .intersect import BIG, Hit, inv_dir, mt_rows
 from .trace_blocks import trace_blocks
@@ -189,8 +189,8 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
 def pack_soup(grid: ClusterGrid, geometry) -> torch.Tensor:
     """The detached soup f32[C+1, 9, K] of the current geometry (the
     all-zero sentinel cluster last), for a grid that carries none: K1's
-    input packed at trace time, as the reference packs it inside the trace.
-    The k=32 layout is not ported."""
+    input packed at trace time, as the reference packs it inside the trace
+    (its k = 32 variants are this soup's rows; accel/clusters.py)."""
     _check_k(grid)
     return _pack_soup(*cluster_tri_soup(
         grid.tri_id, geometry.positions.detach(), geometry.indices))
@@ -206,13 +206,21 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
     rays padded to whole blocks (padding lanes: origin 3e30, t_max 0), and
     candidate lists padded with the sentinel to whole chunks.  `perm` is
     the sort permutation (None without `sort`).  A grid without a packed
-    soup takes one packed from `geometry` (pack_soup)."""
+    soup takes one packed from `geometry` (pack_soup).  Cluster sizes other
+    than 32 and multiples of 128 are refused, as the reference refuses
+    them, and so is a soup whose shape is not the grid's [C+1, 9, k]."""
+    _check_k(grid)
     soup = grid.soup
     if soup is None:
         if geometry is None:
             raise ValueError("the cluster grid has no packed soup: pass "
                              "the geometry to pack it from")
         soup = pack_soup(grid, geometry)
+    want = (grid.num_clusters + 1, SOUP_ROWS, grid.k)
+    if tuple(soup.shape) != want:
+        raise ValueError(f"the grid's soup has shape {tuple(soup.shape)}, "
+                         f"expected {want} for {grid.num_clusters} clusters "
+                         f"of k={grid.k}")
     n = o.shape[0]
     o_s = o.detach().to(torch.float32)
     d_s = d.detach().to(torch.float32)
@@ -232,9 +240,12 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
 
     u_idx, u_entry, n_valid, ob, db, tmb = _select_candidates(
         grid, o_s, d_s, tm, nb, block, t_min, max_u)
-    # Whole chunks only: pad the candidate list with the sentinel cluster.
+    # Whole chunks only: pad the candidate list with the sentinel cluster;
+    # at k = 32 to whole chunks of 4 * (chunk // 4), at least 4, even where
+    # the list is shorter than one chunk (the reference's :480-487).
     n_u = u_idx.shape[1]
-    extra = _round_up(n_u, min(chunk, n_u)) - n_u
+    ch = max(4, 4 * (chunk // 4)) if grid.k == 32 else min(chunk, n_u)
+    extra = _round_up(n_u, ch) - n_u
     if extra:
         u_idx = torch.cat([u_idx, u_idx.new_full((nb, extra),
                                                  grid.num_clusters)], dim=1)

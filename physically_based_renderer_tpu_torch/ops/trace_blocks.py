@@ -20,6 +20,11 @@ Live lanes have t_max > 0 (phase A gives culled and padding lanes
 t_max = 0).  Padding triangles and the all-zero sentinel cluster reject
 themselves through det = 0 (inverse 0, so t = 0 fails t > t_min >= 0).
 
+At K = 32 (the reference's sub-clusters) a chunk is a multiple of 4
+candidates, at least 4 (`chunk_width`), as the reference takes it; its
+four lane-group soup variants summed are the compact rows read here, so
+the flat order, the tie rule and the early exit are the same.
+
 `trace_blocks_plain` is that function in torch; the wrapper
 `trace_blocks` launches the CUDA kernel (`csrc/trace_blocks.cu`) for CUDA
 tensors and takes the plain version only for CPU tensors.  The kernel runs
@@ -49,6 +54,15 @@ _PLAIN_CHUNK = 1 << 22
 RCP_LO, RCP_HI = 1e-9, 2.0 ** 126
 
 
+def chunk_width(chunk: int, n_u: int, k: int) -> int:
+    """Candidate clusters a step, as the reference's trace_blocks_pallas
+    takes them (:287-290): min(chunk, n_u); at K = 32 (sub-clusters) a
+    multiple of 4, at least 4."""
+    if k == 32:
+        return max(4, (min(chunk, n_u) // 4) * 4)
+    return min(chunk, n_u)
+
+
 def _check(u_idx, o, d, t_max, soup, n_valid, entry, t_min, chunk):
     nb, n_u = u_idx.shape
     b = o.shape[1] if o.dim() == 3 else -1
@@ -71,7 +85,7 @@ def _check(u_idx, o, d, t_max, soup, n_valid, entry, t_min, chunk):
                              f"expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    ch = min(chunk, n_u)
+    ch = chunk_width(chunk, n_u, soup.shape[-1])
     if ch < 1 or n_u % ch:
         raise ValueError(f"candidate count {n_u} must be a multiple of the "
                          f"chunk {ch}; pad u_idx with the sentinel")
@@ -157,7 +171,7 @@ def trace_blocks_plain(u_idx, o, d, t_max, soup, n_valid, entry, *,
     u_idx i32[NB, U] candidate clusters (sentinel C past n_valid), o/d
     f32[NB, B, 3], t_max f32[NB, B], soup f32[C+1, 9, K], n_valid i32[NB],
     entry f32[NB, U] (only chunk-start entries are read); U must be a
-    whole number of chunks of min(chunk, U)."""
+    whole number of chunks of `chunk_width(chunk, U, K)`."""
     ch = _check(u_idx, o, d, t_max, soup, n_valid, entry, t_min, chunk)
     nb, b = t_max.shape
     step = max(1, _PLAIN_CHUNK // max(b * ch * soup.shape[-1], 1))

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..accel.bvh import BVH, LEAF_SIZE
-from ..accel.clusters import SOUP_ROWS, ClusterGrid, pack_soup_host
+from ..accel.clusters import (CLUSTER_K, SOUP_ROWS, ClusterGrid,
+                              pack_soup_host, unpack_soup32)
 from ..accel.native import (build_alias_native, build_bvh_fast,
                             build_clusters_fast)
 from ..utils import debug
@@ -414,13 +415,15 @@ def with_bvh(scene: Scene) -> Scene:
     return dataclasses.replace(scene, bvh=_to_device(bvh, scene.device))
 
 
-def with_clusters(scene: Scene) -> Scene:
-    """Build the cluster grid (`accel.clusters.CLUSTER_K` triangles a
-    cluster; the native builder, or the numpy one it equals) and its packed
-    soup, and attach it; the block tracer (ops/blocktrace.py) needs it."""
+def with_clusters(scene: Scene, k: int | None = None) -> Scene:
+    """Build the cluster grid (k triangles a cluster, None meaning
+    `accel.clusters.CLUSTER_K`; 32 or a multiple of 128; the native
+    builder, or the numpy one it equals) and its packed soup, and attach
+    it; the block tracer (ops/blocktrace.py) needs it."""
     pos = _np(scene.geometry.positions)
     idx = _np(scene.geometry.indices)
-    grid = pack_soup_host(build_clusters_fast(pos, idx), pos, idx)
+    grid = pack_soup_host(build_clusters_fast(pos, idx, k=k or CLUSTER_K),
+                          pos, idx)
     return dataclasses.replace(scene, clusters=_to_device(grid, scene.device))
 
 
@@ -460,18 +463,24 @@ def scene_from_numpy(arrays: Mapping[str, Any], device=None) -> Scene:
     emitters, directional, env) to a mapping of its field names to numpy
     arrays (tuples for the texture stack's static fields; env may be None),
     plus "flags": a mapping of the Scene's static flags.  An optional
-    "clusters" mapping carries the reference's cluster grid; its soup's
-    zero rows beyond the first 9 (TPU DMA alignment) are dropped.
+    "clusters" mapping carries the reference's cluster grid; its soup
+    becomes the port's f32[C+1, 9, K]: the zero rows beyond the first 9
+    (TPU DMA alignment) are dropped, and a k = 32 grid's lane-group
+    variants (`accel.clusters.pack_soup32`) are unpacked.
     """
     flags = arrays["flags"]
     grid = arrays.get("clusters")
     if grid is not None:
+        tri_id = _i32(grid["tri_id"])
+        soup = grid.get("soup")
+        if soup is not None:
+            soup = (unpack_soup32(_f32(soup)) if tri_id.shape[1] == 32
+                    else _f32(np.ascontiguousarray(
+                        np.asarray(soup)[:, :SOUP_ROWS])))
         grid = ClusterGrid(
             aabb_min=_f32(grid["aabb_min"]), aabb_max=_f32(grid["aabb_max"]),
-            tri_id=_i32(grid["tri_id"]), parent_min=_f32(grid["parent_min"]),
-            parent_max=_f32(grid["parent_max"]),
-            soup=(None if grid.get("soup") is None else _f32(
-                np.ascontiguousarray(np.asarray(grid["soup"])[:, :SOUP_ROWS]))))
+            tri_id=tri_id, parent_min=_f32(grid["parent_min"]),
+            parent_max=_f32(grid["parent_max"]), soup=soup)
     scene = Scene(
         geometry=_record(Geometry, arrays["geometry"]),
         materials=_record(Materials, arrays["materials"]),

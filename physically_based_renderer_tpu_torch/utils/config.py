@@ -1,7 +1,8 @@
 """Named render configs (port of `utils/config.py`).
 
 Same config names and `RenderConfig`s as the reference.  `build_scene`
-builds every scene and attaches the cluster grid, as the reference does:
+builds every scene and attaches the cluster grid of `SceneSpec.cluster_k`
+triangles a cluster, as the reference does:
 the procedural ones (triangle, cornell, cornell_ggx, cornell_tex256,
 helmet_proc), `helmet` (the authored .glb read back through scene/gltf.py)
 and `gltf` (a file named by `extra["path"]`, with the file's camera).
@@ -23,6 +24,7 @@ class SceneSpec:
     camera_position: tuple = (0.0, 1.0, 3.9)
     camera_target: tuple = (0.0, 1.0, 0.0)
     fov_y: float = 0.95
+    cluster_k: int | None = None   # None = accel/clusters.CLUSTER_K
     extra: dict = dataclasses.field(default_factory=dict)
 
 
@@ -123,14 +125,15 @@ def build_scene(spec: SceneSpec, device=None):
     elif b == "gltf":
         from ..scene import gltf as gltf_mod
         scene, _, camera = gltf_mod.load(spec.extra["path"])
-        return _placed(with_clusters(scene), camera, device)
+        return _placed(with_clusters(scene, k=spec.cluster_k), camera,
+                       device)
     else:
         raise ValueError(f"unknown scene builder {b!r}")
     # Always attach the cluster grid, as the reference does; scenes of at
     # most 512 triangles still take the resident tracer.
     camera = Camera.make(position=spec.camera_position,
                          target=spec.camera_target, fov_y=spec.fov_y)
-    return _placed(with_clusters(scene), camera, device)
+    return _placed(with_clusters(scene, k=spec.cluster_k), camera, device)
 
 
 def _placed(scene, camera, device):

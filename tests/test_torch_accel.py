@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from physically_based_renderer_tpu.accel import clusters as jclusters
 from physically_based_renderer_tpu.accel.bvh import build_bvh as j_build_bvh
 from physically_based_renderer_tpu.core.morton import (
     morton_codes as j_morton_codes, morton_pixel_ids as j_morton_pixel_ids)
@@ -79,12 +80,26 @@ def test_parent_boxes_pad_the_tail_group():
     np.testing.assert_array_equal(pmax[0], amax[:4].max(0))
 
 
-def test_k32_layout_is_not_ported():
+@pytest.mark.parametrize("k", [32, 64, 256])
+def test_cluster_sizes_the_reference_accepts(k):
+    """k = 32 and multiples of 128 pack the port's [C+1, 9, k] soup (k = 32
+    against the reference's variant soup unpacked, k = 256 against its
+    rows); any other k raises, as the reference's tracer does."""
     g = GEOMETRIES["sphere20"]()
     pos, idx = np.asarray(g.positions), np.asarray(g.indices)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        clusters.pack_soup_host(clusters.build_clusters(pos, idx, k=32), pos,
-                                idx)
+    grid = clusters.build_clusters(pos, idx, k=k)
+    if k == 64:
+        with pytest.raises(ValueError, match="k == 32 .* got k=64"):
+            clusters.pack_soup_host(grid, pos, idx)
+        return
+    grid = clusters.pack_soup_host(grid, pos, idx)
+    assert grid.k == k
+    assert grid.soup.shape == (grid.num_clusters + 1, 9, k)
+    ref = jclusters.pack_soup_host(jclusters.build_clusters(pos, idx, k=k),
+                                   pos, idx)
+    want = (clusters.unpack_soup32(ref.soup) if k == 32
+            else np.asarray(ref.soup)[:, :9])
+    np.testing.assert_array_equal(np_(grid.soup), np_(want))
 
 
 def test_with_clusters_matches_reference():

@@ -20,7 +20,7 @@ from physically_based_renderer_tpu_torch.ops import (blocktrace, fused,
                                                      gather, probes, resident,
                                                      tonemap, trace_blocks,
                                                      traverse)
-from physically_based_renderer_tpu_torch.scene import types
+from physically_based_renderer_tpu_torch.scene import procedural, types
 from physically_based_renderer_tpu_torch.tools import (exp_subtile_dma,
                                                        probe2, probe_mosaic)
 from physically_based_renderer_tpu_torch.utils import config
@@ -1105,3 +1105,104 @@ def test_grid_without_soup_through_k1(cuda_device):
                                               rng.key(0, cuda_device), cfg)
     assert int(count) == int(want_count)
     assert torch.equal(film.hdr, want.hdr)
+
+
+@pytest.fixture(scope="module")
+def helmet_k32():
+    """The helmet config's scene on a k = 32 grid (SceneSpec.cluster_k)."""
+    bc = config.get("helmet")
+    return bc, config.build_scene(dataclasses.replace(bc.scene, cluster_k=32),
+                                  "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4, 16])
+@pytest.mark.parametrize("block", [32, 256, 512])
+def test_k1_kernel_matches_plain_at_k32(cuda_device, helmet_k32, block,
+                                        chunk):
+    """K1 on the helmet's 32-triangle sub-clusters ([9][32] rows of 128
+    bytes; 16 sub-clusters a step is 2 x 9 x 512 floats of shared memory,
+    as 4 clusters of 128), closest and any hit, on a ragged ray count."""
+    bc, (scene, _) = helmet_k32
+    grid = types.upload_scene(scene.clusters, cuda_device)
+    assert grid.k == 32 and grid.soup.shape[1:] == (9, 32)
+    o, d, tm = _sphere_rays(20_011, 3 * block + chunk, cuda_device)
+    for any_hit, t_max in ((False, 1e30), (True, tm)):
+        args, _ = blocktrace.block_inputs(grid, o, d, 1e-3, t_max, sort=True,
+                                          block=block, max_u=bc.render.max_u,
+                                          chunk=chunk)
+        assert args[0].shape[1] % trace_blocks.chunk_width(
+            chunk, args[0].shape[1], 32) == 0
+        before = trace_blocks.LAUNCHES
+        k = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=any_hit,
+                                      chunk=chunk)
+        torch.cuda.synchronize()
+        assert trace_blocks.LAUNCHES == before + 1
+        p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3,
+                                            any_hit=any_hit, chunk=chunk)
+        if any_hit:
+            assert torch.equal(k, p)
+            assert 0 < int(k.sum()) < k.numel()
+        else:
+            _assert_closest_agrees(k, p)
+            assert 0 < int((k[1] >= 0).sum()) < k[1].numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_k1_k32_partial_final_chunk_and_tiny_scene(cuda_device, chunk):
+    """tests/test_torch_k32.py's data on the card: 159 random triangles (8
+    partly filled sub-clusters, a ray down onto each, winners in partial
+    final chunks beside the sentinel) and a 60-triangle sphere of fewer
+    than 4 sub-clusters, block 32; kernel against plain version."""
+    cases = []
+    tris = procedural.make_random_tris(159, seed=3)
+    v0, v1, v2 = (v.numpy() for v in tris.tri_vertices())
+    o = ((v0 + v1 + v2) / 3.0 + np.float32([0, 0, 5.0])).astype(np.float32)
+    cases.append((tris, o))
+    sphere = procedural.make_uv_sphere(radius=1.0, rings=5, sectors=6)
+    cases.append((sphere, np.float32([[0, 0, 3.0]] * 8)))
+    for geometry, o in cases:
+        scene = types.with_clusters(types.make_scene(
+            geometry, types.Materials.default(1)), k=32)
+        grid = types.upload_scene(scene.clusters, cuda_device)
+        o_t = torch.from_numpy(o).to(cuda_device)
+        d_t = torch.tensor([0.0, 0.0, -1.0], device=cuda_device).expand(
+            len(o), 3).contiguous()
+        for any_hit in (False, True):
+            args, _ = blocktrace.block_inputs(grid, o_t, d_t, 1e-4, 1e30,
+                                              block=32, max_u=96,
+                                              chunk=chunk)
+            k = trace_blocks.trace_blocks(*args, t_min=1e-4, any_hit=any_hit,
+                                          chunk=chunk)
+            p = trace_blocks.trace_blocks_plain(*args, t_min=1e-4,
+                                                any_hit=any_hit, chunk=chunk)
+            if any_hit:
+                assert torch.equal(k, p) and bool(k.reshape(-1)[:len(o)].all())
+            else:
+                assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                assert bool((k[1].reshape(-1)[:len(o)] >= 0).all())
+
+
+@pytest.mark.cuda
+def test_refit_clusters_k32_on_the_card(cuda_device):
+    """A refit step of a k = 32 grid on the card (vertex training) equals
+    the CPU's refit, and K1 on the refit grid equals its plain version."""
+    from physically_based_renderer_tpu_torch.accel.clusters import (
+        refit_clusters)
+    scene = types.with_clusters(procedural.make_helmet_class_scene(48, 48),
+                                k=32)
+    moved = dataclasses.replace(scene.geometry, positions=(
+        scene.geometry.positions * torch.tensor([1.2, 1.0, 0.8])
+        + torch.tensor([0.1, 0.0, -0.2])))
+    cpu = refit_clusters(scene.clusters, moved)
+    card = refit_clusters(types.upload_scene(scene.clusters, cuda_device),
+                          types.upload_scene(moved, cuda_device))
+    for f in ("aabb_min", "aabb_max", "parent_min", "parent_max", "soup"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    o, d, _ = _sphere_rays(20_011, 21, cuda_device)
+    args, _ = blocktrace.block_inputs(card, o, d, 1e-3, 1e30, chunk=16)
+    k = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=False, chunk=16)
+    p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3, any_hit=False,
+                                        chunk=16)
+    _assert_closest_agrees(k, p)
