@@ -107,6 +107,19 @@ of which raises on failure (an uncaught exception exits non-zero):
      K = 128 grid; then `helmet_proc` at K = 32 with chunk 16 and max_u 96
      (tools/prof_k32.py's settings) through phase 4's K1 checks, every
      winner equal;
+ 16. (after 15) cluster grids without parent boxes, as the reference
+     allows (phase A's flat top-k over all C clusters): `helmet` at K =
+     128 (1,024 clusters) and k = 32 (4,096), parents set to None; on
+     phase 15's 262,144 camera rays phase A's selection flat beside
+     hierarchical (CUDA events; candidates a block, blocks whose lists
+     differ); K1 on the flat lists of the camera closest-hit, env shadow
+     and emitter shadow calls, equal to its plain version on every winner,
+     t and mask, timed beside its work-counted bound and phase 15's K1 on
+     the parented lists; one `helmet` frame at K = 128 without parents
+     (40 K1 + 184 K5a, counts reset just before it) beside the parented
+     frame at the same key (pixels that differ, ray counts: printed, not
+     held); then tools/dryrun.py::entry() cold and warm (5 K2 + 5 K5a
+     each), its image against tests/data/entry_cornell_64_golden.npy;
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -222,6 +235,7 @@ HELMET_GOLDEN = ROOT / "tests" / "data" / "helmet_proc_32_golden.npy"
 HELMET_GLB_GOLDEN = ROOT / "tests" / "data" / "helmet_32_golden.npy"
 FUSED_GOLDEN = ROOT / "tests" / "data" / "cornell_ggx_fused_64_golden.npy"
 GRAD_GOLDEN = ROOT / "tests" / "data" / "cornell_grad_64_golden.npz"
+ENTRY_GOLDEN = ROOT / "tests" / "data" / "entry_cornell_64_golden.npy"
 
 # Full-size film means: the CPU port renders cornell at 0.1577-0.1596 on
 # the dense path and 0.15309 / 0.15847 through K4's plain version (64x64 /
@@ -304,6 +318,13 @@ MODULE_LAUNCHES = {
 # CLI, so no K3): the helmet CLI frame's 40 K1 and 184 K5a.
 K32_LAUNCHES = {"fused": 0, "resident": 0, "trace_blocks": 40, "tonemap": 0,
                 "gather_fwd": 184, "gather_bwd": 0}
+# Phase 16's helmet frame at K = 128 without parent boxes, through
+# render_with_stats: the same 40 K1 and 184 K5a.  entry(): one sample of
+# the dense cornell path at 2 bounces, 3 closest + 2 shadow K2 queries and
+# 3 tri_attrs + 2 emitter rows of K5a.
+PARENTLESS_LAUNCHES = K32_LAUNCHES
+ENTRY_LAUNCHES = {"fused": 0, "resident": 5, "trace_blocks": 0, "tonemap": 0,
+                  "gather_fwd": 5, "gather_bwd": 0}
 # The bvh frame at 1 spp x 3 bounces is held per pixel to the exact
 # brute-force tracer on this band of rows (first row, rows) at the same
 # key: brute force over the whole frame would take minutes.  Against the
@@ -2876,6 +2897,56 @@ def phase_sharded(dev, tmp, counters):
     return out
 
 
+def helmet_trace_calls(scene, cam, cfg, dev):
+    """Phase 15's trace calls on `helmet` (262,144 rays each): 512x512
+    morton camera rays (as phase_k1), env and emitter shadow rays and
+    bounce rays from the scene's camera hits.  ({label: (o, d, t_min,
+    t_max, sort, any_hit)}, the ray count)."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import morton
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.core.camera import (
+        generate_rays_at)
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.integrator.shading import (
+        shade_surface)
+    from physically_based_renderer_tpu_torch.models import lights
+
+    rng = np.random.default_rng(2)
+    w, h = cfg.width, cfg.height
+    pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
+    keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
+    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
+    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
+                                    (pix // w).float(), jit)
+    n = o_cam.shape[0]
+    hit = path.closest_hit(scene, o_cam, d_cam, 0.0, cfg)
+    active = ~hit.miss
+    sp = shade_surface(scene, hit, o_cam, d_cam)
+    o_b = (sp.pos + sp.ng * cfg.ray_eps).contiguous()
+    u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
+    es = lights.sample_env(scene, n, u2)
+    t_sh = torch.where(active & es.valid, es.dist * (1.0 - 1e-3), 0.0)
+    u3 = torch.from_numpy(rng.random((n, 3)).astype(np.float32)).to(dev)
+    ls = lights.sample_area_emitters(scene, sp.pos, u3[:, 0], u3[:, 1:],
+                                     emitter_attrs=lights.pack_emitter_attrs(
+                                         scene))
+    t_em = torch.where(active & ls.valid, ls.dist * (1.0 - 1e-3), 0.0)
+    jitter = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(n, 3)).astype(np.float32)).to(dev), dim=-1)
+    d_bounce = torch.nn.functional.normalize(sp.ng + jitter, dim=-1)
+    calls = {"camera closest": (o_cam, d_cam, 0.0, 1e30, False, False),
+             "env shadow any-hit": (o_b, es.wi, cfg.ray_eps, t_sh, True,
+                                    True),
+             "emitter shadow any-hit": (o_b, ls.wi, cfg.ray_eps, t_em, True,
+                                        True),
+             "bounce closest": (o_b, d_bounce, 1e-3,
+                                torch.where(active, 1e30, 0.0), True, False)}
+    return calls, n
+
+
 def phase_k32(dev, counters):
     """Phase 15: the k = 32 sub-cluster route.  `helmet` built with
     SceneSpec.cluster_k = 32 (set-up timed: the cluster builder and the
@@ -2892,14 +2963,8 @@ def phase_k32(dev, counters):
     import numpy as np
     import torch
 
-    from physically_based_renderer_tpu_torch.core import morton
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
-    from physically_based_renderer_tpu_torch.core.camera import (
-        generate_rays_at)
     from physically_based_renderer_tpu_torch.integrator import path
-    from physically_based_renderer_tpu_torch.integrator.shading import (
-        shade_surface)
-    from physically_based_renderer_tpu_torch.models import lights
     from physically_based_renderer_tpu_torch.ops import blocktrace, traverse
     from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
     from physically_based_renderer_tpu_torch.scene import types
@@ -2977,38 +3042,7 @@ def phase_k32(dev, counters):
               f"{st['seconds']:.3f} s")
     del bvh_scene
 
-    # The timed calls: 512x512 morton camera rays (as phase_k1), env and
-    # emitter shadow rays from the k=32 camera hits.
-    rng = np.random.default_rng(2)
-    w, h = cfg.width, cfg.height
-    pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
-    keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
-    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
-                                    (pix // w).float(), jit)
-    n = o_cam.shape[0]
-    hit = path.closest_hit(scene, o_cam, d_cam, 0.0, cfg)
-    active = ~hit.miss
-    sp = shade_surface(scene, hit, o_cam, d_cam)
-    o_b = (sp.pos + sp.ng * cfg.ray_eps).contiguous()
-    u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32)).to(dev)
-    es = lights.sample_env(scene, n, u2)
-    t_sh = torch.where(active & es.valid, es.dist * (1.0 - 1e-3), 0.0)
-    u3 = torch.from_numpy(rng.random((n, 3)).astype(np.float32)).to(dev)
-    ls = lights.sample_area_emitters(scene, sp.pos, u3[:, 0], u3[:, 1:],
-                                     emitter_attrs=lights.pack_emitter_attrs(
-                                         scene))
-    t_em = torch.where(active & ls.valid, ls.dist * (1.0 - 1e-3), 0.0)
-    jitter = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
-        size=(n, 3)).astype(np.float32)).to(dev), dim=-1)
-    d_bounce = torch.nn.functional.normalize(sp.ng + jitter, dim=-1)
-    calls = {"camera closest": (o_cam, d_cam, 0.0, 1e30, False, False),
-             "env shadow any-hit": (o_b, es.wi, cfg.ray_eps, t_sh, True,
-                                    True),
-             "emitter shadow any-hit": (o_b, ls.wi, cfg.ray_eps, t_em, True,
-                                        True),
-             "bounce closest": (o_b, d_bounce, 1e-3,
-                                torch.where(active, 1e30, 0.0), True, False)}
+    calls, n = helmet_trace_calls(scene, cam, cfg, dev)
     timed = ("camera closest", "env shadow any-hit", "emitter shadow any-hit")
     out["calls"] = {}
     for k, g in ((32, grid), (128, scene128.clusters)):
@@ -3048,7 +3082,8 @@ def phase_k32(dev, counters):
         out[f"k{k}_winner_mismatches"] = st.mismatch
         out[f"k{k}_max_abs_err"] = st.max_abs_err
     plain_ms = time_ms(lambda: tb.trace_blocks_plain(
-        *blocktrace.block_inputs(grid, o_cam, d_cam, 0.0, 1e30,
+        *blocktrace.block_inputs(grid, *calls["camera closest"][:2], 0.0,
+                                 1e30,
                                  block=cfg.block_size, max_u=cfg.max_u,
                                  chunk=cfg.chunk)[0], t_min=0.0,
         any_hit=False, chunk=cfg.chunk), 3, warmup=1)
@@ -3070,6 +3105,291 @@ def phase_k32(dev, counters):
           f"{proc.bound[0]:.4f}), plain {proc_plain_ms:.4f} ms "
           f"[{card_line()}]")
     return out
+
+
+def lists_differ(u_a, u_b) -> int:
+    """The blocks whose candidate sets (rows of u_idx) differ."""
+    return int((u_a.sort(dim=1).values
+                != u_b.sort(dim=1).values).any(dim=1).sum())
+
+
+def permuted_grid(grid, seed: int):
+    """The grid with its clusters in a seeded random order (boxes, tri_id
+    and soup rows together, the sentinel last) and parents rebuilt over
+    that order."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.accel.clusters import (
+        ClusterGrid, _parent_boxes)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        grid.num_clusters)).to(grid.tri_id.device)
+    amin, amax = grid.aabb_min[perm], grid.aabb_max[perm]
+    pmin, pmax = _parent_boxes(amin, amax)
+    return ClusterGrid(aabb_min=amin, aabb_max=amax, tri_id=grid.tri_id[perm],
+                       parent_min=pmin, parent_max=pmax,
+                       soup=torch.cat([grid.soup[:-1][perm], grid.soup[-1:]]))
+
+
+def hold_k1(st, tag, kern, plain, any_hit, n):
+    """Hold a K1 call to its plain version on the first n lanes: every
+    winner, t and mask equal (TraceStats `st` records it)."""
+    import torch
+    torch.cuda.synchronize()
+    flat = lambda x: x.reshape(-1)[:n]
+    if any_hit:
+        st.any_hit(tag, flat(kern), flat(plain))
+    else:
+        st.closest(tag, (flat(kern[0]), flat(kern[1])),
+                   (flat(plain[0]), flat(plain[1])))
+    if st.mismatch:
+        raise AssertionError(f"{st.kernel} {tag}: {st.mismatch} winners "
+                             "differ from its plain version")
+
+
+def phase_parentless(dev, counters, k32):
+    """Phase 16: cluster grids without parent boxes (phase A's flat top-k
+    over all C clusters).  `helmet` at K = 128 (1,024 clusters) and at
+    k = 32 (4,096 sub-clusters), each with `parent_min = parent_max =
+    None`.  On phase 15's 262,144 camera rays: phase A's selection flat
+    beside hierarchical (CUDA events; candidates a block, blocks whose
+    lists differ), and the whole of phase A (`block_inputs`) both ways.  K1
+    on the flat lists of the camera closest-hit, env shadow and emitter
+    shadow calls, equal to its plain version on every winner, t and mask,
+    timed beside its work-counted bound and beside phase 15's K1 on the
+    parented lists of the same calls; the camera and env shadow calls on
+    the same grids with their clusters permuted (`permuted_grid`: lists
+    the parents do not select), K1 held to its plain version, the hits
+    through either selection.  Then one `helmet` frame at K = 128
+    without parents through render_with_stats at phase 15's key and config
+    (40 K1 + 184 K5a, counts reset just before it) beside the parented
+    frame: frame seconds, ray queries, film means and the pixels that
+    differ (measured, not held)."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.ops import blocktrace
+    from physically_based_renderer_tpu_torch.ops import trace_blocks as tb
+    from physically_based_renderer_tpu_torch.scene import types
+    from physically_based_renderer_tpu_torch.utils import config
+
+    bc = config.get("helmet")
+    cfg = bc.render
+    scene32, cam = config.build_scene(
+        dataclasses.replace(bc.scene, cluster_k=32), dev)
+    scenes = {128: types.with_clusters(scene32), 32: scene32}
+    calls, n = helmet_trace_calls(scene32, cam, cfg, dev)
+    timed = ("camera closest", "env shadow any-hit", "emitter shadow any-hit")
+    out = {"phase_a": {}, "calls": {}, "permuted": {}}
+    st = TraceStats("K1 flat")
+    for k, sc in scenes.items():
+        parented = sc.clusters
+        grid = dataclasses.replace(parented, parent_min=None,
+                                   parent_max=None)
+        c = grid.num_clusters
+        if grid.k != k or c <= 4 * cfg.max_u:
+            raise AssertionError(f"helmet k={k}: {c} clusters of {grid.k}")
+
+        # Phase A on the camera rays: the selection alone on the root-culled
+        # rays in blocks, and block_inputs whole, flat beside hierarchical.
+        o, d, t_min, t_max = calls["camera closest"][:4]
+        kw = dict(block=cfg.block_size, max_u=cfg.max_u, chunk=cfg.chunk)
+        args, _ = blocktrace.block_inputs(grid, o, d, t_min, t_max, **kw)
+        nb, blk = args[1].shape[:2]
+
+        def select(g, a=args):
+            return blocktrace._select_candidates(
+                g, a[1].reshape(-1, 3), a[2].reshape(-1, 3),
+                a[3].reshape(-1), nb, blk, t_min, cfg.max_u)
+
+        ways = {"flat": grid, "hierarchical": parented}
+        lists = {name: select(g) for name, g in ways.items()}
+        a_ms = {name: time_ms(lambda g=g: select(g), 20)
+                for name, g in ways.items()}
+        full_ms = {name: time_ms(lambda g=g: blocktrace.block_inputs(
+            g, o, d, t_min, t_max, **kw), 10) for name, g in ways.items()}
+        differ = lists_differ(lists["flat"][0], lists["hierarchical"][0])
+        counts = {name: lists[name][2].float() for name in lists}
+        st_a = {"clusters": c, "blocks": nb, "select_ms": a_ms,
+                "block_inputs_ms": full_ms, "blocks_lists_differ": differ,
+                "candidates_mean": {m: float(v.mean())
+                                    for m, v in counts.items()},
+                "candidates_min": {m: int(v.min()) for m, v in counts.items()},
+                "blocks_full": {m: int((v == cfg.max_u).sum())
+                                for m, v in counts.items()}}
+        out["phase_a"][f"k={k}"] = st_a
+        print(f"phase A helmet k={k} (C = {c}) on {n} camera rays, {nb} "
+              f"blocks of {blk}, max_u {cfg.max_u}: selection flat "
+              f"{a_ms['flat']:.4f} ms against hierarchical "
+              f"{a_ms['hierarchical']:.4f} ms "
+              f"({a_ms['flat'] / a_ms['hierarchical']:.2f}x); "
+              f"block_inputs flat {full_ms['flat']:.4f} ms against "
+              f"{full_ms['hierarchical']:.4f} ms; candidates a block flat "
+              f"mean {st_a['candidates_mean']['flat']:.2f} (min "
+              f"{st_a['candidates_min']['flat']}, "
+              f"{st_a['blocks_full']['flat']} blocks full), hierarchical mean "
+              f"{st_a['candidates_mean']['hierarchical']:.2f} (min "
+              f"{st_a['candidates_min']['hierarchical']}, "
+              f"{st_a['blocks_full']['hierarchical']} blocks full); "
+              f"{differ} of {nb} blocks' lists differ [{card_line()}]")
+
+        # K1 on the flat lists, each call held to its plain version.
+        tri_id = grid.tri_id.to(dev)
+        for label in timed:
+            o, d, t_min, t_max, sort, any_hit = calls[label]
+            args, _ = blocktrace.block_inputs(grid, o, d, t_min, t_max,
+                                              sort=sort, **kw)
+            hier_args, _ = blocktrace.block_inputs(parented, o, d, t_min,
+                                                   t_max, sort=sort, **kw)
+            differ = lists_differ(args[0], hier_args[0])
+            kern = tb.trace_blocks(*args, t_min=t_min, any_hit=any_hit,
+                                   chunk=cfg.chunk)
+            hold_k1(st, f"k={k} {label}", kern,
+                    tb.trace_blocks_plain(*args, t_min=t_min,
+                                          any_hit=any_hit, chunk=cfg.chunk),
+                    any_hit, n)
+            cs = k1_call_stats(args, t_min, any_hit, cfg.chunk, tri_id)
+            cs["valid_mean"] = float(args[5].float().mean())
+            cs["blocks_lists_differ"] = differ
+            hier = k32["calls"][f"k={k} {label}"]
+            cs["parented_ms"] = hier["ms"]
+            cs["parented_bound_ms"] = hier["bound_ms"]
+            out["calls"][f"k={k} {label}"] = cs
+            print(f"K1 helmet k={k} flat lists B={cs['block']} "
+                  f"chunk={cs['chunk']} {label} ({cs['lanes']} lanes, "
+                  f"{cs['candidates']} candidates a block, "
+                  f"{cs['valid_mean']:.2f} valid on average; {differ} of "
+                  f"{args[0].shape[0]} blocks' lists differ from the "
+                  f"parented grid's): device "
+                  f"{cs['ms']:.4f} ms, wrapper {cs['wrapper_ms']:.4f} ms, "
+                  f"bound {cs['bound_ms']:.4f} ms ({cs['bound_by']}; "
+                  f"{cs['tests']} tests needed, {cs['clusters_read']} "
+                  f"clusters read), {cs['tests_per_s']:.4g} tests/s, "
+                  f"{cs['ratio_to_bound']:.2f}x the bound; parented lists "
+                  f"(phase 15) {hier['ms']:.4f} ms, bound "
+                  f"{hier['bound_ms']:.4f} ms [{card_line()}]")
+
+        # The same grid with its clusters permuted: each parent box spans
+        # the scene, so the flat lists are ones the parents do not select.
+        # K1 on them held to its plain version; the hits each selection
+        # finds.
+        perm_p = permuted_grid(parented, 0)
+        perm = dataclasses.replace(perm_p, parent_min=None, parent_max=None)
+        for label in ("camera closest", "env shadow any-hit"):
+            o, d, t_min, t_max, sort, any_hit = calls[label]
+            lists, hits = {}, {}
+            for name, g in (("flat", perm), ("hierarchical", perm_p)):
+                args, _ = blocktrace.block_inputs(g, o, d, t_min, t_max,
+                                                  sort=sort, **kw)
+                kern = tb.trace_blocks(*args, t_min=t_min, any_hit=any_hit,
+                                       chunk=cfg.chunk)
+                lists[name] = args[0]
+                hits[name] = int((kern if any_hit else kern[1] >= 0).sum())
+                if name == "flat":
+                    hold_k1(st, f"k={k} permuted {label}", kern,
+                            tb.trace_blocks_plain(*args, t_min=t_min,
+                                                  any_hit=any_hit,
+                                                  chunk=cfg.chunk),
+                            any_hit, n)
+            differ = lists_differ(lists["flat"], lists["hierarchical"])
+            out["permuted"][f"k={k} {label}"] = {
+                "blocks_lists_differ": differ, "hits": hits}
+            print(f"K1 helmet k={k} permuted clusters {label}: {differ} of "
+                  f"{lists['flat'].shape[0]} blocks' lists differ; "
+                  f"{hits['flat']} rays hit through the flat lists, "
+                  f"{hits['hierarchical']} through the parents")
+    out["rays_compared"] = st.rays
+    out["winner_mismatches"] = st.mismatch
+    out["max_abs_err"] = st.max_abs_err
+
+    # One helmet frame at K = 128 without parents beside the parented one.
+    def frame(sc):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film, count = path.render_with_stats(sc, cam, rng_mod.key(0, dev),
+                                             cfg)
+        img = film.mean().cpu().numpy()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(
+                img).all():
+            raise AssertionError(f"helmet frame: shape {img.shape}, finite "
+                                 f"{bool(np.isfinite(img).all())}")
+        return img, {"seconds": dt, "rays": int(count),
+                     "rays_per_s": int(count) / dt,
+                     "film_mean": float(img.mean()), "launches": got}
+
+    sc = scenes[128]
+    img_p, parented = frame(sc)
+    img, flat_run = frame(dataclasses.replace(sc, clusters=dataclasses.replace(
+        sc.clusters, parent_min=None, parent_max=None)))
+    if flat_run["launches"] != PARENTLESS_LAUNCHES:
+        raise AssertionError(f"parent-less helmet launches "
+                             f"{flat_run['launches']}, expected "
+                             f"{PARENTLESS_LAUNCHES}")
+    frac, n_bad = render_agreement(img, img_p)
+    out["frame"] = {**flat_run, "parented": parented, "pixels_differ": n_bad,
+                    "pixel_frac": frac,
+                    "rays_diff": flat_run["rays"] - parented["rays"]}
+    print(f"helmet k=128 without parents {cfg.width}x{cfg.height} x "
+          f"{cfg.spp} spp x "
+          f"{cfg.max_bounces} bounces: {flat_run['seconds']:.3f} s, "
+          f"{flat_run['rays']} ray queries, film mean "
+          f"{flat_run['film_mean']:.5f}, launches {flat_run['launches']}; "
+          f"the parented frame at the same key {parented['seconds']:.3f} s, "
+          f"{parented['rays']} ray queries (diff {out['frame']['rays_diff']}"
+          f"), film mean {parented['film_mean']:.5f}; {n_bad} of "
+          f"{img.shape[0] * img.shape[1]} pixels differ [{card_line()}]")
+    return out
+
+
+def phase_entry(counters):
+    """Phase 16b: tools/dryrun.py::entry(), the single-card forward check
+    (the Cornell box at 64x64 x 1 spp x 2 bounces through render_sample),
+    cold and warm, each with the counts reset just before it (5 K2 + 5
+    K5a); its image held per pixel to the reference's
+    (tests/data/entry_cornell_64_golden.npy)."""
+    import numpy as np
+    import torch
+
+    from physically_based_renderer_tpu_torch.tools import dryrun
+
+    fn, args = dryrun.entry()
+    if args[0].device.type != "cuda":
+        raise AssertionError(f"entry() ran on {args[0].device}")
+    runs = {}
+    for run in ("cold", "warm"):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        img = out.cpu().numpy()
+        dt = time.perf_counter() - t0
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        if got != ENTRY_LAUNCHES:
+            raise AssertionError(f"entry() {run} launches {got}, expected "
+                                 f"{ENTRY_LAUNCHES}")
+        runs[run] = {"seconds": dt, "launches": got}
+    ref = np.load(ENTRY_GOLDEN)
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        raise AssertionError(f"entry() image {img.shape}, finite "
+                             f"{bool(np.isfinite(img).all())}")
+    frac, n_bad = render_agreement(img, ref)
+    mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+    print(f"entry forward: {tuple(out.shape)} {float(out.mean())}; cold "
+          f"{runs['cold']['seconds']:.4f} s, warm "
+          f"{runs['warm']['seconds']:.4f} s, launches {runs['warm']['launches']}; golden {frac:.4%} pixels "
+          f"agree ({n_bad} differ), mean rel diff {mean_rel:.3g} "
+          f"[{card_line()}]")
+    if frac < PIXEL_FRAC or mean_rel > MEAN_REL:
+        raise AssertionError("entry() disagrees with the reference's golden")
+    return {**runs, "shape": list(out.shape), "mean": float(out.mean()),
+            "pixel_frac": frac, "pixels_differ": n_bad, "mean_rel": mean_rel}
 
 
 def phase_profile_frame(dev, name):
@@ -3537,6 +3857,15 @@ def main() -> int:
         for k in launches:
             launches[k]["helmet_k32"] = k32["cold"]["launches"][k]
 
+        # 16. grids without parent boxes (phase A's flat top-k), and
+        # tools/dryrun.py::entry
+        parentless = phase_parentless(dev, counters, k32)
+        entry_run = phase_entry(counters)
+        for k in launches:
+            launches[k]["helmet_parentless"] = (
+                parentless["frame"]["launches"][k])
+            launches[k]["entry"] = entry_run["warm"]["launches"][k]
+
         # 6b. a .glb by path, a truncated one, the report CLI
         by_path = phase_glb_path(dev, tmp, counters)
         report = phase_report(tmp)
@@ -3604,12 +3933,19 @@ def main() -> int:
               k3["max_abs_err"], k3_ms, k3["wrapper_ms"], k3_plain_ms,
               k3["bound"], None),
         {**entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
-                 max(k1.max_abs_err, k32["k32_max_abs_err"]), k1_ms,
+                 max(k1.max_abs_err, k32["k32_max_abs_err"],
+                     parentless["max_abs_err"]), k1_ms,
                  k1.wrapper_ms, k1_plain_ms, k1.bound, None),
          "k32_camera_ms": k32["calls"]["k=32 camera closest"]["ms"],
          "k32_camera_bound_ms": k32["calls"]["k=32 camera closest"][
              "bound_ms"],
-         "k32_camera_plain_ms": k32["camera_plain_ms"]},
+         "k32_camera_plain_ms": k32["camera_plain_ms"],
+         "flat_lists_camera_ms": {
+             k: parentless["calls"][f"{k} camera closest"]["ms"]
+             for k in ("k=128", "k=32")},
+         "flat_lists_camera_bound_ms": {
+             k: parentless["calls"][f"{k} camera closest"]["bound_ms"]
+             for k in ("k=128", "k=32")}},
         entry("fused", "fused.cu", "ops/fused.py:402", k4["max_abs_err"],
               k4_ms, k4["wrapper_ms"], k4_plain_ms, k4["bound"], None),
         entry("gather_fwd", "gather.cu", "ops/gather.py:47",
@@ -3697,7 +4033,8 @@ def main() -> int:
         "probes_p5_p8": mosaic_times, "sharded": sharded,
         "profiled_frames": frames,
         "main_paths": runs, "routes": routes, "goldens": goldens,
-        "modules": modules, "k32": k32,
+        "modules": modules, "k32": k32, "parentless": parentless,
+        "entry": entry_run,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,

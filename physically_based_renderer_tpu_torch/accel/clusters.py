@@ -42,8 +42,11 @@ class ClusterGrid:
     aabb_min: torch.Tensor     # f32[C, 3]
     aabb_max: torch.Tensor     # f32[C, 3]
     tri_id: torch.Tensor       # i32[C, K] original triangle ids (-1 = pad)
-    parent_min: torch.Tensor   # f32[ceil(C/4), 3] boxes over 4 clusters
-    parent_max: torch.Tensor   # f32[ceil(C/4), 3]
+    # Boxes over groups of 4 consecutive clusters, for phase A's
+    # hierarchical selection; a grid without them (the reference allows
+    # one) takes the flat top-k over all C clusters.
+    parent_min: torch.Tensor | None = None  # f32[ceil(C/4), 3]
+    parent_max: torch.Tensor | None = None  # f32[ceil(C/4), 3]
     soup: torch.Tensor | None = None  # f32[C+1, 9, K] detached soup
 
     @property
@@ -168,8 +171,9 @@ def pack_soup_host(grid: ClusterGrid, positions,
 
 
 def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
-    """Recompute the cluster boxes, parent boxes and packed soup from the
-    current vertex positions (detached), keeping the triangle partition.
+    """Recompute the cluster boxes, the parent boxes (where the grid has
+    them) and the packed soup from the current vertex positions (detached),
+    keeping the triangle partition.
 
     The inverse-rendering step calls this when vertex positions are trained
     (grad/inverse.py), so a moving mesh never escapes its boxes; boxes grow
@@ -188,6 +192,8 @@ def refit_clusters(grid: ClusterGrid, geometry) -> ClusterGrid:
     amin = torch.where(pad, 3e30, lo3).amin(dim=1)          # [C, 3]
     amax = torch.where(pad, -3e30, hi3).amax(dim=1)
     soup = None if grid.soup is None else _pack_soup(v0, e1, e2)
-    pmin, pmax = _parent_boxes(amin, amax)
+    pmin = pmax = None
+    if grid.parent_min is not None:
+        pmin, pmax = _parent_boxes(amin, amax)
     return dataclasses.replace(grid, aabb_min=amin, aabb_max=amax,
                                parent_min=pmin, parent_max=pmax, soup=soup)

@@ -140,9 +140,10 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
 
     Returns (u_idx i32[NB, U] with the sentinel C in invalid slots,
     u_entry f32[NB, U] (BIG for invalid), n_valid i32[NB], and the blocked
-    rays ob/db f32[NB, B, 3], tmb f32[NB, B]).  Grids of more than
-    4 * max_u clusters select max(max_u // 2, 8) parents first and slab
-    their 4 children each."""
+    rays ob/db f32[NB, B, 3], tmb f32[NB, B]).  Grids with parent boxes
+    and more than 4 * max_u clusters select max(max_u // 2, 8) parents
+    first and slab their 4 children each; other grids take the flat top-k
+    over all C clusters."""
     c = grid.num_clusters
     ob = o_s.reshape(nb, b, 3)
     db = d_s.reshape(nb, b, 3)
@@ -156,7 +157,7 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
     tm_hi = tmb.max(dim=1).values
     neg_inf = float("-inf")
 
-    if c > 4 * max_u:
+    if grid.parent_min is not None and c > 4 * max_u:
         n_par = grid.parent_min.shape[0]
         ov_p, en_p = _interval_slab(grid.parent_min, grid.parent_max, o_lo,
                                     o_hi, iv_lo, iv_hi, t_min, tm_hi)

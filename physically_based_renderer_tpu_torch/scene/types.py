@@ -466,7 +466,8 @@ def scene_from_numpy(arrays: Mapping[str, Any], device=None) -> Scene:
     "clusters" mapping carries the reference's cluster grid; its soup
     becomes the port's f32[C+1, 9, K]: the zero rows beyond the first 9
     (TPU DMA alignment) are dropped, and a k = 32 grid's lane-group
-    variants (`accel.clusters.pack_soup32`) are unpacked.
+    variants (`accel.clusters.pack_soup32`) are unpacked, and a grid whose
+    parent boxes are missing or None keeps none (phase A's flat top-k).
     """
     flags = arrays["flags"]
     grid = arrays.get("clusters")
@@ -477,10 +478,11 @@ def scene_from_numpy(arrays: Mapping[str, Any], device=None) -> Scene:
             soup = (unpack_soup32(_f32(soup)) if tri_id.shape[1] == 32
                     else _f32(np.ascontiguousarray(
                         np.asarray(soup)[:, :SOUP_ROWS])))
+        parents = {k: _f32(grid[k]) for k in ("parent_min", "parent_max")
+                   if grid.get(k) is not None}
         grid = ClusterGrid(
             aabb_min=_f32(grid["aabb_min"]), aabb_max=_f32(grid["aabb_max"]),
-            tri_id=tri_id, parent_min=_f32(grid["parent_min"]),
-            parent_max=_f32(grid["parent_max"]), soup=soup)
+            tri_id=tri_id, soup=soup, **parents)
     scene = Scene(
         geometry=_record(Geometry, arrays["geometry"]),
         materials=_record(Materials, arrays["materials"]),

@@ -1,6 +1,10 @@
-"""Multi-rank dry run of the port (the counterpart of the reference's
-`__graft_entry__.py::dryrun_multichip`): one step of each collective path
-on tiny shapes, on every rank of a world of n ranks.
+"""The single-card forward check and the multi-rank dry run of the port
+(the counterparts of the reference's `__graft_entry__.py::entry` and
+`dryrun_multichip`).
+
+`entry()` returns a forward render step of the Cornell box and its
+arguments.  The dry run takes one step of each collective path on tiny
+shapes, on every rank of a world of n ranks:
 
     python -m physically_based_renderer_tpu_torch.tools.dryrun --ranks 4 \
         --device cpu
@@ -14,8 +18,9 @@ on tiny shapes, on every rank of a world of n ranks.
   3. a sharded render through the ring ray exchange on the block tracer.
 
 Run plainly it starts the ranks itself (gloo with `--device cpu`, NCCL
-with one GPU a rank on `cuda`; more ranks than GPUs exits 2); rank 0
-prints one line.
+with one GPU a rank on `cuda`; more ranks than GPUs exits 2).  Rank 0 runs
+`entry()` on its device and prints its image's shape and mean, then the dry
+run's line.
 """
 
 from __future__ import annotations
@@ -26,6 +31,36 @@ import math
 import sys
 
 import torch
+
+
+def entry(device=None):
+    """(fn, args): one forward sample of the Cornell box at 64x64 x 1 spp x
+    2 bounces through `render_sample` (the dense path; 32 triangles, so the
+    resident tracer), with the reference's camera and key 0.  `fn(*args)`
+    is the radiance f32[64, 64, 3].  On the card unless `device` says
+    otherwise: with no CUDA device and no `device`, it raises."""
+    from ..core import rng
+    from ..core.camera import Camera
+    from ..integrator.path import RenderConfig, render_sample
+    from ..scene.procedural import make_cornell_box
+    from ..scene.types import upload_scene
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('entry() runs on the card and CUDA is not '
+                               'available; pass device="cpu" for the CPU')
+        device = "cuda"
+    device = torch.device(device)
+    cfg = RenderConfig(width=64, height=64, spp=1, max_bounces=2)
+    scene = upload_scene(make_cornell_box(), device)
+    camera = Camera.make(position=(0.0, 1.0, 3.9), target=(0.0, 1.0, 0.0),
+                         fov_y=0.95, device=device)
+    key = rng.key(0, device)
+
+    def fn(scene, camera, key):
+        return render_sample(scene, camera, key, cfg)
+
+    return fn, (scene, camera, key)
 
 
 def dryrun() -> dict:
@@ -104,6 +139,11 @@ def main(argv=None) -> int:
     if rc is not None:
         return rc
     import torch.distributed as dist
+    if dist.get_rank() == 0:
+        fn, args = entry(distributed.rank_device())
+        out = fn(*args)
+        print("entry forward:", tuple(out.shape), float(out.mean()),
+              flush=True)
     res = dryrun()
     if dist.get_rank() == 0:
         print(f"dryrun({res['ranks']}): loss={res['loss']:.6f} "

@@ -2,7 +2,7 @@
 
     JAX_PLATFORMS=cpu python tests/data/make_torch_golden.py \
         [cornell|helmet_proc|helmet|cornell_ggx_fused|cornell_grad|
-         cornell_bp|helmet_bp]
+         cornell_bp|helmet_bp|entry]
 
 Renders with the JAX package on the CPU and saves the mean HDR image:
 
@@ -37,9 +37,13 @@ Renders with the JAX package on the CPU and saves the mean HDR image:
     path) of the `cornell` config at 64x64 and of the `helmet` config at
     full geometry at 32x32 (the asset authored into a temporary
     directory), f32[S, S, 3] in tests/data/cornell_bp_64_golden.npy and
-    tests/data/helmet_bp_32_golden.npy.
+    tests/data/helmet_bp_32_golden.npy;
+  * entry: the output of the reference's single-chip check,
+    `__graft_entry__.py::entry()` (the Cornell box at 64x64, 1 spp, 2
+    bounces through `render_sample`, key 0), jitted, f32[64, 64, 3] in
+    tests/data/entry_cornell_64_golden.npy.
 
-With no argument it writes all seven.  `chip_smoke.py` compares the port's
+With no argument it writes all eight.  `chip_smoke.py` compares the port's
 GPU renders and gradients with them using numpy alone;
 tests/test_torch_render.py checks that the committed image files still
 match fresh renders, tests/test_torch_grad.py holds the port's CPU
@@ -69,6 +73,9 @@ BLINN_PHONG = {"cornell_bp": dict(config="cornell", size=64,
                                   path=HERE / "cornell_bp_64_golden.npy"),
                "helmet_bp": dict(config="helmet", size=32,
                                  path=HERE / "helmet_bp_32_golden.npy")}
+
+# The golden of the reference's `__graft_entry__.py::entry()`.
+ENTRY = HERE / "entry_cornell_64_golden.npy"
 
 # The fused golden: (config, size, spp, bounces, seed, path).
 FUSED = dict(config="cornell_ggx", size=64, spp=2, bounces=2, seed=0,
@@ -179,6 +186,21 @@ def render_fused_golden() -> np.ndarray:
     return np.asarray(hdr, np.float32) / np.float32(f["spp"])
 
 
+def render_entry_golden() -> np.ndarray:
+    """The reference's `__graft_entry__.entry()` step, jitted, on the CPU."""
+    import importlib.util
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    spec = importlib.util.spec_from_file_location(
+        "graft_entry", HERE.parent.parent / "__graft_entry__.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fn, args = mod.entry()
+    return np.asarray(jax.jit(fn)(*args), np.float32)
+
+
 def grad_golden() -> dict:
     """The gradient golden's arrays (see the module docstring)."""
     import jax
@@ -220,7 +242,8 @@ def grad_golden() -> dict:
 def main(argv) -> int:
     sys.path.insert(0, str(HERE.parent.parent))
     which = argv[1:] or ["cornell", "helmet_proc", "helmet",
-                         "cornell_ggx_fused", "cornell_grad", *BLINN_PHONG]
+                         "cornell_ggx_fused", "cornell_grad", *BLINN_PHONG,
+                         "entry"]
     for name in which:
         if name in BLINN_PHONG:
             img = render_blinn_phong_golden(name)
@@ -239,7 +262,8 @@ def main(argv) -> int:
                         "helmet": (render_helmet_glb_golden,
                                    HELMET_GLB["path"]),
                         "cornell_ggx_fused": (render_fused_golden,
-                                              FUSED["path"])}[name]
+                                              FUSED["path"]),
+                        "entry": (render_entry_golden, ENTRY)}[name]
         img = render()
         np.save(path, img)
         print(f"wrote {path} {img.shape} mean {img.mean():.6f}")

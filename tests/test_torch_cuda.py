@@ -1206,3 +1206,82 @@ def test_refit_clusters_k32_on_the_card(cuda_device):
     p = trace_blocks.trace_blocks_plain(*args, t_min=1e-3, any_hit=False,
                                         chunk=16)
     _assert_closest_agrees(k, p)
+
+
+def _permuted(grid, seed):
+    """The grid with its clusters in a seeded random order (boxes, tri_id
+    and soup rows together, the sentinel last) and parents rebuilt over
+    that order: each parent box then spans the scene, so the hierarchical
+    selection and the flat one pick different candidates."""
+    from physically_based_renderer_tpu_torch.accel.clusters import (
+        ClusterGrid, _parent_boxes)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        grid.num_clusters)).to(grid.tri_id.device)
+    amin, amax = grid.aabb_min[perm], grid.aabb_max[perm]
+    pmin, pmax = _parent_boxes(amin, amax)
+    return ClusterGrid(aabb_min=amin, aabb_max=amax, tri_id=grid.tri_id[perm],
+                       parent_min=pmin, parent_max=pmax,
+                       soup=torch.cat([grid.soup[:-1][perm], grid.soup[-1:]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, 128])
+def test_k1_kernel_matches_plain_on_flat_lists(cuda_device, helmet_k32, k):
+    """K1 on the candidate lists of a grid without parent boxes (phase A's
+    flat top-k over all C clusters): the helmet at k = 32 (4,096
+    sub-clusters) and at K = 128 (1,024), its clusters permuted so that the
+    flat lists are not the ones the parents select, at the config's block,
+    max_u and chunk, closest and any hit, on the config camera's rays at
+    160x125 (coherent blocks, a ragged count)."""
+    from physically_based_renderer_tpu_torch.core.camera import (
+        generate_rays_flat)
+    bc, (scene, cam) = helmet_k32
+    if k == 128:
+        scene = types.with_clusters(scene)
+    parented = _permuted(types.upload_scene(scene.clusters, cuda_device), 0)
+    grid = dataclasses.replace(parented, parent_min=None, parent_max=None)
+    assert grid.k == k and grid.num_clusters > 4 * bc.render.max_u
+    o, d = generate_rays_flat(types.upload_scene(cam, cuda_device), 160, 125)
+    o = o.contiguous()
+    kw = dict(sort=True, block=bc.render.block_size, max_u=bc.render.max_u,
+              chunk=bc.render.chunk)
+    for any_hit in (False, True):
+        args, _ = blocktrace.block_inputs(grid, o, d, 1e-3, **kw)
+        hier, _ = blocktrace.block_inputs(parented, o, d, 1e-3, **kw)
+        assert not torch.equal(args[0], hier[0])
+        before = trace_blocks.LAUNCHES
+        got = trace_blocks.trace_blocks(*args, t_min=1e-3, any_hit=any_hit,
+                                        chunk=bc.render.chunk)
+        torch.cuda.synchronize()
+        assert trace_blocks.LAUNCHES == before + 1
+        plain = trace_blocks.trace_blocks_plain(
+            *args, t_min=1e-3, any_hit=any_hit, chunk=bc.render.chunk)
+        if any_hit:
+            assert torch.equal(got, plain)
+            assert 0 < int(got.sum()) < got.numel()
+        else:
+            _assert_closest_agrees(got, plain)
+            assert 0 < int((got[1] >= 0).sum()) < got[1].numel()
+
+
+@pytest.mark.cuda
+def test_entry_on_the_card_matches_the_golden(cuda_device):
+    """tools/dryrun.py::entry() runs on the card by default: 5 K2 and 5 K5a
+    launches (3 closest-hit and 2 shadow traces, 3 triangle-attribute and
+    2 emitter-row gathers), its image against the reference's
+    (tests/data/entry_cornell_64_golden.npy) within the whole-render
+    tolerance."""
+    from physically_based_renderer_tpu_torch.tools import dryrun
+    fn, args = dryrun.entry()
+    assert args[0].device.type == "cuda"
+    before = (resident.LAUNCHES, gather.LAUNCHES_FWD, fused.LAUNCHES)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert (resident.LAUNCHES - before[0], gather.LAUNCHES_FWD - before[1],
+            fused.LAUNCHES - before[2]) == (5, 5, 0)
+    ref = np.load(golden_module().ENTRY)
+    img = out.cpu().numpy()
+    assert img.shape == ref.shape and np.isfinite(img).all()
+    frac, _ = render_agreement(img, ref)
+    assert frac >= PIXEL_FRAC
+    assert abs(float(img.mean()) / float(ref.mean()) - 1.0) <= MEAN_REL

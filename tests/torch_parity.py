@@ -25,11 +25,12 @@ ATOL, RTOL, PIXEL_FRAC, MEAN_REL, COUNT_REL = 1e-4, 1e-3, 0.99, 5e-3, 5e-3
 
 
 def flat(obj) -> dict:
-    """A reference record's fields as numpy arrays (tuples kept)."""
+    """A reference record's fields as numpy arrays (tuples and None
+    kept)."""
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        out[f.name] = v if isinstance(v, tuple) else np.asarray(v)
+        out[f.name] = v if v is None or isinstance(v, tuple) else np.asarray(v)
     return out
 
 
