@@ -1,0 +1,10 @@
+"""step.forward_ms: host time a step in the span `pbr.step.forward`, the
+train step's loss: parameters applied, the render, the pixel loss
+(`grad/inverse.py::make_train_step`), over the traced stretch
+(harness/spans.py)."""
+
+from harness.spans import ms_per_unit
+
+
+def read(readings):
+    return ms_per_unit(readings.stretch, "pbr.step.forward")

@@ -1901,6 +1901,7 @@ def phase_profile(dev):
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
     from physically_based_renderer_tpu_torch.grad import inverse
     from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.tools import timing
     from physically_based_renderer_tpu_torch.utils import config
 
     c = GRAD_CLI
@@ -1924,8 +1925,7 @@ def phase_profile(dev):
         params, state, loss = step(params, state, rng_mod.key(2, dev), target)
         float(loss)
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = timing.kernels(prof.key_averages())
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
@@ -3401,6 +3401,7 @@ def phase_profile_frame(dev, name):
 
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
     from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.tools import timing
     from physically_based_renderer_tpu_torch.utils import config
 
     bc = config.get(name)
@@ -3419,8 +3420,7 @@ def phase_profile_frame(dev, name):
                              ProfilerActivity.CUDA]) as prof:
         wall, rays = frame()
     events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = timing.kernels(events)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     k1 = sum(e.self_device_time_total for e in kernels
              if "trace_blocks_kernel" in e.key) / 1e6
@@ -3484,6 +3484,7 @@ def phase_routes(dev, counters):
     from physically_based_renderer_tpu_torch.integrator import path
     from physically_based_renderer_tpu_torch.ops import traverse
     from physically_based_renderer_tpu_torch.scene import types
+    from physically_based_renderer_tpu_torch.tools import timing
     from physically_based_renderer_tpu_torch.utils import config
 
     def run(scene, cam, cfg):
@@ -3589,8 +3590,8 @@ def phase_routes(dev, counters):
                                  ProfilerActivity.CUDA]) as prof:
             wall, steps, n_hit = walk()
         events = prof.key_averages()
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        busy = sum(e.self_device_time_total
+                   for e in timing.kernels(events)) / 1e6
         launches = sum(e.count for e in events
                        if e.key.startswith(("cudaLaunch", "cuLaunch")))
         res = {"rays": w * h, "hits": n_hit, "steps": steps,

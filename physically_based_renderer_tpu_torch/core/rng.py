@@ -17,12 +17,16 @@ A key is an explicit uint32 pair carried in an int64 tensor [..., 2], each
 word masked to 32 bits (torch's uint32 arithmetic is thin).  There is no
 global generator.  On the card each threefry is about 170 elementwise
 launches, the largest share of a frame's time (PERF.md); a fused kernel
-for it is later work.
+for it is later work.  Under a profiler each call of `fold_in`, `split`,
+`ray_keys` or `ray_uniform` is the span `pbr.rng`; they reach one another
+through `_fold_in`, so the span never nests in itself.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import span
 
 # Stream ids: disjoint random streams per decision point within one bounce.
 STREAM_PIXEL_JITTER = 0
@@ -79,6 +83,11 @@ def _counts(data, like: torch.Tensor) -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """The reference's `fold_in` over a key batch [..., 2]; `data` is an int or
     an integer tensor broadcastable to the batch shape."""
+    with span("pbr.rng"):
+        return _fold_in(keys, data)
+
+
+def _fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     x1 = _counts(data, keys)
     w0, w1 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(x1), x1)
@@ -88,7 +97,9 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
 
 def split(k: torch.Tensor, num: int) -> torch.Tensor:
     """The reference's `split(k, num)` for one key -> int64[num, 2]."""
-    return fold_in(k, torch.arange(num, dtype=torch.int64, device=k.device))
+    with span("pbr.rng"):
+        return _fold_in(k, torch.arange(num, dtype=torch.int64,
+                                        device=k.device))
 
 
 def random_bits(keys: torch.Tensor, m: int) -> torch.Tensor:
@@ -148,11 +159,13 @@ def ray_keys(sample_key: torch.Tensor, pixel_ids: torch.Tensor) -> torch.Tensor:
     The key depends only on (frame, sample, pixel), so a pixel's random
     sequence is the same however rays are batched.
     """
-    return fold_in(sample_key, pixel_ids)
+    with span("pbr.rng"):
+        return _fold_in(sample_key, pixel_ids)
 
 
 def ray_uniform(keys: torch.Tensor, bounce: int, stream: int,
                 m: int) -> torch.Tensor:
     """m U[0,1) numbers per ray -> f32[N, m], from per-ray keys [N, 2]."""
-    k = fold_in(fold_in(keys, bounce), stream)
-    return bits_to_uniform(random_bits(k, m))
+    with span("pbr.rng"):
+        k = _fold_in(_fold_in(keys, bounce), stream)
+        return bits_to_uniform(random_bits(k, m))

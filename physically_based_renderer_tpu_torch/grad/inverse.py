@@ -32,6 +32,7 @@ from ..core import rng as rng_mod
 from ..core.camera import Camera
 from ..integrator.path import RenderConfig, render, render_band
 from ..scene.types import Scene
+from ..utils.profiling import span
 
 FIELDS = ("base_color_factor", "roughness_factor", "metallic_factor",
           "emissive_factor", "texture_data", "env_data", "vertex_positions")
@@ -172,12 +173,15 @@ def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
     def step(params: TrainableParams, opt_state, key, target):
         if opt_state is not None and opt_state is not last["state"]:
             optimizer.load_state_dict(opt_state)
-        optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss = loss_fn(params, key, target)
-            loss.backward()
-        optimizer.step()
-        last["state"] = optimizer.state_dict()
+        with span("pbr.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                with span("pbr.step.forward"):
+                    loss = loss_fn(params, key, target)
+                with span("pbr.step.backward"):
+                    loss.backward()
+            optimizer.step()
+            last["state"] = optimizer.state_dict()
         return params, last["state"], loss.detach()
 
     return step

@@ -48,6 +48,7 @@ from ..ops.intersect import BIG, Hit, intersect_brute, occluded_brute
 from ..ops.texture import build_pyramid
 from ..ops.traverse import intersect_bvh
 from ..scene.types import Scene
+from ..utils.profiling import span
 from .shading import pack_tri_attrs, shade_surface
 
 
@@ -479,10 +480,11 @@ def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
     On a CUDA scene that K4 takes, one K4 launch renders the frame: the
     same estimator with the fused kernel's murmur3 stream, so its image
     agrees with the dense one statistically, not pixel by pixel."""
-    if _use_fused(scene, cfg):
-        hdr, count = fused_mod.render_fused_stats(scene, camera, key, cfg)
-        return Film(hdr=hdr, spp=float(cfg.spp)), count
-    return _render_with_stats_dense(scene, camera, key, cfg)
+    with span("pbr.frame"):
+        if _use_fused(scene, cfg):
+            hdr, count = fused_mod.render_fused_stats(scene, camera, key, cfg)
+            return Film(hdr=hdr, spp=float(cfg.spp)), count
+        return _render_with_stats_dense(scene, camera, key, cfg)
 
 
 def _render_with_stats_dense(scene: Scene, camera: Camera, key: torch.Tensor,

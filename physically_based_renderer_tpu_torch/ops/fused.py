@@ -33,6 +33,7 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_lib
 
 BIG = 1e30
@@ -220,11 +221,15 @@ def fused_frame(scene, camera, key, cfg) -> FusedFrame:
     if not fused_applicable(scene, cfg):
         raise ValueError("scene/config not renderable by the fused kernel "
                          "(fused_applicable is False)")
-    mtex, quads = _pack_tex_tables(scene)
+    with span("pbr.k4.seeds"):
+        seeds = tuple(rng_mod.fold_in(key, 0x5EED).tolist())
+    with span("pbr.k4.pack"):
+        mtex, quads = _pack_tex_tables(scene)
+        cam = _pack_cam(scene, camera, cfg.width, cfg.height)
+        tri = _pack_tri_table(scene)
+        em = _pack_em_table(scene)
     return FusedFrame(
-        cam=_pack_cam(scene, camera, cfg.width, cfg.height),
-        seeds=tuple(rng_mod.fold_in(key, 0x5EED).tolist()),
-        tri=_pack_tri_table(scene), em=_pack_em_table(scene), mtex=mtex,
+        cam=cam, seeds=seeds, tri=tri, em=em, mtex=mtex,
         quads=quads, width=cfg.width, height=cfg.height, spp=cfg.spp,
         max_bounces=cfg.max_bounces, eps=float(cfg.ray_eps),
         has_em=scene.has_emitters, has_dir=scene.has_directional,

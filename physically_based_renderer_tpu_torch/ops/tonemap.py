@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core.tonemap import ACES_INPUT, ACES_OUTPUT, mix3, rrt_and_odt_fit
+from ..utils.profiling import span
 from . import cuda_lib
 
 # Kernel launches since the last reset (incremented once per launch).
@@ -43,7 +44,8 @@ def tonemap(hdr: torch.Tensor, gamma: float = 2.2) -> torch.Tensor:
     if hdr.dtype != torch.float32:
         raise TypeError(f"hdr must be float32, got {hdr.dtype}")
     if hdr.device.type == "cpu":
-        return tonemap_plain(hdr, gamma)
+        with span("pbr.tonemap"):
+            return tonemap_plain(hdr, gamma)
     if hdr.device.type != "cuda":
         raise ValueError(f"tonemap: unsupported device {hdr.device}")
     if not hdr.is_contiguous():
@@ -51,10 +53,11 @@ def tonemap(hdr: torch.Tensor, gamma: float = 2.2) -> torch.Tensor:
     n = hdr.numel() // 3
     if n >= 1 << 31:
         raise ValueError("image too large for 32-bit indexing")
-    lib = cuda_lib.library()
-    out = torch.empty_like(hdr)
-    rc = lib.pbr_tonemap(hdr.data_ptr(), out.data_ptr(), n, 1.0 / gamma,
-                         cuda_lib.stream_ptr(hdr.device))
-    cuda_lib.check(rc, "pbr_tonemap")
-    LAUNCHES += 1
-    return out
+    with span("pbr.tonemap"):
+        lib = cuda_lib.library()
+        out = torch.empty_like(hdr)
+        rc = lib.pbr_tonemap(hdr.data_ptr(), out.data_ptr(), n, 1.0 / gamma,
+                             cuda_lib.stream_ptr(hdr.device))
+        cuda_lib.check(rc, "pbr_tonemap")
+        LAUNCHES += 1
+        return out

@@ -7,6 +7,18 @@ exp_subtile_dma).  Run on a CUDA device only.
 from __future__ import annotations
 
 
+def kernels(events):
+    """The kernels among torch.profiler events (`key_averages()` entries):
+    the CUDA-device ones, less the device-side span that an annotation
+    (`record_function`, the port's `pbr.*` spans, `ProfilerStep#n`) gets
+    over every kernel launched inside it, which is no kernel."""
+    import torch
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep", "pbr."))]
+
+
 def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
               attempts: int = 4, per_call: int = 1):
     """Device time of fn under torch.profiler: (ms per launch of the
@@ -49,12 +61,7 @@ def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
             raise AssertionError(f"profiler gave {len(steps)} measured steps")
         own_us = other_us = 0.0
         n_own = 0
-        for e in steps[0]:
-            # The step's own annotation also has a device-side span over all
-            # of its kernels: it is no kernel.
-            if (e.device_type != torch.autograd.DeviceType.CUDA
-                    or e.key.startswith("ProfilerStep")):
-                continue
+        for e in kernels(steps[0]):
             if kernel is None or kernel in e.key:
                 own_us += e.self_device_time_total
                 n_own += e.count

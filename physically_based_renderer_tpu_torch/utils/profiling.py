@@ -1,15 +1,26 @@
 """Profiling and observability (port of `utils/profiling.py`).
 
-Host-clock section timers that wait for the card, a rays/s meter (the
-headless counterpart of a frame-time overlay), and `device_trace`, which
-records a torch.profiler trace (CPU and, where a card is in use, CUDA
-activity) and writes it as a Chrome trace.
+- `timed`: a host-clock section timer that waits for the card.
+- `device_trace`: records a torch.profiler trace (CPU and, where a card
+  is in use, CUDA activity) and writes it as a Chrome trace.
+- `span`: the program's named stretches in that trace, on the
+  profiler's clock; a flag read when no profiler records.  Every name
+  starts with `pbr.`:
+
+      pbr.frame             integrator/path.py::render_with_stats
+      pbr.k4.seeds          ops/fused.py::fused_frame, the seed words
+      pbr.k4.pack           ops/fused.py::fused_frame, the tables
+      pbr.tonemap           ops/tonemap.py::tonemap
+      pbr.step              grad/inverse.py::make_train_step's step
+      pbr.step.forward      its loss
+      pbr.step.backward     its loss.backward()
+      pbr.rng               core/rng.py: fold_in, split, ray_keys,
+                            ray_uniform
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import logging
 import time
 from pathlib import Path
@@ -24,6 +35,10 @@ if not logger.handlers:
         datefmt="%H:%M:%S"))
     logger.addHandler(_h)
     logger.setLevel(logging.INFO)
+
+# True while a torch.profiler session records (a C flag read, ~0.1 us).
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
 def _sync() -> None:
@@ -49,7 +64,9 @@ def timed(name: str, sync: bool = True):
 def device_trace(logdir):
     """Record the section with torch.profiler and write the Chrome trace
     `<logdir>/trace.json` (open it in chrome://tracing or Perfetto).
-    Yields the profiler; its `key_averages()` tabulate the kernels."""
+    Yields the profiler; its `key_averages()` tabulate the kernels beside
+    each span's device-side range, which `tools/timing.py::kernels`
+    leaves out."""
     from torch.profiler import ProfilerActivity, profile
     out = Path(logdir)
     out.mkdir(parents=True, exist_ok=True)
@@ -62,21 +79,13 @@ def device_trace(logdir):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-class RaysPerSecond:
-    """Running rays/s meter."""
+def span(name: str):
+    """The section as `name` in the profiler's trace: a `record_function`
+    while a profiler records, else one shared no-op context manager.
 
-    def __init__(self):
-        self.rays = 0.0
-        self.seconds = 0.0
+    Names start with `pbr.`, never with `cu` (the benchmark's trace
+    reader takes host events named `cu*` for runtime calls)."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
-    def add(self, rays: float, seconds: float) -> None:
-        self.rays += float(rays)
-        self.seconds += float(seconds)
-
-    @property
-    def value(self) -> float:
-        return self.rays / self.seconds if self.seconds else 0.0
-
-    def report(self) -> str:
-        return json.dumps({"rays": self.rays, "seconds": self.seconds,
-                           "rays_per_s": self.value})
