@@ -25,6 +25,13 @@ of which raises on failure (an uncaught exception exits non-zero):
      bound);
   3. K3 (tonemap) against its plain-torch version: a 512x512 HDR image with
      negatives, zeros and values above 100, and a ragged 37x53 image;
+  3b. threefry (csrc/threefry.cu, core/rng.py) against its plain-torch
+     version on the card, bit for bit: ray_keys and ray_uniform at m = 5
+     over 262,144 lanes and the K4 seed words, one launch a call; one K4
+     cornell frame at its config's size makes exactly one; each call's
+     device and wrapper times beside its byte bound, its integer
+     operations' time and the plain version's, and the seed words with
+     their copy to the host on the host clock;
   4. the branch-free reciprocal of K1, K2 and K4 (csrc/rcp.cuh) against
      1.0f / x on every float with |x| in [1e-9, 2^126); the registers and
      spill bytes of K1's, K2's, K4's, K5a's, K5b's, P1's, P5's and P6's
@@ -1190,6 +1197,98 @@ def phase_k3(dev):
     return out, ms, plain_ms
 
 
+def phase_threefry(dev):
+    """Threefry (csrc/threefry.cu) against core/rng.py's plain version on
+    the card: ray_keys and ray_uniform at m = 5 over 262,144 lanes, bit for
+    bit, one launch a call; a K4 frame's seed words (one launch a frame);
+    device ms of each beside its byte bound and the plain version's."""
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+    from physically_based_renderer_tpu_torch.utils import config
+
+    n = 262_144
+    key = rng.key(7, dev)
+    sk = rng.split(key, 4)[1]
+    pix = torch.arange(n, dtype=torch.int64, device=dev)
+    before = rng.LAUNCHES
+    keys = rng.ray_keys(sk, pix)
+    u = rng.ray_uniform(keys, 3, rng.STREAM_LIGHT, 5)
+    seeds = rng.fold_in(key, 0x5EED)
+    torch.cuda.synchronize()
+    if rng.LAUNCHES - before != 3:
+        raise AssertionError(f"threefry: {rng.LAUNCHES - before} launches "
+                             "for 3 calls")
+    if not torch.equal(keys, rng.fold_in_plain(sk, pix)):
+        raise AssertionError("threefry ray_keys differs from the plain "
+                             "version")
+    plain_u = rng.ray_uniform_plain(keys, 3, rng.STREAM_LIGHT, 5)
+    if not torch.equal(u.view(torch.int32), plain_u.view(torch.int32)):
+        raise AssertionError("threefry ray_uniform differs from the plain "
+                             "version")
+    if not torch.equal(seeds, rng.fold_in_plain(key, 0x5EED)):
+        raise AssertionError("threefry seed words differ from the plain "
+                             "version")
+    # One K4 frame at the cornell config's size: its seed words are the
+    # frame's only threefry.
+    bc = config.get("cornell")
+    scene, cam = config.build_scene(bc.scene, dev)
+    before = rng.LAUNCHES
+    path.render_with_stats(scene, cam, rng.key(3, dev), bc.render)
+    torch.cuda.synchronize()
+    frame_launches = rng.LAUNCHES - before
+    if frame_launches != 1:
+        raise AssertionError(f"a K4 frame made {frame_launches} threefry "
+                             "launches, expected 1")
+    out = {"lanes": n, "frame_launches": frame_launches, "calls": {}}
+    # Bytes each lane must move: ray_keys a pixel id in and a key out (the
+    # one key read once); ray_uniform a key in and m float32 out; the seed
+    # words one key in, one out.  A threefry is ~73 32-bit integer
+    # operations (20 rounds of add, funnel shift, xor; 5 injections),
+    # which neither peak describes: their time at 64 a clock an SM is
+    # printed beside the bound.
+    calls = (
+        ("ray_keys", lambda: rng.ray_keys(sk, pix),
+         lambda: rng.fold_in_plain(sk, pix), n * (8 + 16) + 16, n * 1),
+        ("ray_uniform m=5", lambda: rng.ray_uniform(keys, 3,
+                                                    rng.STREAM_LIGHT, 5),
+         lambda: rng.ray_uniform_plain(keys, 3, rng.STREAM_LIGHT, 5),
+         n * (16 + 5 * 4), n * 7),
+        ("seed words", lambda: rng.fold_in(key, 0x5EED),
+         lambda: rng.fold_in_plain(key, 0x5EED), 32, 1),
+    )
+    for label, fn, plain, n_bytes, n_threefry in calls:
+        ms, _ = device_ms(fn, 200, "threefry_")
+        plain_ms, _ = device_ms(plain, 20, None)
+        int_ms = n_threefry * 73 / (132 * 64 * SM_CLOCK_HZ) * 1e3
+        out["calls"][label] = {
+            "ms": ms, "wrapper_ms": time_ms(fn, 200), "plain_ms": plain_ms,
+            "plain_wrapper_ms": time_ms(plain, 20),
+            "bound": bound(n_bytes, 0), "int_ops_ms": int_ms}
+        c = out["calls"][label]
+        print(f"threefry {label}: kernel {ms:.4f} ms (wrapper "
+              f"{c['wrapper_ms']:.4f}), bound {c['bound'][0]:.3g} ms "
+              f"(bytes), integer ops {int_ms:.3g} ms, plain device "
+              f"{plain_ms:.4f} ms (wrapper {c['plain_wrapper_ms']:.4f}) "
+              f"[{card_line()}]")
+    # The K4 frame's seed words as fused_frame takes them, the copy to the
+    # host and its wait included (host clock).
+    for label, fn in (("kernel", rng.fold_in), ("plain", rng.fold_in_plain)):
+        for _ in range(20):
+            fn(key, 0x5EED).tolist()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn(key, 0x5EED).tolist()
+        out[f"seed_words_tolist_ms_{label}"] = (
+            (time.perf_counter() - t0) / 500 * 1e3)
+    print(f"threefry seed words with .tolist(): kernel "
+          f"{out['seed_words_tolist_ms_kernel']:.4f} ms, plain "
+          f"{out['seed_words_tolist_ms_plain']:.4f} ms a frame (host clock)")
+    return out
+
+
 def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None,
              cluster_k=None, max_u=None):
     """K1 against its plain version on the rays of config `name`, at that
@@ -1919,12 +2018,20 @@ def phase_profile(dev):
     state = None
     params, state, _ = step(params, state, rng_mod.key(1, dev), target)
     torch.cuda.synchronize()
+    rng_before = rng_mod.LAUNCHES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, state, loss = step(params, state, rng_mod.key(2, dev), target)
         float(loss)
         wall = time.perf_counter() - t0
+    # One threefry launch a call: the samples' split, then a sample's
+    # ray_keys and jitter and a bounce's light and BSDF draws (Russian
+    # roulette starts past the last bounce).
+    rng_launches = rng_mod.LAUNCHES - rng_before
+    if rng_launches != 1 + c["spp"] * (2 + 2 * c["bounces"]):
+        raise AssertionError(f"profiled step: {rng_launches} threefry "
+                             "launches")
     kernels = timing.kernels(prof.key_averages())
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in prof.key_averages()
@@ -1932,12 +2039,12 @@ def phase_profile(dev):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out = {"wall_s": wall, "device_busy_s": busy_us / 1e6,
            "idle_share": (1.0 - busy_us / 1e6 / wall) if busy_us else None,
-           "launches": launches,
+           "launches": launches, "rng_launches": rng_launches,
            "top_kernels": [(e.key[:80], e.self_device_time_total / 1e3,
                             e.count) for e in top]}
     print(f"profiled gradient step: wall {wall:.4f} s, device busy "
           f"{busy_us / 1e6:.4f} s, idle share {out['idle_share']}, "
-          f"{launches} kernel launches")
+          f"{launches} kernel launches, {rng_launches} of them threefry")
     return out
 
 
@@ -3724,6 +3831,7 @@ def main() -> int:
           f"[{card_line()}]")
     print(f"K3 512x512: kernel {k3_ms:.4f} ms (wrapper "
           f"{k3['wrapper_ms']:.4f}), plain {k3_plain_ms:.4f} ms")
+    threefry = phase_threefry(dev)
 
     # 4. K1 against its plain version; the reciprocal of K1, K2 and K4
     # (csrc/rcp.cuh) against division
@@ -3933,6 +4041,16 @@ def main() -> int:
         entry("tonemap", "tonemap.cu", "ops/tonemap.py:52",
               k3["max_abs_err"], k3_ms, k3["wrapper_ms"], k3_plain_ms,
               k3["bound"], None),
+        {"name": "threefry", "route": "cuda",
+         "source": "physically_based_renderer_tpu_torch/csrc/threefry.cu",
+         "replaces": None, "max_abs_err": 0.0,
+         "launches_by_path": {"k4_frame": threefry["frame_launches"],
+                              "gradient_step": profiled["rng_launches"]},
+         **{k: threefry["calls"]["ray_uniform m=5"][k]
+            for k in ("ms", "wrapper_ms", "plain_ms")},
+         "bound_ms": threefry["calls"]["ray_uniform m=5"]["bound"][0],
+         "bound_by": threefry["calls"]["ray_uniform m=5"]["bound"][1],
+         "library_ms": None, "calls": threefry["calls"]},
         {**entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
                  max(k1.max_abs_err, k32["k32_max_abs_err"],
                      parentless["max_abs_err"]), k1_ms,
@@ -4000,6 +4118,7 @@ def main() -> int:
                "shape": "262144 camera rays x 32 tris"},
         "k3": {**k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
                "shape": "512x512x3"},
+        "threefry": threefry,
         "k1_rcp_mismatches": rcp_bad, "kernel_resources": resources,
         "k1": {"rays_compared": k1.rays, "winner_mismatches": k1.mismatch,
                "max_abs_err_t": k1.max_abs_err, "ms": k1_ms,

@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu",
-           "gather.cu", "probes.cu", "mosaic.cu")
+           "gather.cu", "probes.cu", "mosaic.cu", "threefry.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -96,6 +96,13 @@ _SIGNATURES = {
     "pbr_subtile_copy_row_sums": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # src, idx, n_src, nb, n_iters, ch, out, stream
     "pbr_subtile_read": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # keys, key_step, x0s, x0_step, x0_value, x1s, x1_step, x1_value,
+    # x1_iota, n, out, stream
+    "pbr_threefry_words": [_P, _I, _P, _I, _U, _P, _I, _U, _I, _L, _P, _P],
+    # keys, n, bounce, stream id, m, out, stream
+    "pbr_threefry_ray_uniform": [_P, _L, _U, _U, _I, _P, _P],
+    # keys, n_keys, m, uniform, out, stream
+    "pbr_threefry_bits": [_P, _L, _L, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

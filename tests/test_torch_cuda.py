@@ -1285,3 +1285,135 @@ def test_entry_on_the_card_matches_the_golden(cuda_device):
     frac, _ = render_agreement(img, ref)
     assert frac >= PIXEL_FRAC
     assert abs(float(img.mean()) / float(ref.mean()) - 1.0) <= MEAN_REL
+
+
+# --- threefry (csrc/threefry.cu) against core/rng.py's plain version ------
+
+def _rng_on(fn, dev, *args):
+    """fn(*args) on the card, with the launches it made, and the same call
+    on the CPU (the plain version)."""
+    before = rng.LAUNCHES
+    got = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+               for a in args))
+    torch.cuda.synchronize()
+    launches = rng.LAUNCHES - before
+    plain_before = rng.LAUNCHES
+    plain = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args))
+    assert rng.LAUNCHES == plain_before
+    return got, plain, launches
+
+
+def _assert_bit_equal(got, plain):
+    assert got.device.type == "cuda" and got.dtype == plain.dtype
+    assert tuple(got.shape) == tuple(plain.shape)
+    got = got.cpu()
+    if got.dtype == torch.float32:
+        got, plain = got.view(torch.int32), plain.view(torch.int32)
+    assert torch.equal(got, plain)
+
+
+def _rng_cases():
+    g = np.random.default_rng(20)
+    one = rng.key(11)
+    keys = rng.split(rng.key(3), 1000)
+    data = torch.from_numpy(g.integers(-2**40, 2**40, 1000))
+    pix = torch.from_numpy(g.permutation(262_144)[:70_001])
+    return {
+        "fold_in one key, scalar": (rng.fold_in, one, 0x5EED),
+        "fold_in 1000 keys, scalar": (rng.fold_in, keys, 7),
+        "fold_in 1000 keys, per-key data": (rng.fold_in, keys, data),
+        "fold_in one key, 1000 data": (rng.fold_in, one, data),
+        "fold_in broadcast [10, 1] x [7]": (
+            rng.fold_in, keys[:10].reshape(10, 1, 2), torch.arange(7)),
+        "split 1": (rng.split, one, 1),
+        "split 1000": (rng.split, one, 1000),
+        "split 262144": (rng.split, one, 262_144),
+        "ray_keys N=1": (rng.ray_keys, one, torch.tensor([123_457])),
+        "ray_keys N=1000": (rng.ray_keys, one, torch.arange(0, 3000, 3)),
+        "ray_keys N=70001 morton-like": (rng.ray_keys, one, pix),
+        "ray_keys N=262144": (rng.ray_keys, one, torch.arange(262_144)),
+        "random_bits 1000 keys x 7": (rng.random_bits, keys, 7),
+        "random_bits one key x 100": (rng.random_bits, one, 100),
+        "uniform (3, 5, 2)": (rng.uniform, one, (3, 5, 2)),
+        "uniform (512, 512, 2)": (rng.uniform, one, (512, 512, 2)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_rng_cases()))
+def test_threefry_kernel_matches_plain(cuda_device, case):
+    fn, *args = _rng_cases()[case]
+    got, plain, launches = _rng_on(fn, cuda_device, *args)
+    assert launches == 1
+    _assert_bit_equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 2, 3, 5])
+@pytest.mark.parametrize("bounce", [0, 3])
+@pytest.mark.parametrize("stream", [rng.STREAM_PIXEL_JITTER, rng.STREAM_BSDF,
+                                    rng.STREAM_LIGHT, rng.STREAM_RR])
+@pytest.mark.parametrize("n", [1, 1000, 262_144])
+def test_threefry_ray_uniform_matches_plain(cuda_device, m, bounce, stream,
+                                            n):
+    keys = rng.ray_keys(rng.key(2), torch.arange(n))
+    got, plain, launches = _rng_on(rng.ray_uniform, cuda_device, keys,
+                                   bounce, stream, m)
+    assert launches == 1
+    _assert_bit_equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_threefry_kernel_known_answer(cuda_device):
+    """Threefry-2x32 (20 rounds) test vector of Salmon et al. (Random123),
+    through the kernel."""
+    before = rng.LAUNCHES
+    w0, w1 = rng.threefry2x32(
+        *(torch.tensor(x, device=cuda_device)
+          for x in (0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3)))
+    assert rng.LAUNCHES == before + 1
+    assert w0.device.type == "cuda"
+    assert (int(w0), int(w1)) == (0xC4923A9C, 0x483DF7A0)
+
+
+@pytest.mark.cuda
+def test_threefry_kernel_refuses_what_it_does_not_take(cuda_device):
+    keys = rng.split(rng.key(3), 8).to(cuda_device)
+    before = rng.LAUNCHES
+    with pytest.raises(TypeError):
+        rng.fold_in(keys.to(torch.int32), 1)
+    with pytest.raises(TypeError):
+        rng.ray_uniform(keys.to(torch.int32), 0, rng.STREAM_BSDF, 3)
+    with pytest.raises(ValueError):
+        rng.ray_keys(keys[0], torch.arange(8))        # counts on the CPU
+    with pytest.raises(TypeError):
+        rng.fold_in(keys, torch.ones(8, device=cuda_device))
+    with pytest.raises(ValueError):
+        rng.uniform(keys, (4,))                         # not one key
+    assert rng.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_threefry_launches_on_the_main_paths(cuda_device, monkeypatch):
+    """A K4 frame's seed words are one launch; in a dense frame every call
+    under the span `pbr.rng` is one launch."""
+    import contextlib
+    scene, cam = config.build_scene(config.get("cornell").scene, cuda_device)
+    cfg = path.RenderConfig(width=64, height=64, spp=2, max_bounces=2,
+                            tracer="resident")
+    before = rng.LAUNCHES
+    fused.fused_frame(scene, cam, rng.key(1, cuda_device), cfg)
+    assert rng.LAUNCHES == before + 1
+    spans = []
+
+    def counting(name):
+        spans.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(rng, "span", counting)
+    before = rng.LAUNCHES
+    path.render_band(scene, cam, rng.split(rng.key(4, cuda_device), 2), cfg)
+    torch.cuda.synchronize()
+    assert len(spans) > 10
+    assert rng.LAUNCHES - before == len(spans)
