@@ -4,12 +4,14 @@
         -o out.png --stats --device cuda
 
 SCENE is a named config (triangle, cornell, cornell_ggx, cornell_tex256,
-helmet, helmet_proc) or a path to a .gltf/.glb file, which is read by
-scene/gltf.py, gets the cluster grid and renders with the default
+helmet, helmet_proc, spd_tetra) or a path to a .gltf/.glb file, which is
+read by scene/gltf.py, gets the cluster grid and renders with the default
 `RenderConfig` from the file's camera; a file that cannot be read prints
 `error: ...` and returns 2.  The frame is rendered with
 `render_with_stats` (on a CUDA device, one launch of the fused kernel K4
-for the scenes it takes: `triangle`, `cornell`, `cornell_ggx`), tonemapped
+for the scenes it takes: `triangle`, `cornell`, `cornell_ggx`; above 512
+triangles, as `helmet` and `spd_tetra`, the dense loop with phase A and
+K1), tonemapped
 with K3 (`ops/tonemap.py`) and written as a PNG.  `--stats` prints one JSON
 line to stderr: ray queries, seconds (host clock around the render,
 synchronized), rays/s, and the device it ran on.

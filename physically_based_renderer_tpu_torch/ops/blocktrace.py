@@ -19,6 +19,10 @@ rays, or direction-binned rays when `sort`):
      geometry when the grid carries none);
   4. the flat winner u * K + k decodes to a triangle id.
 
+Steps 1-2 with the padding to whole blocks and chunks (`block_inputs`) are
+the span `pbr.trace.phase_a`, steps 3-4 the span `pbr.trace.k1`, once a
+tracer call each (utils/profiling.py).
+
 The search is detached; `integrator/shading.py` re-intersects the winner
 attached.  The XLA block tracer is the reference's route off the TPU and a
 different algorithm in torch ops: the root cull and the optional sort as
@@ -41,6 +45,7 @@ import torch
 
 from ..accel.clusters import (SOUP_ROWS, ClusterGrid, _check_k, _pack_soup,
                               cluster_tri_soup)
+from ..utils.profiling import span
 from .intersect import BIG, Hit, inv_dir, mt_rows
 from .trace_blocks import trace_blocks
 
@@ -272,33 +277,37 @@ def intersect_blocks_pallas(grid: ClusterGrid, o, d, t_min: float = 1e-4,
     unscrambles the outputs, for direction-scattered streams.  `geometry`
     packs the soup of a grid that carries none."""
     n = o.shape[0]
-    args, perm = block_inputs(grid, o, d, t_min, t_max, block, max_u, sort,
-                              chunk, geometry)
-    out = trace_blocks(*args, t_min=t_min, any_hit=any_hit, chunk=chunk)
-    if any_hit:
-        occ = out.reshape(-1)[:n]
-        if sort:
-            occ = torch.zeros_like(occ).index_put_((perm,), occ)
-        return occ
+    with span("pbr.trace.phase_a"):
+        args, perm = block_inputs(grid, o, d, t_min, t_max, block, max_u,
+                                  sort, chunk, geometry)
+    with span("pbr.trace.k1"):
+        out = trace_blocks(*args, t_min=t_min, any_hit=any_hit, chunk=chunk)
+        if any_hit:
+            occ = out.reshape(-1)[:n]
+            if sort:
+                occ = torch.zeros_like(occ).index_put_((perm,), occ)
+            return occ
 
-    # Winner decode through flat 1-D gathers: flat = u * K + k.
-    u_idx = args[0]
-    nb, n_u = u_idx.shape
-    k = grid.k
-    best_t, best_flat = out
-    found = best_flat >= 0
-    flat = torch.clamp_min(best_flat, 0)
-    blk = torch.arange(nb, dtype=torch.int32, device=o.device)[:, None]
-    cl_win = u_idx.reshape(-1)[(blk * n_u + flat // k).long()]
-    cl_win = torch.clamp_max(cl_win, grid.num_clusters - 1)
-    tri_win = grid.tri_id.reshape(-1)[(cl_win * k + flat % k).long()]
-    tri = torch.where(found, tri_win, -1).reshape(-1)[:n]
-    t_k = best_t.reshape(-1)[:n]
-    if sort:
-        tri = torch.full_like(tri, -1).index_put_((perm,), tri)
-        t_k = torch.full_like(t_k, BIG).index_put_((perm,), t_k)
-    zeros = torch.zeros((n,), dtype=torch.float32, device=o.device)
-    return Hit(t=torch.where(tri >= 0, t_k, BIG), tri=tri, u=zeros, v=zeros)
+        # Winner decode through flat 1-D gathers: flat = u * K + k.
+        u_idx = args[0]
+        nb, n_u = u_idx.shape
+        k = grid.k
+        best_t, best_flat = out
+        found = best_flat >= 0
+        flat = torch.clamp_min(best_flat, 0)
+        blk = torch.arange(nb, dtype=torch.int32,
+                           device=o.device)[:, None]
+        cl_win = u_idx.reshape(-1)[(blk * n_u + flat // k).long()]
+        cl_win = torch.clamp_max(cl_win, grid.num_clusters - 1)
+        tri_win = grid.tri_id.reshape(-1)[(cl_win * k + flat % k).long()]
+        tri = torch.where(found, tri_win, -1).reshape(-1)[:n]
+        t_k = best_t.reshape(-1)[:n]
+        if sort:
+            tri = torch.full_like(tri, -1).index_put_((perm,), tri)
+            t_k = torch.full_like(t_k, BIG).index_put_((perm,), t_k)
+        zeros = torch.zeros((n,), dtype=torch.float32, device=o.device)
+        return Hit(t=torch.where(tri >= 0, t_k, BIG), tri=tri, u=zeros,
+                   v=zeros)
 
 
 # ---------------------------------------------------------------------------

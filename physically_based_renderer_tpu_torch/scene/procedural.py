@@ -4,7 +4,9 @@ The builders compute in numpy exactly as the reference does and wrap the
 result in CPU tensors; `scene.types.upload_scene` moves it to the device.
 `make_helmet_class_scene` is the `helmet_proc` config: a displaced
 224x224 UV sphere of 100,352 triangles with 256x256 albedo and
-metallic-roughness maps under a procedural HDR sky.
+metallic-roughness maps under a procedural HDR sky.  `make_spd_tetra` is
+the `spd_tetra` config, the port's own (the reference has no such
+builder): Haines' Standard Procedural Databases `tetra` under that sky.
 """
 
 from __future__ import annotations
@@ -314,3 +316,55 @@ def make_helmet_class_scene(rings: int = 224, sectors: int = 224,
                       metallic_roughness_tex=np.asarray([1], np.int32))
     return make_scene(g, mats, textures=TextureStack.from_images([albedo, mr]),
                       env=make_gradient_sky())
+
+
+# The root of Haines' SPD `tetra` (E. Haines, "A Proposal for Standard
+# Graphics Environments", IEEE CG&A 7(11), 1987): the regular tetrahedron on
+# alternating corners of the cube [-1, 1]^3.
+SPD_TETRA_CORNERS = ((1.0, 1.0, 1.0), (1.0, -1.0, -1.0),
+                     (-1.0, 1.0, -1.0), (-1.0, -1.0, 1.0))
+
+
+def spd_tetra_triangles(depth: int = 4) -> np.ndarray:
+    """The faces of the recursive Sierpinski tetrahedron, f32[4^depth * 4,
+    3, 3].  Each level replaces a tetrahedron by its four half-size copies,
+    the i-th scaled by 1/2 about its i-th corner (depth first, corner
+    order); a leaf gives its four faces, the i-th opposite its i-th
+    corner, wound counter-clockwise seen from outside.  Every coordinate
+    is a dyadic fraction, exact in float32."""
+    def leaves(corners, level):
+        if level == 0:
+            yield corners
+            return
+        for c in corners:
+            yield from leaves([(c + q) / 2.0 for q in corners], level - 1)
+
+    faces = []
+    root = [np.asarray(c, np.float64) for c in SPD_TETRA_CORNERS]
+    for corners in leaves(root, depth):
+        for i, apex in enumerate(corners):
+            a, b, c = (corners[j] for j in range(4) if j != i)
+            if np.dot(np.cross(b - a, c - a), apex - a) > 0.0:
+                b, c = c, b                     # the normal faced the apex
+            faces.append((a, b, c))
+    return np.asarray(faces, np.float32)
+
+
+def make_spd_tetra(depth: int = 4) -> Scene:
+    """The `spd_tetra` config: SPD `tetra` at `depth` (4: 1,024
+    triangles), each face its own three vertices (flat shaded), one
+    metallic-roughness material (base colour 0.8, roughness 0.5, metallic
+    0, the default dielectric specular, so GGX is sampled beside Lambert)
+    under `make_gradient_sky`, the only light.  The SPD's point lights and
+    flat background have no counterpart in the port; the material and the
+    sky are set here."""
+    tris = spd_tetra_triangles(depth)
+    n = tris.shape[0]
+    geometry = _geometry_from_arrays(
+        tris.reshape(-1, 3), np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+        np.zeros((n,), np.int32))
+    mats = _materials(
+        base_color_factor=np.asarray([[0.8, 0.8, 0.8, 1.0]], np.float32),
+        roughness_factor=np.asarray([0.5], np.float32),
+        metallic_factor=np.zeros((1,), np.float32))
+    return make_scene(geometry, mats, env=make_gradient_sky())

@@ -1,11 +1,14 @@
 """Named render configs (port of `utils/config.py`).
 
-Same config names and `RenderConfig`s as the reference.  `build_scene`
+Same config names and `RenderConfig`s as the reference, and one of the
+port's own, `spd_tetra` (Haines' SPD `tetra` at depth 4, 1,024 triangles,
+under the HDR sky: the dense loop through phase A and K1).  `build_scene`
 builds every scene and attaches the cluster grid of `SceneSpec.cluster_k`
 triangles a cluster, as the reference does:
 the procedural ones (triangle, cornell, cornell_ggx, cornell_tex256,
-helmet_proc), `helmet` (the authored .glb read back through scene/gltf.py)
-and `gltf` (a file named by `extra["path"]`, with the file's camera).
+helmet_proc, spd_tetra), `helmet` (the authored .glb read back through
+scene/gltf.py) and `gltf` (a file named by `extra["path"]`, with the
+file's camera).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ class SceneSpec:
     """How to obtain the scene + camera for a named config."""
 
     builder: str               # 'triangle' | 'cornell' | 'cornell_ggx' |
-    #                            'helmet' | 'helmet_glb' | 'gltf'
+    #                            'helmet' | 'helmet_glb' | 'spd_tetra' |
+    #                            'gltf'
     camera_position: tuple = (0.0, 1.0, 3.9)
     camera_target: tuple = (0.0, 1.0, 0.0)
     fov_y: float = 0.95
@@ -91,6 +95,16 @@ _register(BenchConfig(
                     extra={"roughness": 0.25, "tex_size": 256}),
 ))
 _register(BenchConfig(
+    name="spd_tetra",
+    description="Haines' SPD tetra at depth 4 (1,024 triangles), one "
+                "metallic-roughness material under an HDR sky, 4 bounces, "
+                "NEE+MIS, 512x512",
+    render=RenderConfig(width=512, height=512, spp=4, max_bounces=4),
+    scene=SceneSpec(builder="spd_tetra", camera_position=(2.2, 1.6, 3.0),
+                    camera_target=(0.0, 0.0, 0.0), fov_y=0.9,
+                    extra={"depth": 4}),
+))
+_register(BenchConfig(
     name="inverse",
     description="recover albedo/roughness + emitter radiance via pixel-loss "
                 "gradients",
@@ -117,6 +131,8 @@ def build_scene(spec: SceneSpec, device=None):
             tex_size=spec.extra.get("tex_size", 8))
     elif b == "helmet":
         scene = procedural.make_helmet_class_scene(**spec.extra)
+    elif b == "spd_tetra":
+        scene = procedural.make_spd_tetra(**spec.extra)
     elif b == "helmet_glb":
         # The binary-asset path: author (cached) -> export_glb -> the whole
         # scene/gltf.py ingest -> env attach (scene/helmet_asset.py).

@@ -16,6 +16,10 @@
       pbr.step.backward     its loss.backward()
       pbr.rng               core/rng.py: fold_in, split, ray_keys,
                             ray_uniform
+      pbr.trace.phase_a     ops/blocktrace.py::intersect_blocks_pallas:
+                            root cull, octant sort, candidate selection
+                            and K1's inputs, a tracer call
+      pbr.trace.k1          the same call's K1 launch and winner decode
 """
 
 from __future__ import annotations

@@ -256,6 +256,32 @@ def test_helmet_proc_path_matches_golden(cuda_device, helmet_proc):
     assert abs(img.mean() / ref.mean() - 1.0) <= MEAN_REL
 
 
+@pytest.mark.cuda
+def test_spd_tetra_takes_phase_a_and_k1_on_the_card(cuda_device):
+    """The spd_tetra config (1,024 triangles under the HDR sky) renders on
+    the card through the dense loop's block tracer, K1, never K2 or K4;
+    its image against the port's own render on the CPU at the same key:
+    PIXEL_FRAC of the pixels within tolerance, means within MEAN_REL."""
+    bc = config.get("spd_tetra")
+    cfg = dataclasses.replace(bc.render, width=32, height=32, spp=2,
+                              max_bounces=2)
+    images = []
+    for dev in (cuda_device, torch.device("cpu")):
+        scene, cam = config.build_scene(bc.scene, dev)
+        before = (trace_blocks.LAUNCHES, resident.LAUNCHES, fused.LAUNCHES)
+        film, _ = path.render_with_stats(scene, cam, rng.key(5, dev), cfg)
+        after = (trace_blocks.LAUNCHES, resident.LAUNCHES, fused.LAUNCHES)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            # per sample: (bounces + 1) closest + bounces env shadow queries
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                cfg.spp * (2 * cfg.max_bounces + 1), 0, 0)
+        images.append(film.mean().cpu().numpy())
+    frac, _ = render_agreement(*images)
+    assert frac >= PIXEL_FRAC
+    assert abs(images[0].mean() / images[1].mean() - 1.0) <= MEAN_REL
+
+
 # (config, render settings) of the K4 tests: each config K4 takes, small,
 # and a pixel count that fills no whole block.
 K4_CASES = {

@@ -128,9 +128,17 @@ def test_take_rows_matches_reference():
         want[:, 0])
 
 
+# Configs of the port's own, which the reference does not have
+# (tests/test_torch_spd_tetra.py holds them).
+PORT_ONLY_CONFIGS = ("spd_tetra",)
+
+
 def test_configs_match_reference():
-    assert sorted(config.CONFIGS) == sorted(jconfig.CONFIGS)
+    assert sorted(config.CONFIGS) == sorted(
+        [*jconfig.CONFIGS, *PORT_ONLY_CONFIGS])
     for name, bc in config.CONFIGS.items():
+        if name in PORT_ONLY_CONFIGS:
+            continue
         ref = jconfig.CONFIGS[name]
         assert dataclasses.asdict(bc.render) == dataclasses.asdict(ref.render)
         assert bc.scene.builder == ref.scene.builder

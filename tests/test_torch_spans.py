@@ -20,7 +20,7 @@ from physically_based_renderer_tpu_torch.integrator import path
 from physically_based_renderer_tpu_torch.ops import fused, tonemap
 from physically_based_renderer_tpu_torch.scene import procedural, types
 from physically_based_renderer_tpu_torch.tools import timing
-from physically_based_renderer_tpu_torch.utils import profiling
+from physically_based_renderer_tpu_torch.utils import config, profiling
 
 CPU = torch.device("cpu")
 FIT_CFG = path.RenderConfig(width=16, height=16, spp=4, max_bounces=4)
@@ -216,6 +216,30 @@ def test_frame_spans_and_outputs():
         x, y = getattr(on[3], f.name), getattr(off[3], f.name)
         assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
                 else x == y), f.name
+
+
+def test_block_tracer_spans_and_outputs():
+    """A dense frame of the spd_tetra config (1,024 triangles, so the block
+    tracer): each tracer call is one `pbr.trace.phase_a` followed by one
+    `pbr.trace.k1`, inside `pbr.frame`; the frame is the same with the
+    profiler off."""
+    scene, cam = config.build_scene(config.get("spd_tetra").scene, CPU)
+    cfg = path.RenderConfig(width=8, height=8, spp=1, max_bounces=1)
+
+    def frame():
+        film, count = path.render_with_stats(scene, cam, rng.key(3), cfg)
+        return film.hdr, int(count)
+
+    on, events = _profiled(frame)
+    off = frame()
+    phase_a = _spans(events, "pbr.trace.phase_a")
+    k1 = _spans(events, "pbr.trace.k1")
+    # per sample: (bounces + 1) closest-hit calls + bounces env shadow calls
+    assert len(phase_a) == len(k1) == cfg.spp * (2 * cfg.max_bounces + 1)
+    for (a0, a1), (k0, k1_end) in zip(phase_a, k1):
+        assert a1 <= k0
+    assert all(_inside(iv, _spans(events, "pbr.frame")) for iv in k1)
+    assert torch.equal(on[0], off[0]) and on[1] == off[1]
 
 
 def test_device_trace_writes_the_spans(tmp_path):
