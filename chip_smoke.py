@@ -127,6 +127,17 @@ of which raises on failure (an uncaught exception exits non-zero):
      frame at the same key (pixels that differ, ray counts: printed, not
      held); then tools/dryrun.py::entry() cold and warm (5 K2 + 5 K5a
      each), its image against tests/data/entry_cornell_64_golden.npy;
+     16c. phase A's kernels (csrc/phase_a.cu) on the tracer calls of one
+     `spd_tetra` frame (512x512, 1 spp, 4 bounces): the camera call (1
+     launch) and the first two sorted calls (3 launches each), each bit
+     for bit the plain version (`block_inputs_plain`), timed: the kernels'
+     device ms (torch.profiler), the wrapper back to back (CUDA events),
+     the host's enqueue a call, the plain version, beside the bound from
+     the bytes a call must move; then the host syncs of a whole frame
+     (512x512 x 4 spp) under torch's sync debug mode ("warn"), and its
+     seconds, with the kernels and with the plain phase A, and the
+     launches of the frame with the kernels (36 K1, 4 x 1 + 32 x 3 = 100
+     phase A; the kernels line's `spd_tetra` path);
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -277,17 +288,24 @@ MAIN_PATHS = (("cornell", "cornell", "cli"),
 # K5a 4 spp x (4 shades x (1 tri_attrs + 4 texture slots x 2 trilinear
 # levels + 1 env lookup) + 3 NEE passes x (1 emitter row + 1 emissive
 # texel fetch at level 0)) = 184; K4 refuses its normal and emissive maps.
+# Phase A (csrc/phase_a.cu) before each K1 call: 1 launch for a sample's
+# camera rays, 3 for each direction-sorted bounce or shadow call, so
+# helmet_proc 4 x 1 + 24 x 3 = 76 and helmet 4 x 1 + 36 x 3 = 112.
 EXPECTED_LAUNCHES = {
     "cornell": {"fused": 1, "resident": 0, "trace_blocks": 0, "tonemap": 1,
-                "gather_fwd": 0, "gather_bwd": 0},
+                "gather_fwd": 0, "gather_bwd": 0, "phase_a": 0},
     "cornell_ggx": {"fused": 1, "resident": 0, "trace_blocks": 0,
-                    "tonemap": 1, "gather_fwd": 0, "gather_bwd": 0},
+                    "tonemap": 1, "gather_fwd": 0, "gather_bwd": 0,
+                    "phase_a": 0},
     "cornell_dense": {"fused": 0, "resident": 36, "trace_blocks": 0,
-                      "tonemap": 0, "gather_fwd": 36, "gather_bwd": 0},
+                      "tonemap": 0, "gather_fwd": 36, "gather_bwd": 0,
+                      "phase_a": 0},
     "helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 28,
-                    "tonemap": 1, "gather_fwd": 96, "gather_bwd": 0},
+                    "tonemap": 1, "gather_fwd": 96, "gather_bwd": 0,
+                    "phase_a": 76},
     "helmet": {"fused": 0, "resident": 0, "trace_blocks": 40,
-               "tonemap": 1, "gather_fwd": 184, "gather_bwd": 0},
+               "tonemap": 1, "gather_fwd": 184, "gather_bwd": 0,
+               "phase_a": 112},
 }
 # The routes of phase 6c: launches of each run.  bvh: helmet at 1 spp x 3
 # bounces, K5a as a quarter of its CLI frame's 184; block: helmet_proc at
@@ -295,11 +313,11 @@ EXPECTED_LAUNCHES = {
 # 36 K5a in one stream of the four samples, 9 each.
 ROUTE_LAUNCHES = {
     "bvh": {"fused": 0, "resident": 0, "trace_blocks": 0, "tonemap": 0,
-            "gather_fwd": 46, "gather_bwd": 0},
+            "gather_fwd": 46, "gather_bwd": 0, "phase_a": 0},
     "block": {"fused": 0, "resident": 0, "trace_blocks": 0, "tonemap": 0,
-              "gather_fwd": 24, "gather_bwd": 0},
+              "gather_fwd": 24, "gather_bwd": 0, "phase_a": 0},
     "batch_spp": {"fused": 0, "resident": 9, "trace_blocks": 0, "tonemap": 0,
-                  "gather_fwd": 9, "gather_bwd": 0},
+                  "gather_fwd": 9, "gather_bwd": 0, "phase_a": 0},
 }
 # Phase 14's Blinn-Phong frames through the CLI: K5a gathers one tri_attrs
 # row a pixel, plus a level-0 fetch for each texture slot the scene uses
@@ -307,31 +325,37 @@ ROUTE_LAUNCHES = {
 # cornell frame (--debug-checks) renders the dense path with the tracer
 # pinned to brute force: 4 spp x (5 tri_attrs rows + 4 emitter rows) K5a
 # and one K3.  The soup-less helmet_proc grid at 1 spp: 4 closest + 3 env
-# shadow K1 calls and a quarter of the frame's 96 K5a.
+# shadow K1 calls, 1 + 6 x 3 phase A launches, and a quarter of the
+# frame's 96 K5a.
 MODULE_SIZE = 512
 MODULE_LAUNCHES = {
     "blinn_phong_cornell": {"fused": 0, "resident": 0, "trace_blocks": 0,
-                            "tonemap": 1, "gather_fwd": 1, "gather_bwd": 0},
+                            "tonemap": 1, "gather_fwd": 1, "gather_bwd": 0,
+                            "phase_a": 0},
     "blinn_phong_helmet": {"fused": 0, "resident": 0, "trace_blocks": 0,
-                           "tonemap": 1, "gather_fwd": 5, "gather_bwd": 0},
+                           "tonemap": 1, "gather_fwd": 5, "gather_bwd": 0,
+                           "phase_a": 0},
     "debug_checks_cornell": {"fused": 0, "resident": 0, "trace_blocks": 0,
                              "tonemap": 1, "gather_fwd": 36,
-                             "gather_bwd": 0},
+                             "gather_bwd": 0, "phase_a": 0},
     "soupless_helmet_proc": {"fused": 0, "resident": 0, "trace_blocks": 7,
                              "tonemap": 0, "gather_fwd": 24,
-                             "gather_bwd": 0},
+                             "gather_bwd": 0, "phase_a": 19},
 }
 # Phase 15's helmet frame on a k = 32 grid through render_with_stats (no
-# CLI, so no K3): the helmet CLI frame's 40 K1 and 184 K5a.
+# CLI, so no K3): the helmet CLI frame's 40 K1, 112 phase A and 184 K5a.
 K32_LAUNCHES = {"fused": 0, "resident": 0, "trace_blocks": 40, "tonemap": 0,
-                "gather_fwd": 184, "gather_bwd": 0}
+                "gather_fwd": 184, "gather_bwd": 0, "phase_a": 112}
 # Phase 16's helmet frame at K = 128 without parent boxes, through
-# render_with_stats: the same 40 K1 and 184 K5a.  entry(): one sample of
+# render_with_stats: the same 40 K1, 112 phase A and 184 K5a.  entry(): one sample of
 # the dense cornell path at 2 bounces, 3 closest + 2 shadow K2 queries and
 # 3 tri_attrs + 2 emitter rows of K5a.
 PARENTLESS_LAUNCHES = K32_LAUNCHES
 ENTRY_LAUNCHES = {"fused": 0, "resident": 5, "trace_blocks": 0, "tonemap": 0,
-                  "gather_fwd": 5, "gather_bwd": 0}
+                  "gather_fwd": 5, "gather_bwd": 0, "phase_a": 0}
+# Phase 16c's spd_tetra frame (512x512 x 4 spp x 4 bounces, 8 clusters):
+# 4 x (5 closest + 4 env shadow) K1 calls, phase A 4 x 1 + 32 x 3.
+SPD_TETRA_K1, SPD_TETRA_PHASE_A = 36, 100
 # The bvh frame at 1 spp x 3 bounces is held per pixel to the exact
 # brute-force tracer on this band of rows (first row, rows) at the same
 # key: brute force over the whole frame would take minutes.  Against the
@@ -3499,6 +3523,149 @@ def phase_entry(counters):
             "pixel_frac": frac, "pixels_differ": n_bad, "mean_rel": mean_rel}
 
 
+def phase_phase_a(dev, counters=None):
+    """Phase 16c: phase A's kernels on the tracer calls of one spd_tetra
+    frame, against the plain version, timed; a frame's host syncs and
+    launches with the kernels (36 K1, 100 phase A), and its host syncs
+    with the plain phase A (module docstring)."""
+    import warnings
+
+    import torch
+
+    from physically_based_renderer_tpu_torch.core import rng as rng_mod
+    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.ops import blocktrace as bt
+    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+    from physically_based_renderer_tpu_torch.utils import config
+
+    if counters is None:                        # the phase alone
+        from physically_based_renderer_tpu_torch.ops import trace_blocks
+        counters = {"trace_blocks": (trace_blocks, "LAUNCHES"),
+                    "phase_a": (bt, "PHASE_A_LAUNCHES")}
+    bc = config.get("spd_tetra")
+    scene, cam = config.build_scene(bc.scene, dev)
+    kernels = bt.block_inputs
+    calls = []
+
+    def record(grid, o, d, t_min, t_max, *args):
+        calls.append((grid, o.clone(), d.clone(), t_min,
+                      t_max.clone() if isinstance(t_max, torch.Tensor)
+                      else t_max, *args))
+        return kernels(grid, o, d, t_min, t_max, *args)
+
+    bt.block_inputs = record
+    try:
+        path.render_with_stats(scene, cam, rng_mod.key(11, dev),
+                               dataclasses.replace(bc.render, spp=1))
+    finally:
+        bt.block_inputs = kernels
+    sorted_calls = [c for c in calls if c[7]]
+    picked = {"camera (unsorted)": next(c for c in calls if not c[7]),
+              "first sorted": sorted_calls[0],
+              "second sorted": sorted_calls[1]}
+    out = {"calls": {}}
+    for label, call in picked.items():
+        grid, o, d, t_min, t_max, block, max_u, sort, chunk, geo = call
+        args = (grid, o, d, t_min, t_max, block, max_u, sort, chunk, geo)
+        launches = 3 if sort else 1
+        before = bt.PHASE_A_LAUNCHES
+        (got, perm) = kernels(*args)
+        torch.cuda.synchronize()
+        if bt.PHASE_A_LAUNCHES - before != launches:
+            raise AssertionError(f"phase A {label}: "
+                                 f"{bt.PHASE_A_LAUNCHES - before} launches")
+        want, want_perm = bt.block_inputs_plain(*args)
+        for name, g, w in zip(("u_idx", "o", "d", "t_max", "soup",
+                               "n_valid", "entry"), got, want):
+            bits = ((g.view(torch.int32), w.view(torch.int32))
+                    if g.dtype == torch.float32 else (g, w))
+            if g.shape != w.shape or not torch.equal(*bits):
+                raise AssertionError(f"phase A {label}: {name} differs from "
+                                     "the plain version")
+        if sort and not torch.equal(perm, want_perm):
+            raise AssertionError(f"phase A {label}: perm differs")
+        n = o.shape[0]
+        nb, n_u = got[0].shape
+        n_bytes = (24 * n + (4 * n if isinstance(t_max, torch.Tensor)
+                             else 0)                      # o, d, t_max in
+                   + 28 * nb * block + 8 * nb * n_u + 4 * nb  # lists out
+                   + (8 * n if sort else 0))              # perm out
+        bnd = bound(n_bytes, 0.0)
+        dev_ms, other_ms = device_ms(lambda: kernels(*args), 20, "phase_a_",
+                                     per_call=launches)
+        wrapper_ms = time_ms(lambda: kernels(*args), 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernels(*args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        plain_ms = time_ms(lambda: bt.block_inputs_plain(*args), 20)
+        plain_dev_ms, _ = device_ms(lambda: bt.block_inputs_plain(*args), 10,
+                                    None)
+        live = int((got[3] > 0).sum())
+        out["calls"][label] = {
+            "rays": n, "live": live, "blocks": nb, "list": n_u,
+            "launches": launches, "ms": dev_ms, "other_kernels_ms": other_ms,
+            "wrapper_ms": wrapper_ms, "host_us": host_us,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+            "bytes": n_bytes, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"phase A spd_tetra {label}: {n} rays ({live} live), {nb} "
+              f"blocks of {block}, lists of {n_u}; {launches} launches, "
+              f"device {dev_ms:.4f} ms (other kernels {other_ms:.4f}), "
+              f"bound {bnd[0]:.4f} ms ({n_bytes} B, {dev_ms / bnd[0]:.2f}x); "
+              f"wrapper {wrapper_ms:.4f} ms, host {host_us:.1f} us a call; "
+              f"plain {plain_ms:.4f} ms (device {plain_dev_ms:.4f}) "
+              f"[{card_line()}]")
+
+    def syncs_and_seconds():
+        key = rng_mod.key(13, dev)
+        path.render_with_stats(scene, cam, key, bc.render)     # warm
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                path.render_with_stats(scene, cam, key, bc.render)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # The mode's own once-a-process notice ("... prototype feature and
+        # does not yet detect all synchronizing operations") is no sync.
+        n_sync = sum("synchroniz" in str(w.message)
+                     and "prototype" not in str(w.message) for w in caught)
+        torch.cuda.synchronize()
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        t0 = time.perf_counter()
+        for _ in range(3):
+            film, _ = path.render_with_stats(scene, cam, key, bc.render)
+        film.hdr.sum().item()
+        return n_sync, (time.perf_counter() - t0) / 3, got
+
+    *out["frame_kernels"], got = syncs_and_seconds()
+    if (got["trace_blocks"], got["phase_a"]) != (SPD_TETRA_K1,
+                                                 SPD_TETRA_PHASE_A):
+        raise AssertionError(f"spd_tetra frame launches {got}, expected "
+                             f"{SPD_TETRA_K1} K1 and {SPD_TETRA_PHASE_A} "
+                             "phase A")
+    out["frame_launches"] = got
+    bt.block_inputs = bt.block_inputs_plain
+    try:
+        *out["frame_plain"], got = syncs_and_seconds()
+    finally:
+        bt.block_inputs = kernels
+    if got["phase_a"]:
+        raise AssertionError(f"the plain phase A launched {got['phase_a']}")
+    print(f"spd_tetra frame 512x512 x {bc.render.spp} spp: host syncs "
+          f"{out['frame_kernels'][0]} with the phase A kernels, "
+          f"{out['frame_plain'][0]} with the plain phase A; "
+          f"{out['frame_kernels'][1]:.4f} s against "
+          f"{out['frame_plain'][1]:.4f} s a frame; launches "
+          f"{out['frame_launches']} [{card_line()}]")
+    return out
+
+
 def phase_profile_frame(dev, name):
     """One warm frame of config `name` under torch.profiler: launches, the
     device's busy and idle share, K1's and K5a's shares of the device
@@ -3800,7 +3967,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from physically_based_renderer_tpu_torch.ops import (cuda_lib, fused,
+    from physically_based_renderer_tpu_torch.ops import (blocktrace,
+                                                         cuda_lib, fused,
                                                          gather, resident,
                                                          tonemap,
                                                          trace_blocks)
@@ -3874,7 +4042,8 @@ def main() -> int:
                 "trace_blocks": (trace_blocks, "LAUNCHES"),
                 "tonemap": (tonemap, "LAUNCHES"),
                 "gather_fwd": (gather, "LAUNCHES_FWD"),
-                "gather_bwd": (gather, "LAUNCHES_BWD")}
+                "gather_bwd": (gather, "LAUNCHES_BWD"),
+                "phase_a": (blocktrace, "PHASE_A_LAUNCHES")}
     launches = {name: {} for name in counters}
     runs, goldens = {}, {}
 
@@ -3970,10 +4139,12 @@ def main() -> int:
         # tools/dryrun.py::entry
         parentless = phase_parentless(dev, counters, k32)
         entry_run = phase_entry(counters)
+        phase_a = phase_phase_a(dev, counters)
         for k in launches:
             launches[k]["helmet_parentless"] = (
                 parentless["frame"]["launches"][k])
             launches[k]["entry"] = entry_run["warm"]["launches"][k]
+            launches[k]["spd_tetra"] = phase_a["frame_launches"][k]
 
         # 6b. a .glb by path, a truncated one, the report CLI
         by_path = phase_glb_path(dev, tmp, counters)
@@ -4051,6 +4222,15 @@ def main() -> int:
          "bound_ms": threefry["calls"]["ray_uniform m=5"]["bound"][0],
          "bound_by": threefry["calls"]["ray_uniform m=5"]["bound"][1],
          "library_ms": None, "calls": threefry["calls"]},
+        {"name": "phase_a", "route": "cuda",
+         "source": "physically_based_renderer_tpu_torch/csrc/phase_a.cu",
+         "replaces": None, "max_abs_err": 0.0,
+         "launches": sum(launches["phase_a"].values()),
+         "launches_by_path": launches["phase_a"],
+         **{k: phase_a["calls"]["first sorted"][k]
+            for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                      "bound_by")},
+         "library_ms": None, "calls": phase_a["calls"]},
         {**entry("trace_blocks", "trace_blocks.cu", "ops/pallas_trace.py:54",
                  max(k1.max_abs_err, k32["k32_max_abs_err"],
                      parentless["max_abs_err"]), k1_ms,
@@ -4154,7 +4334,7 @@ def main() -> int:
         "profiled_frames": frames,
         "main_paths": runs, "routes": routes, "goldens": goldens,
         "modules": modules, "k32": k32, "parentless": parentless,
-        "entry": entry_run,
+        "entry": entry_run, "phase_a": phase_a,
         "gradient": {"golden": grad_golden, "step": grad_step, "fit": fit,
                      "profiled_step": profiled},
         "seconds": time.perf_counter() - T0,

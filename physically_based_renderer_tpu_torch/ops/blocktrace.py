@@ -21,7 +21,11 @@ rays, or direction-binned rays when `sort`):
 
 Steps 1-2 with the padding to whole blocks and chunks (`block_inputs`) are
 the span `pbr.trace.phase_a`, steps 3-4 the span `pbr.trace.k1`, once a
-tracer call each (utils/profiling.py).
+tracer call each (utils/profiling.py).  On CUDA tensors phase A is
+`csrc/phase_a.cu`: one launch for unsorted rays, three with the sort
+(counted in `PHASE_A_LAUNCHES`), no torch operator but allocations and
+views, and no host sync; `block_inputs_plain` is the same function in torch
+ops, which CPU tensors take.
 
 The search is detached; `integrator/shading.py` re-intersects the winner
 attached.  The XLA block tracer is the reference's route off the TPU and a
@@ -46,6 +50,7 @@ import torch
 from ..accel.clusters import (SOUP_ROWS, ClusterGrid, _check_k, _pack_soup,
                               cluster_tri_soup)
 from ..utils.profiling import span
+from . import cuda_lib
 from .intersect import BIG, Hit, inv_dir, mt_rows
 from .trace_blocks import trace_blocks
 
@@ -53,6 +58,18 @@ from .trace_blocks import trace_blocks
 # most this many (ray, triangle) pairs at a time, which bounds its
 # temporaries (~16 floats a pair) without changing a result.
 PAIRS_A_GROUP = 1 << 24
+
+# The most candidates (clusters, parents, or the selected parents' children)
+# one selection stage ranks in one CTA's shared memory (csrc/phase_a.cu
+# kMaxCandidates): a card call above it raises.
+PHASE_A_MAX_CANDIDATES = 16384
+# Rays a CTA of the sort's kernels, one histogram row each (csrc/phase_a.cu
+# kTile).
+_SORT_TILE = 1024
+_SORT_KEYS = 25
+# Phase A kernel launches since the last reset (incremented once per
+# launch).
+PHASE_A_LAUNCHES = 0
 
 
 def bucket_sort_perm(key: torch.Tensor) -> torch.Tensor:
@@ -139,6 +156,17 @@ def _top_k(score: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
 
 
+def _selection(grid: ClusterGrid, max_u: int) -> tuple[int, int]:
+    """The selection's route: (parents selected first, 0 for the flat
+    top-k over all C clusters; the list's length before the chunk
+    padding)."""
+    c = grid.num_clusters
+    if grid.parent_min is not None and c > 4 * max_u:
+        n_sel = min(max(max_u // 2, 8), grid.parent_min.shape[0])
+        return n_sel, min(max_u, 4 * n_sel)
+    return 0, min(max_u, c)
+
+
 def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
                        t_min: float, max_u: int):
     """Phase A: per-block interval culling + nearest-first top U.
@@ -162,11 +190,10 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
     tm_hi = tmb.max(dim=1).values
     neg_inf = float("-inf")
 
-    if grid.parent_min is not None and c > 4 * max_u:
-        n_par = grid.parent_min.shape[0]
+    n_sel, n_u = _selection(grid, max_u)
+    if n_sel:
         ov_p, en_p = _interval_slab(grid.parent_min, grid.parent_max, o_lo,
                                     o_hi, iv_lo, iv_hi, t_min, tm_hi)
-        n_sel = min(max(max_u // 2, 8), n_par)
         p_idx = _top_k(torch.where(ov_p, -en_p, neg_inf), n_sel)
         p_valid = torch.gather(ov_p, 1, p_idx)                 # [NB, NP]
         child = (p_idx[:, :, None] * 4
@@ -177,14 +204,12 @@ def _select_candidates(grid: ClusterGrid, o_s, d_s, tm, nb: int, b: int,
             grid.aabb_min[safe], grid.aabb_max[safe], o_lo, o_hi, iv_lo,
             iv_hi, t_min, tm_hi)
         overlap = overlap & c_ok
-        s_idx = _top_k(torch.where(overlap, -entry, neg_inf),
-                       min(max_u, overlap.shape[1]))
+        s_idx = _top_k(torch.where(overlap, -entry, neg_inf), n_u)
         u_idx = torch.gather(child, 1, s_idx)
     else:
         overlap, entry = _interval_slab(grid.aabb_min, grid.aabb_max, o_lo,
                                         o_hi, iv_lo, iv_hi, t_min, tm_hi)
-        s_idx = u_idx = _top_k(torch.where(overlap, -entry, neg_inf),
-                               min(max_u, c))
+        s_idx = u_idx = _top_k(torch.where(overlap, -entry, neg_inf), n_u)
     u_valid = torch.gather(overlap, 1, s_idx)
     u_entry = torch.where(u_valid, torch.gather(entry, 1, s_idx), BIG)
     n_valid = u_valid.sum(dim=1).to(torch.int32)
@@ -202,19 +227,10 @@ def pack_soup(grid: ClusterGrid, geometry) -> torch.Tensor:
         grid.tri_id, geometry.positions.detach(), geometry.indices))
 
 
-def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
-                 block: int = 256, max_u: int = 48, sort: bool = False,
-                 chunk: int = 4, geometry=None):
-    """Phase A up to K1's inputs -> (args, perm).
-
-    `args` = (u_idx, o, d, t_max, soup, n_valid, entry) for
-    ops.trace_blocks.trace_blocks: root-culled, optionally direction-sorted
-    rays padded to whole blocks (padding lanes: origin 3e30, t_max 0), and
-    candidate lists padded with the sentinel to whole chunks.  `perm` is
-    the sort permutation (None without `sort`).  A grid without a packed
-    soup takes one packed from `geometry` (pack_soup).  Cluster sizes other
-    than 32 and multiples of 128 are refused, as the reference refuses
-    them, and so is a soup whose shape is not the grid's [C+1, 9, k]."""
+def _soup(grid: ClusterGrid, geometry) -> torch.Tensor:
+    """The grid's packed soup, or one packed from `geometry`; refuses
+    cluster sizes other than 32 and multiples of 128, as the reference
+    does, and a soup whose shape is not the grid's [C+1, 9, k]."""
     _check_k(grid)
     soup = grid.soup
     if soup is None:
@@ -227,6 +243,83 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
         raise ValueError(f"the grid's soup has shape {tuple(soup.shape)}, "
                          f"expected {want} for {grid.num_clusters} clusters "
                          f"of k={grid.k}")
+    return soup
+
+
+def _list_width(grid: ClusterGrid, n_u: int, chunk: int) -> int:
+    """The list padded with the sentinel to whole chunks: at k = 32 to
+    whole chunks of 4 * (chunk // 4), at least 4, even where the list is
+    shorter than one chunk (the reference's :480-487)."""
+    ch = max(4, 4 * (chunk // 4)) if grid.k == 32 else min(chunk, n_u)
+    return _round_up(n_u, ch)
+
+
+def _check_candidates(grid: ClusterGrid, n_sel: int) -> None:
+    """Raises where a selection stage ranks more than
+    PHASE_A_MAX_CANDIDATES candidates: the flat route's C clusters, or the
+    hierarchical route's parents or the 4 children of each selected
+    parent."""
+    stages = ((grid.parent_min.shape[0], 4 * n_sel) if n_sel
+              else (grid.num_clusters,))
+    if max(stages) > PHASE_A_MAX_CANDIDATES:
+        raise ValueError(
+            f"phase A on the card ranks at most {PHASE_A_MAX_CANDIDATES} "
+            f"candidates a selection stage, this grid {max(stages)}")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for any other."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"block tracer: unsupported device {t.device}")
+    return True
+
+
+def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
+                 block: int = 256, max_u: int = 48, sort: bool = False,
+                 chunk: int = 4, geometry=None):
+    """Phase A up to K1's inputs -> (args, perm).
+
+    `args` = (u_idx, o, d, t_max, soup, n_valid, entry) for
+    ops.trace_blocks.trace_blocks: root-culled, optionally direction-sorted
+    rays padded to whole blocks (padding lanes: origin 3e30, t_max 0), and
+    candidate lists padded with the sentinel to whole chunks.  `perm` is
+    the sort permutation (None without `sort`).  A grid without a packed
+    soup takes one packed from `geometry` (pack_soup).  Cluster sizes other
+    than 32 and multiples of 128 are refused, as the reference refuses
+    them, and so is a soup whose shape is not the grid's [C+1, 9, k].
+
+    On CUDA tensors the kernels of csrc/phase_a.cu compute it, bit for bit
+    `block_inputs_plain`: 1 launch, 3 with `sort`, no host sync.  One CTA
+    ranks a selection stage in its shared memory, so a card call raises
+    ValueError where a stage ranks more than PHASE_A_MAX_CANDIDATES =
+    16,384 candidates (the flat route's C clusters; the hierarchical
+    route's parents, or 4 children of each selected parent), and the
+    kernel refuses a block that is not whole warps in [32, 1024].  CPU
+    tensors take `block_inputs_plain`."""
+    soup = _soup(grid, geometry)
+    if _on_card(o):
+        n_sel, n_u = _selection(grid, max_u)
+        _check_candidates(grid, n_sel)
+        return _block_inputs_card(grid, soup, o, d, t_min, t_max, block,
+                                  sort, chunk, n_sel, n_u)
+    return _block_inputs_plain(grid, soup, o, d, t_min, t_max, block, max_u,
+                               sort, chunk)
+
+
+def block_inputs_plain(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
+                       block: int = 256, max_u: int = 48, sort: bool = False,
+                       chunk: int = 4, geometry=None):
+    """`block_inputs` in torch ops, on any device: the root cull, the
+    stable sort (`torch.sort`), the padding, `_select_candidates` and the
+    chunk padding."""
+    return _block_inputs_plain(grid, _soup(grid, geometry), o, d, t_min,
+                               t_max, block, max_u, sort, chunk)
+
+
+def _block_inputs_plain(grid: ClusterGrid, soup, o, d, t_min: float, t_max,
+                        block: int, max_u: int, sort: bool, chunk: int):
     n = o.shape[0]
     o_s = o.detach().to(torch.float32)
     d_s = d.detach().to(torch.float32)
@@ -246,12 +339,9 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
 
     u_idx, u_entry, n_valid, ob, db, tmb = _select_candidates(
         grid, o_s, d_s, tm, nb, block, t_min, max_u)
-    # Whole chunks only: pad the candidate list with the sentinel cluster;
-    # at k = 32 to whole chunks of 4 * (chunk // 4), at least 4, even where
-    # the list is shorter than one chunk (the reference's :480-487).
+    # Whole chunks only: pad the candidate list with the sentinel cluster.
     n_u = u_idx.shape[1]
-    ch = max(4, 4 * (chunk // 4)) if grid.k == 32 else min(chunk, n_u)
-    extra = _round_up(n_u, ch) - n_u
+    extra = _list_width(grid, n_u, chunk) - n_u
     if extra:
         u_idx = torch.cat([u_idx, u_idx.new_full((nb, extra),
                                                  grid.num_clusters)], dim=1)
@@ -260,6 +350,98 @@ def block_inputs(grid: ClusterGrid, o, d, t_min: float, t_max=BIG,
     return ((u_idx.contiguous(), ob.contiguous(), db.contiguous(),
              tmb.contiguous(), soup, n_valid, u_entry.contiguous()),
             perm)
+
+
+def _card_t_max(t_max, n: int, device):
+    """t_max for the kernels: (a per-ray f32 array or None, its step, the
+    value where there is no array).  A number or a one-element CPU tensor
+    is passed by value, with no copy to the card."""
+    if not isinstance(t_max, torch.Tensor):
+        return None, 0, float(t_max)
+    if t_max.device.type == "cpu" and t_max.numel() == 1:
+        return None, 0, float(t_max)
+    if (t_max.shape == (n,) and t_max.dtype == torch.float32
+            and t_max.device == device and t_max.is_contiguous()):
+        return t_max, 1, 0.0
+    tm = torch.broadcast_to(t_max.to(device=device, dtype=torch.float32),
+                            (n,))
+    if tm.stride(0) not in (0, 1):
+        tm = tm.contiguous()
+    return tm, tm.stride(0), 0.0
+
+
+def _card_boxes(grid: ClusterGrid, n_sel: int, device):
+    """The boxes the kernels read, each f32 [*, 3] contiguous on the rays'
+    device: the clusters', and the parents' on the hierarchical route."""
+    boxes = [grid.aabb_min, grid.aabb_max]
+    if n_sel:
+        boxes += [grid.parent_min, grid.parent_max]
+    for x in boxes:
+        if x.device != device:
+            raise ValueError(f"the cluster grid is on {x.device}, the rays "
+                             f"on {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"cluster boxes must be float32, got {x.dtype}")
+    return [x.contiguous() for x in boxes]
+
+
+def _launched(rc: int, name: str) -> None:
+    global PHASE_A_LAUNCHES
+    cuda_lib.check(rc, name)
+    PHASE_A_LAUNCHES += 1
+
+
+def _block_inputs_card(grid: ClusterGrid, soup, o, d, t_min: float, t_max,
+                       block: int, sort: bool, chunk: int, n_sel: int,
+                       n_u: int):
+    """`block_inputs` through csrc/phase_a.cu: keys and scatter (with
+    `sort`), then select; outputs allocated here, launches on the current
+    stream.  Inputs the kernels can read as they are go by pointer, so the
+    torch operators of a call are the outputs' allocations."""
+    dev = o.device
+    n = o.shape[0]
+    c = grid.num_clusters
+    o_c, d_c = (x if x.dtype == torch.float32 and x.is_contiguous()
+                else x.detach().to(torch.float32).contiguous() for x in (o, d))
+    tm, tm_step, tm_value = _card_t_max(t_max, n, dev)
+    boxes = _card_boxes(grid, n_sel, dev)
+    n_pad = _round_up(n, block)
+    nb = n_pad // block
+    n_u_pad = _list_width(grid, n_u, chunk)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ob = torch.empty((nb, block, 3), **f32)
+    db = torch.empty((nb, block, 3), **f32)
+    tmb = torch.empty((nb, block), **f32)
+    u_idx = torch.empty((nb, n_u_pad), **i32)
+    u_entry = torch.empty((nb, n_u_pad), **f32)
+    n_valid = torch.empty((nb,), **i32)
+    perm = torch.empty((n,), dtype=torch.int64, device=dev) if sort else None
+
+    lib = cuda_lib.library()
+    stream = cuda_lib.stream_ptr(dev)
+    rays = (o_c.data_ptr(), d_c.data_ptr(),
+            None if tm is None else tm.data_ptr(), tm_step, tm_value, n)
+    t_min = float(t_min)
+    if sort and n:
+        hist = torch.empty((-(-n // _SORT_TILE), _SORT_KEYS), **i32)
+        _launched(lib.pbr_phase_a_keys(
+            *rays, boxes[0].data_ptr(), boxes[1].data_ptr(), c, t_min,
+            hist.data_ptr(), stream), "pbr_phase_a_keys")
+        _launched(lib.pbr_phase_a_scatter(
+            *rays, n_pad, boxes[0].data_ptr(), boxes[1].data_ptr(), c, t_min,
+            hist.data_ptr(), ob.data_ptr(), db.data_ptr(), tmb.data_ptr(),
+            perm.data_ptr(), stream), "pbr_phase_a_scatter")
+    if nb:
+        parents = ((boxes[2].data_ptr(), boxes[3].data_ptr(),
+                    boxes[2].shape[0]) if n_sel else (None, None, 0))
+        _launched(lib.pbr_phase_a_select(
+            *rays, boxes[0].data_ptr(), boxes[1].data_ptr(), c, *parents,
+            n_sel, n_u, n_u_pad, t_min, int(sort), nb, block, ob.data_ptr(),
+            db.data_ptr(), tmb.data_ptr(), u_idx.data_ptr(),
+            u_entry.data_ptr(), n_valid.data_ptr(), stream),
+            "pbr_phase_a_select")
+    return (u_idx, ob, db, tmb, soup, n_valid, u_entry), perm
 
 
 def intersect_blocks_pallas(grid: ClusterGrid, o, d, t_min: float = 1e-4,

@@ -32,7 +32,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("resident.cu", "tonemap.cu", "trace_blocks.cu", "fused.cu",
-           "gather.cu", "probes.cu", "mosaic.cu", "threefry.cu")
+           "gather.cu", "probes.cu", "mosaic.cu", "threefry.cu",
+           "phase_a.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 LIB_NAME = "libpbr_torch_kernels.so"
@@ -103,6 +104,19 @@ _SIGNATURES = {
     "pbr_threefry_ray_uniform": [_P, _L, _U, _U, _I, _P, _P],
     # keys, n_keys, m, uniform, out, stream
     "pbr_threefry_bits": [_P, _L, _L, _I, _P, _P],
+    # o, d, t_max, t_max_step, t_max_value, n, cmin, cmax, c, t_min, hist,
+    # stream
+    "pbr_phase_a_keys": [_P, _P, _P, _I, _F, _I, _P, _P, _I, _F, _P, _P],
+    # o, d, t_max, t_max_step, t_max_value, n, n_pad, cmin, cmax, c, t_min,
+    # hist, o_s, d_s, tm_s, perm, stream
+    "pbr_phase_a_scatter": [_P, _P, _P, _I, _F, _I, _I, _P, _P, _I, _F, _P,
+                            _P, _P, _P, _P, _P],
+    # o, d, t_max, t_max_step, t_max_value, n, cmin, cmax, c, pmin, pmax,
+    # n_par, n_sel, n_u, n_u_pad, t_min, sorted, n_blocks, block, ob, db,
+    # tmb, u_idx, u_entry, n_valid, stream
+    "pbr_phase_a_select": [_P, _P, _P, _I, _F, _I, _P, _P, _I, _P, _P, _I, _I,
+                           _I, _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P],
 }
 
 _lib: ctypes.CDLL | None = None
