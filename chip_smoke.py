@@ -974,8 +974,8 @@ def phase_k2(dev):
     import torch
 
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
-    from physically_based_renderer_tpu_torch.core.camera import (
-        Camera, generate_rays_at)
+    from physically_based_renderer_tpu_torch.core.camera import Camera
+    from physically_based_renderer_tpu_torch.integrator import path
     from physically_based_renderer_tpu_torch.ops import resident
     from physically_based_renderer_tpu_torch.scene.procedural import (
         make_cornell_box)
@@ -993,9 +993,8 @@ def phase_k2(dev):
                       fov_y=0.95, device=dev)
     pix = torch.arange(w * h, device=dev)
     keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
-    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
-                                    (pix // w).float(), jit)
+    o_cam, d_cam, _ = path.camera_rays(
+        scene, cam, path.RenderConfig(width=w, height=h), pix, keys)
     o_cam = o_cam.contiguous()
     # Bounce-like rays: origins inside the box, directions uniform.
     o_np, d_np = random_rays(w * h, rng, (-0.99, 0.01, -0.99),
@@ -1328,8 +1327,6 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None,
 
     from physically_based_renderer_tpu_torch.core import morton
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
-    from physically_based_renderer_tpu_torch.core.camera import (
-        generate_rays_at)
     from physically_based_renderer_tpu_torch.integrator import path
     from physically_based_renderer_tpu_torch.integrator.shading import (
         shade_surface)
@@ -1354,9 +1351,7 @@ def phase_k1(dev, name="helmet_proc", chunk=None, held_to=None,
     w, h = cfg.width, cfg.height
     pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
     keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
-    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
-                                    (pix // w).float(), jit)
+    o_cam, d_cam, _ = path.camera_rays(scene, cam, cfg, pix, keys)
     n = o_cam.shape[0]
 
     def both(args, n_rays, t_min, any_hit):
@@ -3038,8 +3033,6 @@ def helmet_trace_calls(scene, cam, cfg, dev):
 
     from physically_based_renderer_tpu_torch.core import morton
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
-    from physically_based_renderer_tpu_torch.core.camera import (
-        generate_rays_at)
     from physically_based_renderer_tpu_torch.integrator import path
     from physically_based_renderer_tpu_torch.integrator.shading import (
         shade_surface)
@@ -3049,9 +3042,7 @@ def helmet_trace_calls(scene, cam, cfg, dev):
     w, h = cfg.width, cfg.height
     pix = torch.from_numpy(morton.morton_pixel_ids(h, w)).to(dev).long()
     keys = rng_mod.ray_keys(rng_mod.key(0, dev), pix)
-    jit = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    o_cam, d_cam = generate_rays_at(cam, w, h, (pix % w).float(),
-                                    (pix // w).float(), jit)
+    o_cam, d_cam, _ = path.camera_rays(scene, cam, cfg, pix, keys)
     n = o_cam.shape[0]
     hit = path.closest_hit(scene, o_cam, d_cam, 0.0, cfg)
     active = ~hit.miss
@@ -3894,7 +3885,7 @@ def phase_routes(dev, counters):
     cam = types.upload_scene(cam, dev)
     bvh_scene = types.upload_scene(bvh_scene, dev)
     grid_scene = types.upload_scene(scene, dev)
-    if path._tracer(bvh_scene, cfg) != "bvh":
+    if path.make_tracer(bvh_scene, cfg).name != "bvh":
         raise AssertionError("tracer auto does not take the BVH walk")
     # Camera rays come in coherent blocks, which phase A does not truncate:
     # there the two exact answers agree per pixel.

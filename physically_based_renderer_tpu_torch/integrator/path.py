@@ -31,6 +31,7 @@ the ring ray exchange of parallel/exchange.py, on the mesh that
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 
 import torch
 
@@ -41,7 +42,7 @@ from ..core.film import Film
 from ..core.morton import morton_pixel_ids
 from ..models import lights as lights_mod
 from ..models.bsdf import eval_bsdf, sample_bsdf
-from ..ops import resident
+from ..ops import blocktrace, resident
 from ..ops import fused as fused_mod
 from ..ops.blocktrace import intersect_blocks, intersect_blocks_pallas
 from ..ops.intersect import BIG, Hit, intersect_brute, occluded_brute
@@ -97,105 +98,102 @@ def _auto_tracer(scene: Scene) -> str:
 
 
 TRACERS = ("resident", "brute", "bvh", "block", "pallas")
-# The block tracers take the morton-ordered ray stream, the in-tracer sort
-# and the ring exchange.
-BLOCK_TRACERS = ("block", "pallas")
 
 
-def _tracer(scene: Scene, cfg: RenderConfig) -> str:
-    tracer = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
-    if tracer == "fused":
-        # The dense path has no fused tracer: the reference's dispatch
-        # sends a name it does not route to brute force.
-        return "brute"
-    if tracer not in TRACERS:
-        raise ValueError(f"unknown tracer {tracer!r} (one of auto, fused, "
+@dataclasses.dataclass(frozen=True)
+class Tracer:
+    """A frame's tracer (make_tracer): `closest(o, d, t_min, active=None,
+    sort=False)` -> Hit, `occluded(o, d, t_min, t_max)` -> bool[N].  The
+    block tracers alone read `active` (dead lanes trace as t_max = 0 rays
+    and miss) and `sort`, and take camera rays in band-local `morton` order
+    (core/morton.py); `sorts`: the in-tracer sort of bounce and shadow rays."""
+
+    name: str
+    closest: Callable[..., Hit]
+    occluded: Callable[..., torch.Tensor]
+    morton: bool = False
+    sorts: bool = False
+
+
+def make_tracer(scene: Scene, cfg: RenderConfig) -> Tracer:
+    """The dense path's tracer for cfg.tracer (auto|resident|pallas|block|
+    bvh|brute; `fused` is brute force here, as in the reference's dispatch)
+    for the scene's current geometry: the resident soup or the grid's soup
+    packed, the ring exchange bound when cfg.exchange_axis is set."""
+    name = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
+    if name == "fused":
+        name = "brute"
+    if name not in TRACERS:
+        raise ValueError(f"unknown tracer {name!r} (one of auto, fused, "
                          f"{', '.join(TRACERS)})")
-    if tracer in BLOCK_TRACERS and scene.clusters is None:
-        raise ValueError(f"tracer {tracer!r} needs a cluster grid "
+    is_block = name in ("block", "pallas")
+    if is_block and scene.clusters is None:
+        raise ValueError(f"tracer {name!r} needs a cluster grid "
                          "(scene.types.with_clusters)")
-    if tracer == "bvh" and scene.bvh is None:
+    if name == "bvh" and scene.bvh is None:
         raise ValueError("tracer 'bvh' needs a BVH (scene.types.with_bvh)")
-    return tracer
+    geom = scene.geometry
+    if name == "resident":
+        soup = resident.pack_resident_soup(geom)
 
+        def trace(o, d, **kw):
+            return resident.intersect_resident(geom, o, d, soup=soup, **kw)
+    elif name == "bvh":
+        def trace(o, d, **kw):
+            return intersect_bvh(scene.bvh, geom, o, d, **kw)
+    elif name == "brute":
+        def trace(o, d, any_hit=False, **kw):
+            return (occluded_brute if any_hit else intersect_brute)(
+                o, d, *geom.tri_vertices(), chunk=cfg.tri_chunk, **kw)
+    if not is_block:
+        return Tracer(name, lambda o, d, t_min, active=None, sort=False:
+                      trace(o, d, t_min=t_min),
+                      lambda o, d, t_min, t_max:
+                      trace(o, d, t_min=t_min, t_max=t_max, any_hit=True))
+    if name == "pallas":
+        grid = dataclasses.replace(
+            scene.clusters, soup=blocktrace._soup(scene.clusters, geom))
 
-def _maybe_exchange(tr, o, d, t_max, cfg: RenderConfig):
-    """Route a block-tracer call through the ring ray exchange when
-    cfg.exchange_axis names an axis of the bound mesh
-    (parallel/exchange.py)."""
-    if cfg.exchange_axis is None:
-        return tr(o, d, t_max)
-    from ..parallel import exchange
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=o.device).expand(o.shape[0])
-    return exchange.with_ring_exchange(
-        tr, o, d, t_max, exchange.axis_group(cfg.exchange_axis))
+        def trace(o, d, t_max, **kw):
+            return intersect_blocks_pallas(
+                grid, o, d, t_max=t_max, block=cfg.block_size,
+                max_u=cfg.max_u, chunk=cfg.chunk, **kw)
+    else:
+        def trace(o, d, t_max, **kw):
+            return intersect_blocks(scene.clusters, geom, o, d, t_max=t_max,
+                                    block=cfg.block_size, max_u=cfg.max_u,
+                                    **kw)
+    if cfg.exchange_axis is not None:
+        from ..parallel import exchange
+        group, local = exchange.axis_group(cfg.exchange_axis), trace
+
+        def trace(o, d, t_max, **kw):
+            t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                    device=o.device).expand(o.shape[0])
+            return exchange.with_ring_exchange(
+                lambda o_, d_, tm_: local(o_, d_, tm_, **kw), o, d, t_max,
+                group)
+
+    def block_closest(o, d, t_min, active=None, sort=False):
+        t_max = BIG if active is None else torch.where(active, BIG, 0.0)
+        return trace(o, d, t_max, t_min=t_min, sort=sort)
+
+    def block_occluded(o, d, t_min, t_max):
+        return trace(o, d, t_max, t_min=t_min, any_hit=True, sort=cfg.resort)
+
+    return Tracer(name, block_closest, block_occluded, morton=True,
+                  sorts=cfg.resort)
 
 
 def closest_hit(scene: Scene, o, d, t_min, cfg: RenderConfig,
-                active=None, sort: bool = False, soup=None) -> Hit:
-    """Closest-hit dispatch (cfg.tracer: auto|resident|pallas|block|bvh|
-    brute).
-
-    Block tracers only: `active` (bool[N]) turns dead lanes into t_max = 0
-    rays, which drop out of the bundle bounds and the kernel's early exit
-    (dead lanes report a miss); `sort` is the in-tracer direction-bin sort
-    for direction-scattered bounce rays.  `soup` is the prebuilt resident
-    soup (frame_tables)."""
-    tracer = _tracer(scene, cfg)
-    if tracer == "resident":
-        return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
-                                           soup=soup)
-    if tracer in BLOCK_TRACERS:
-        t_max = BIG if active is None else torch.where(active, BIG, 0.0)
-
-        def tr(o_, d_, tm_):
-            if tracer == "block":
-                return intersect_blocks(
-                    scene.clusters, scene.geometry, o_, d_, t_min=t_min,
-                    t_max=tm_, block=cfg.block_size, max_u=cfg.max_u,
-                    sort=sort)
-            return intersect_blocks_pallas(
-                scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
-                block=cfg.block_size, max_u=cfg.max_u, sort=sort,
-                chunk=cfg.chunk, geometry=scene.geometry)
-
-        return _maybe_exchange(tr, o, d, t_max, cfg)
-    if tracer == "bvh":
-        return intersect_bvh(scene.bvh, scene.geometry, o, d, t_min=t_min)
-    v0, v1, v2 = scene.geometry.tri_vertices()
-    return intersect_brute(o, d, v0, v1, v2, t_min=t_min,
-                           chunk=cfg.tri_chunk)
+                active=None, sort: bool = False) -> Hit:
+    """Closest hit through `make_tracer(scene, cfg)`."""
+    return make_tracer(scene, cfg).closest(o, d, t_min, active, sort)
 
 
-def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig,
-             soup=None) -> torch.Tensor:
-    """Any-hit (shadow) dispatch -> bool[N].  The block tracer sorts shadow
-    rays by direction bin when cfg.resort."""
-    tracer = _tracer(scene, cfg)
-    if tracer == "resident":
-        return resident.intersect_resident(scene.geometry, o, d, t_min=t_min,
-                                           t_max=t_max, any_hit=True,
-                                           soup=soup)
-    if tracer in BLOCK_TRACERS:
-        def tr(o_, d_, tm_):
-            if tracer == "block":
-                return intersect_blocks(
-                    scene.clusters, scene.geometry, o_, d_, t_min=t_min,
-                    t_max=tm_, any_hit=True, block=cfg.block_size,
-                    max_u=cfg.max_u, sort=cfg.resort)
-            return intersect_blocks_pallas(
-                scene.clusters, o_, d_, t_min=t_min, t_max=tm_,
-                any_hit=True, block=cfg.block_size, max_u=cfg.max_u,
-                sort=cfg.resort, chunk=cfg.chunk, geometry=scene.geometry)
-
-        return _maybe_exchange(tr, o, d, t_max, cfg)
-    if tracer == "bvh":
-        return intersect_bvh(scene.bvh, scene.geometry, o, d, t_min=t_min,
-                             t_max=t_max, any_hit=True)
-    v0, v1, v2 = scene.geometry.tri_vertices()
-    return occluded_brute(o, d, v0, v1, v2, t_min=t_min, t_max=t_max,
-                          chunk=cfg.tri_chunk)
+def occluded(scene: Scene, o, d, t_min, t_max, cfg: RenderConfig):
+    """Any hit (shadow rays) through `make_tracer(scene, cfg)` -> bool[N]."""
+    return make_tracer(scene, cfg).occluded(o, d, t_min, t_max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,18 +203,44 @@ class FrameTables:
     tri_attrs: torch.Tensor             # pack_tri_attrs
     emitter_attrs: torch.Tensor | None  # pack_emitter_attrs
     pyramid: torch.Tensor | None        # texture quad pyramid
-    soup: torch.Tensor | None           # resident soup (resident tracer)
+    tracer: Tracer                      # make_tracer
+    pix: torch.Tensor                   # band's pixel ids, tracer's order
 
 
-def frame_tables(scene: Scene, cfg: RenderConfig) -> FrameTables:
-    return FrameTables(
-        tri_attrs=pack_tri_attrs(scene),
-        emitter_attrs=(lights_mod.pack_emitter_attrs(scene)
-                       if scene.has_emitters else None),
-        pyramid=(build_pyramid(scene.textures) if scene.has_textures
-                 else None),
-        soup=(resident.pack_resident_soup(scene.geometry)
-              if _tracer(scene, cfg) == "resident" else None))
+def frame_tables(scene: Scene, cfg: RenderConfig, row_start: int = 0,
+                 n_rows: int | None = None) -> FrameTables:
+    """The tables of the row band [row_start, row_start + n_rows) of a
+    frame (all of it by default)."""
+    n_rows = cfg.height if n_rows is None else n_rows
+    tri_attrs = pack_tri_attrs(scene)
+    emitter_attrs = (lights_mod.pack_emitter_attrs(scene)
+                     if scene.has_emitters else None)
+    pyramid = build_pyramid(scene.textures) if scene.has_textures else None
+    tracer = make_tracer(scene, cfg)
+    if tracer.morton:
+        pix = torch.from_numpy(morton_pixel_ids(
+            cfg.height, cfg.width, row_start, n_rows)).to(
+                device=scene.device, dtype=torch.int64)
+    else:
+        first = row_start * cfg.width
+        pix = torch.arange(first, first + n_rows * cfg.width,
+                           dtype=torch.int64, device=scene.device)
+    return FrameTables(tri_attrs, emitter_attrs, pyramid, tracer, pix)
+
+
+def camera_rays(scene: Scene, camera: Camera, cfg: RenderConfig,
+                pix: torch.Tensor, keys: torch.Tensor):
+    """Jittered camera rays through the global pixel ids `pix` (int64[N]),
+    one per key of `keys` (int64[N, 2]) -> (o, d, cone_angle).
+    `cone_angle` is the pixel footprint angle for ray-cone mip selection
+    (ops/texture.py), None for a scene without textures."""
+    jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
+    px = (pix % cfg.width).to(torch.float32)
+    py = (pix // cfg.width).to(torch.float32)
+    o, d = generate_rays_at(camera, cfg.width, cfg.height, px, py, jitter)
+    cone_angle = (2.0 * torch.tan(camera.fov_y * 0.5) / cfg.height
+                  if scene.has_textures else None)
+    return o, d, cone_angle
 
 
 def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
@@ -238,6 +262,7 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     has_env = scene.env is not None
     if tables is None:
         tables = frame_tables(scene, cfg)
+    tracer = tables.tracer
     path_dist = torch.zeros((n,), dtype=torch.float32, device=dev)
 
     L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -245,16 +270,14 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     # pdf of the *previous* BSDF sampling decision, for MIS of emitter hits.
     prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
-    # Bounce rays are direction-scattered: the block tracer sorts them by
-    # direction bin inside the trace call (only o/d/t_max move).
-    use_sort = cfg.resort and _tracer(scene, cfg) in BLOCK_TRACERS
 
     for bounce in range(cfg.max_bounces + 1):
         ray_count = ray_count + active.sum()
-        hit = closest_hit(scene, o, d,
-                          t_min=0.0 if bounce == 0 else cfg.ray_eps, cfg=cfg,
-                          active=None if bounce == 0 else active,
-                          sort=use_sort and bounce > 0, soup=tables.soup)
+        # Bounce rays are direction-scattered: the block tracer sorts them
+        # by direction bin inside the trace call (only o/d/t_max move).
+        hit = tracer.closest(o, d, 0.0 if bounce == 0 else cfg.ray_eps,
+                             active=None if bounce == 0 else active,
+                             sort=tracer.sorts and bounce > 0)
         miss = hit.miss
 
         # --- escaped rays: environment ---------------------------------
@@ -329,8 +352,7 @@ def trace_radiance(scene: Scene, o: torch.Tensor, d: torch.Tensor,
                                             mis=False, delta=True))
             o_sh = o_next_base.detach()
             for wi_w, t_max_s, contrib in pending:
-                occ = occluded(scene, o_sh, wi_w, t_min=cfg.ray_eps,
-                               t_max=t_max_s, cfg=cfg, soup=tables.soup)
+                occ = tracer.occluded(o_sh, wi_w, cfg.ray_eps, t_max_s)
                 L = L + torch.where((~occ)[:, None], contrib, 0.0)
 
         # --- BSDF sampling ----------------------------------------------
@@ -398,36 +420,22 @@ def _sample_radiance(scene: Scene, camera: Camera, key: torch.Tensor,
     """One sample per pixel for a row band -> radiance [n_rows, W, 3].
 
     Per-ray keys derive from the GLOBAL pixel ids, so a band equals the
-    same rows of a full render.  With the block tracer the band's rays are
-    processed in band-local morton order (compact 16x16 tiles per 256-ray
-    block, core/morton.py) and unscrambled at the end; the other tracers
-    are order-invariant and take row-major order."""
-    dev = scene.device
-    if n_rows is None:
-        n_rows = cfg.height
-    first = row_start * cfg.width
-    morton = _tracer(scene, cfg) in BLOCK_TRACERS
-    if morton:
-        pix = torch.from_numpy(morton_pixel_ids(
-            cfg.height, cfg.width, row_start, n_rows)).to(
-                device=dev, dtype=torch.int64)
-    else:
-        pix = torch.arange(first, first + n_rows * cfg.width,
-                           dtype=torch.int64, device=dev)
+    same rows of a full render.  The band's rays go in the tracer's order
+    (`tables.pix`: band-local morton order for the block tracers, else
+    row-major) and are unscrambled at the end.  `tables` must be the
+    band's (frame_tables with the same row_start and n_rows)."""
+    n_rows = cfg.height if n_rows is None else n_rows
+    if tables is None:
+        tables = frame_tables(scene, cfg, row_start, n_rows)
+    pix = tables.pix
     keys = rng_mod.ray_keys(key, pix)
-    jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    px = (pix % cfg.width).to(torch.float32)
-    py = (pix // cfg.width).to(torch.float32)
-    o, d = generate_rays_at(camera, cfg.width, cfg.height, px, py, jitter)
-    # Pixel footprint angle for ray-cone mip selection (ops/texture.py).
-    cone_angle = (2.0 * torch.tan(camera.fov_y * 0.5) / cfg.height
-                  if scene.has_textures else None)
+    o, d, cone_angle = camera_rays(scene, camera, cfg, pix, keys)
     out = trace_radiance(scene, o, d, keys, cfg, return_stats=return_stats,
                          cone_angle=cone_angle, tables=tables)
     L, count = out if return_stats else (out, None)
-    if morton:
+    if tables.tracer.morton:
         # Scatter by the band-local index: pix holds global ids.
-        L = torch.zeros_like(L).index_put_((pix - first,), L)
+        L = torch.zeros_like(L).index_put_((pix - row_start * cfg.width,), L)
     img = L.reshape(n_rows, cfg.width, 3)
     return (img, count) if return_stats else img
 
@@ -512,21 +520,11 @@ def _render_batched_spp(scene: Scene, camera: Camera, key: torch.Tensor,
     tables = frame_tables(scene, cfg)
     n_pix = cfg.height * cfg.width
     spp = cfg.spp
-    if _tracer(scene, cfg) in BLOCK_TRACERS:
-        local = torch.from_numpy(morton_pixel_ids(cfg.height, cfg.width)).to(
-            device=dev, dtype=torch.int64)
-    else:
-        local = torch.arange(n_pix, dtype=torch.int64, device=dev)
-    pix = torch.repeat_interleave(local, spp)                # sample-inner
+    pix = torch.repeat_interleave(tables.pix, spp)           # sample-inner
     skeys = rng_mod.split(key, spp)
-    keys = torch.stack([rng_mod.ray_keys(k, local) for k in skeys],
+    keys = torch.stack([rng_mod.ray_keys(k, tables.pix) for k in skeys],
                        dim=1).reshape(n_pix * spp, 2)
-    jitter = rng_mod.ray_uniform(keys, 0, rng_mod.STREAM_PIXEL_JITTER, 2)
-    px = (pix % cfg.width).to(torch.float32)
-    py = (pix // cfg.width).to(torch.float32)
-    o, d = generate_rays_at(camera, cfg.width, cfg.height, px, py, jitter)
-    cone_angle = (2.0 * torch.tan(camera.fov_y * 0.5) / cfg.height
-                  if scene.has_textures else None)
+    o, d, cone_angle = camera_rays(scene, camera, cfg, pix, keys)
     L, count = trace_radiance(scene, o, d, keys, cfg, return_stats=True,
                               cone_angle=cone_angle, tables=tables)
     hdr = torch.zeros((n_pix, 3), dtype=torch.float32,
@@ -544,7 +542,7 @@ def render_band(scene: Scene, camera: Camera, keys: torch.Tensor,
     n_rows = cfg.height if n_rows is None else n_rows
     film = Film.zeros(n_rows, cfg.width, device=scene.device)
     count = torch.zeros((), dtype=torch.int64, device=scene.device)
-    tables = frame_tables(scene, cfg)
+    tables = frame_tables(scene, cfg, row_start, n_rows)
     for k in keys:
         radiance, c = _sample_radiance(scene, camera, k, cfg, row_start,
                                        n_rows, return_stats=True,

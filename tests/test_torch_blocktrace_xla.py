@@ -156,7 +156,7 @@ def test_block_render_matches_reference():
                                         JRenderConfig(**small))
     port = types.with_clusters(types.scene_from_numpy(scene_arrays(ref)))
     cfg = path.RenderConfig(**small)
-    assert path._tracer(port, cfg) == "block"
+    assert path.make_tracer(port, cfg).name == "block"
     film, count = path.render_with_stats(port, camera_from_numpy(flat(jcam)),
                                          rng.key(0), cfg)
     assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),

@@ -256,10 +256,11 @@ def test_with_bvh_matches_reference():
         np.testing.assert_array_equal(np_(getattr(port.bvh, f.name)),
                                       np.asarray(getattr(ref.bvh, f.name)),
                                       err_msg=f.name)
-    assert path._tracer(port, path.RenderConfig(tracer="bvh")) == "bvh"
+    assert path.make_tracer(port,
+                            path.RenderConfig(tracer="bvh")).name == "bvh"
     with pytest.raises(ValueError, match="BVH"):
-        path._tracer(dataclasses.replace(port, bvh=None),
-                     path.RenderConfig(tracer="bvh"))
+        path.make_tracer(dataclasses.replace(port, bvh=None),
+                         path.RenderConfig(tracer="bvh"))
 
 
 def test_with_live_accel_drops_the_bvh():

@@ -422,7 +422,7 @@ def test_tracer_fused_on_cpu_renders_dense_like_reference():
     jfilm, jcount = j_render_with_stats(ref, jcam, jax.random.key(5),
                                         JRenderConfig(**kw))
     cfg = path.RenderConfig(**kw)
-    assert path._tracer(scene, cfg) == "brute"
+    assert path.make_tracer(scene, cfg).name == "brute"
     film, count = path.render_with_stats(scene, cam, rng.key(5), cfg)
     _assert_render_agrees(film.mean().numpy(), np.asarray(jfilm.mean()),
                           int(count), float(jcount))

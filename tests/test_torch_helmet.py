@@ -177,7 +177,7 @@ def test_helmet_config_builds_the_full_asset():
     assert scene.textures.shapes == ((256, 256), (256, 256), (128, 128),
                                      (64, 64))
     assert bc.render.block_size == 512
-    assert path._tracer(scene, bc.render) == "pallas"
+    assert path.make_tracer(scene, bc.render).name == "pallas"
     np.testing.assert_array_equal(cam.position.numpy(),
                                   np.float32([0.0, 0.1, 3.0]))
 

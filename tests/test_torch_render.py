@@ -132,8 +132,9 @@ def test_textured_render_matches_reference(name):
     if ref.clusters is not None:
         port = with_clusters(port)
     cfg = path.RenderConfig(**small, tracer=tracer)
-    assert path._tracer(port, cfg) == ("pallas" if j_tracer == "pallas"
-                                       else j_tracer)
+    assert path.make_tracer(port, cfg).name == ("pallas"
+                                                if j_tracer == "pallas"
+                                                else j_tracer)
     before = trace_blocks.LAUNCHES
     film, count = path.render_with_stats(port, camera_from_numpy(flat(jcam)),
                                          rng.key(0), cfg)
@@ -159,7 +160,7 @@ def test_port_matches_helmet_golden_on_cpu():
     assert scene.clusters.num_clusters == 1024
     cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
                               spp=h["spp"], max_bounces=h["bounces"])
-    assert path._tracer(scene, cfg) == "pallas"
+    assert path.make_tracer(scene, cfg).name == "pallas"
     film, _ = path.render_with_stats(scene, cam, rng.key(h["seed"]), cfg)
     assert_render_agrees(film.mean().numpy(), np.load(h["path"]))
 
@@ -174,7 +175,8 @@ def test_port_matches_helmet_glb_golden_on_cpu():
     assert scene.geometry.num_tris == 99_400 and scene.tex_slots == (True,) * 4
     cfg = dataclasses.replace(bc.render, width=h["size"], height=h["size"],
                               spp=h["spp"], max_bounces=h["bounces"])
-    assert cfg.block_size == 512 and path._tracer(scene, cfg) == "pallas"
+    assert cfg.block_size == 512
+    assert path.make_tracer(scene, cfg).name == "pallas"
     film, _ = path.render_with_stats(scene, cam, rng.key(h["seed"]), cfg)
     assert_render_agrees(film.mean().numpy(), np.load(h["path"]))
 

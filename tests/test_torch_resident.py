@@ -240,8 +240,8 @@ def test_scene_above_the_resident_limit_without_a_grid_renders(bvh):
     if bvh:
         port = types.with_bvh(port)
     assert port.geometry.num_tris > resident.RESIDENT_AUTO_MAX_TRIS
-    assert path._tracer(port, path.RenderConfig()) == ("bvh" if bvh
-                                                       else "brute")
+    assert path.make_tracer(port, path.RenderConfig()).name == (
+        "bvh" if bvh else "brute")
     jcam = JCamera.make(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
                         fov_y=1.0)
     small = dict(width=12, height=12, spp=2, max_bounces=2)

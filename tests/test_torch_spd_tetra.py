@@ -106,7 +106,7 @@ def test_config_takes_the_dense_loop_through_phase_a_and_k1():
     assert scene.geometry.num_tris == 1024 and scene.env is not None
     assert scene.flat_normals and not scene.has_emitters
     assert scene.clusters is not None
-    assert path._tracer(scene, bc.render) == "pallas"
+    assert path.make_tracer(scene, bc.render).name == "pallas"
     assert not fused.fused_applicable(scene, bc.render)
     m = scene.materials
     np.testing.assert_array_equal(np_(m.base_color_factor),
