@@ -134,10 +134,16 @@ of which raises on failure (an uncaught exception exits non-zero):
      device ms (torch.profiler), the wrapper back to back (CUDA events),
      the host's enqueue a call, the plain version, beside the bound from
      the bytes a call must move; then the host syncs of a whole frame
-     (512x512 x 4 spp) under torch's sync debug mode ("warn"), and its
-     seconds, with the kernels and with the plain phase A, and the
-     launches of the frame with the kernels (36 K1, 4 x 1 + 32 x 3 = 100
-     phase A; the kernels line's `spd_tetra` path);
+     (512x512 x 4 spp) under torch's sync debug mode ("warn"), its
+     launches and its seconds: eager (`_render_with_stats_dense`) and
+     replayed from the CUDA graph of `render_with_stats`
+     (integrator/frame_graph.py; captured once, in the frame before), 0
+     syncs each; the eager frame's launch counters 36 K1, 4 x 1 + 32 x 3
+     = 100 phase A (the kernels line's `spd_tetra` path), the replayed
+     frame's none (it calls no wrapper) and, by kernel name in a
+     torch.profiler trace of it, 36 K1 and 100 phase A; and eager with
+     the plain phase A (its launches no phase A; a replay would run the
+     captured kernels);
   7. renders on the card against the committed reference goldens: 64x64
      cornell on the dense path (tests/data/cornell_64_golden.npy), 32x32
      helmet_proc (tests/data/helmet_proc_32_golden.npy), 64x64
@@ -3516,17 +3522,21 @@ def phase_entry(counters):
 
 def phase_phase_a(dev, counters=None):
     """Phase 16c: phase A's kernels on the tracer calls of one spd_tetra
-    frame, against the plain version, timed; a frame's host syncs and
-    launches with the kernels (36 K1, 100 phase A), and its host syncs
-    with the plain phase A (module docstring)."""
+    frame, against the plain version, timed; the host syncs (0), launches
+    (36 K1, 100 phase A: the eager frame's counters, the replayed frame's
+    kernels in a profiler trace) and seconds of an eager frame and of a
+    frame replayed from its CUDA graph, and an eager frame's with the
+    plain phase A (module docstring)."""
     import warnings
 
     import torch
 
     from physically_based_renderer_tpu_torch.core import rng as rng_mod
-    from physically_based_renderer_tpu_torch.integrator import path
+    from physically_based_renderer_tpu_torch.integrator import (frame_graph,
+                                                                path)
     from physically_based_renderer_tpu_torch.ops import blocktrace as bt
-    from physically_based_renderer_tpu_torch.tools.timing import device_ms
+    from physically_based_renderer_tpu_torch.tools.timing import (
+        device_ms, kernel_launches)
     from physically_based_renderer_tpu_torch.utils import config
 
     if counters is None:                        # the phase alone
@@ -3609,9 +3619,19 @@ def phase_phase_a(dev, counters=None):
               f"plain {plain_ms:.4f} ms (device {plain_dev_ms:.4f}) "
               f"[{card_line()}]")
 
-    def syncs_and_seconds():
-        key = rng_mod.key(13, dev)
-        path.render_with_stats(scene, cam, key, bc.render)     # warm
+    key = rng_mod.key(13, dev)
+
+    def eager():
+        with torch.no_grad():
+            return path._render_with_stats_dense(scene, cam, key, bc.render)
+
+    def replayed():
+        return path.render_with_stats(scene, cam, key, bc.render)
+
+    def syncs_launches_seconds(frame):
+        """A frame's host syncs under the sync debug mode ("warn"), its
+        launch counters' advance, and its seconds (the mean of 3 back to
+        back)."""
         torch.cuda.synchronize()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -3619,7 +3639,7 @@ def phase_phase_a(dev, counters=None):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                path.render_with_stats(scene, cam, key, bc.render)
+                frame()
             finally:
                 torch.cuda.set_sync_debug_mode(0)
         # The mode's own once-a-process notice ("... prototype feature and
@@ -3630,30 +3650,69 @@ def phase_phase_a(dev, counters=None):
         got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         t0 = time.perf_counter()
         for _ in range(3):
-            film, _ = path.render_with_stats(scene, cam, key, bc.render)
+            film, _ = frame()
         film.hdr.sum().item()
         return n_sync, (time.perf_counter() - t0) / 3, got
 
-    *out["frame_kernels"], got = syncs_and_seconds()
-    if (got["trace_blocks"], got["phase_a"]) != (SPD_TETRA_K1,
-                                                 SPD_TETRA_PHASE_A):
-        raise AssertionError(f"spd_tetra frame launches {got}, expected "
-                             f"{SPD_TETRA_K1} K1 and {SPD_TETRA_PHASE_A} "
-                             "phase A")
-    out["frame_launches"] = got
+    # The constants are made in the first frame; render_with_stats renders
+    # its first frame under a key eagerly and captures the CUDA graph in
+    # the second (integrator/frame_graph.py), so the third replays.
+    eager()
+    captures = frame_graph.GRAPH_CAPTURES
+    replayed()
+    replayed()
+    if frame_graph.GRAPH_CAPTURES != captures + 1:
+        raise AssertionError("the spd_tetra frame was not captured once")
+    *out["frame_eager"], got_eager = syncs_launches_seconds(eager)
+    replays = frame_graph.GRAPH_REPLAYS
+    *out["frame_kernels"], got = syncs_launches_seconds(replayed)
+    if (frame_graph.GRAPH_REPLAYS - replays != 4
+            or frame_graph.GRAPH_CAPTURES != captures + 1):
+        raise AssertionError("the spd_tetra frames did not replay the graph")
+    for label, n in (("eager", out["frame_eager"][0]),
+                     ("replayed", out["frame_kernels"][0])):
+        if n:
+            raise AssertionError(f"an {label} spd_tetra frame made {n} "
+                                 "host syncs, expected 0")
+    want = {"trace_blocks": SPD_TETRA_K1, "phase_a": SPD_TETRA_PHASE_A}
+    if {k: got_eager[k] for k in want} != want:
+        raise AssertionError(f"an eager spd_tetra frame's launch counters "
+                             f"say {got_eager}, expected {want}")
+    if any(got.values()):
+        raise AssertionError(f"a replayed spd_tetra frame called kernel "
+                             f"wrappers: {got}")
+    # The replay's kernels, by name (the tracer may drop a short kernel's
+    # events: read up to three times).
+    for attempt in range(3):
+        seen = kernel_launches(replayed, ("trace_blocks_kernel", "phase_a_"))
+        seen = {"trace_blocks": seen["trace_blocks_kernel"],
+                "phase_a": seen["phase_a_"]}
+        if seen == want:
+            break
+        print(f"profiler saw {seen} launches in a replayed spd_tetra frame, "
+              f"expected {want} (attempt {attempt + 1} of 3)")
+    else:
+        raise AssertionError(f"a replayed spd_tetra frame launched {seen}, "
+                             f"expected {want}")
+    out["frame_launches"] = got_eager
+    out["replayed_launches_seen"] = seen
+    # A capture holds the code as it ran: the plain leg renders eagerly.
     bt.block_inputs = bt.block_inputs_plain
     try:
-        *out["frame_plain"], got = syncs_and_seconds()
+        *out["frame_plain"], got = syncs_launches_seconds(eager)
     finally:
         bt.block_inputs = kernels
     if got["phase_a"]:
         raise AssertionError(f"the plain phase A launched {got['phase_a']}")
     print(f"spd_tetra frame 512x512 x {bc.render.spp} spp: host syncs "
-          f"{out['frame_kernels'][0]} with the phase A kernels, "
-          f"{out['frame_plain'][0]} with the plain phase A; "
-          f"{out['frame_kernels'][1]:.4f} s against "
-          f"{out['frame_plain'][1]:.4f} s a frame; launches "
-          f"{out['frame_launches']} [{card_line()}]")
+          f"{out['frame_kernels'][0]} replayed, {out['frame_eager'][0]} "
+          f"eager with the phase A kernels, {out['frame_plain'][0]} eager "
+          f"with the plain phase A; {out['frame_kernels'][1]:.4f} s "
+          f"replayed, {out['frame_eager'][1]:.4f} s eager, "
+          f"{out['frame_plain'][1]:.4f} s with the plain phase A, a frame; "
+          f"launches {out['frame_launches']} eager (counters), "
+          f"{out['replayed_launches_seen']} replayed (profiler) "
+          f"[{card_line()}]")
     return out
 
 

@@ -10,9 +10,20 @@ that carries gradient with the reference's tie rule.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 EPS = 1e-8
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """f32 tensor of `values` on `device`, made once per (values, device)
+    and shared by every caller, which only reads it.  A constant made from
+    host data per call is a copy from pageable memory: the host waits for
+    the card at each one, and a CUDA graph cannot capture it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def maximum(x: torch.Tensor, bound: float) -> torch.Tensor:

@@ -3,7 +3,9 @@
 The block tracer (ops/blocktrace.py) culls candidate clusters per block of
 consecutive rays, so its work follows the union of clusters a block's ray
 bundle pierces.  In morton order a 256-ray block is a compact 16x16 tile
-instead of half an image row.  Host-side numpy, cached per shape.
+instead of half an image row.  Host-side numpy, cached per shape; the
+integrator's int64 copy on the render device is cached per shape and
+device (`morton_pixel_ids_on`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 def _part1by1(v: np.ndarray) -> np.ndarray:
@@ -40,3 +43,16 @@ def morton_pixel_ids(height: int, width: int, row_start: int = 0,
     order = np.argsort(morton_codes(yy, xx), kind="stable")
     gids = (yy + row_start) * width + xx
     return gids[order].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def morton_pixel_ids_on(height: int, width: int, row_start: int,
+                        n_rows: int, device: torch.device) -> torch.Tensor:
+    """`morton_pixel_ids` as int64 on `device`, made once per band and
+    device and shared by its readers (which only read it): no copy from
+    pageable memory, which waits for the card, in every frame.  Never
+    evicted: a captured frame (integrator/frame_graph.py) reads it by
+    address."""
+    return torch.from_numpy(morton_pixel_ids(
+        height, width, row_start, n_rows)).to(device=device,
+                                              dtype=torch.int64)

@@ -39,7 +39,7 @@ from ..core import math3d
 from ..core import rng as rng_mod
 from ..core.camera import Camera, generate_rays_at
 from ..core.film import Film
-from ..core.morton import morton_pixel_ids
+from ..core.morton import morton_pixel_ids_on
 from ..models import lights as lights_mod
 from ..models.bsdf import eval_bsdf, sample_bsdf
 from ..ops import blocktrace, resident
@@ -50,6 +50,7 @@ from ..ops.texture import build_pyramid
 from ..ops.traverse import intersect_bvh
 from ..scene.types import Scene
 from ..utils.profiling import span
+from . import frame_graph
 from .shading import pack_tri_attrs, shade_surface
 
 
@@ -115,17 +116,24 @@ class Tracer:
     sorts: bool = False
 
 
-def make_tracer(scene: Scene, cfg: RenderConfig) -> Tracer:
+def tracer_name(scene: Scene, cfg: RenderConfig) -> str:
     """The dense path's tracer for cfg.tracer (auto|resident|pallas|block|
-    bvh|brute; `fused` is brute force here, as in the reference's dispatch)
-    for the scene's current geometry: the resident soup or the grid's soup
-    packed, the ring exchange bound when cfg.exchange_axis is set."""
+    bvh|brute; `fused` is brute force here, as in the reference's
+    dispatch)."""
     name = cfg.tracer if cfg.tracer != "auto" else _auto_tracer(scene)
     if name == "fused":
         name = "brute"
     if name not in TRACERS:
         raise ValueError(f"unknown tracer {name!r} (one of auto, fused, "
                          f"{', '.join(TRACERS)})")
+    return name
+
+
+def make_tracer(scene: Scene, cfg: RenderConfig) -> Tracer:
+    """The dense path's tracer (`tracer_name`) for the scene's current
+    geometry: the resident soup or the grid's soup packed, the ring
+    exchange bound when cfg.exchange_axis is set."""
+    name = tracer_name(scene, cfg)
     is_block = name in ("block", "pallas")
     if is_block and scene.clusters is None:
         raise ValueError(f"tracer {name!r} needs a cluster grid "
@@ -218,9 +226,8 @@ def frame_tables(scene: Scene, cfg: RenderConfig, row_start: int = 0,
     pyramid = build_pyramid(scene.textures) if scene.has_textures else None
     tracer = make_tracer(scene, cfg)
     if tracer.morton:
-        pix = torch.from_numpy(morton_pixel_ids(
-            cfg.height, cfg.width, row_start, n_rows)).to(
-                device=scene.device, dtype=torch.int64)
+        pix = morton_pixel_ids_on(cfg.height, cfg.width, row_start, n_rows,
+                                  scene.device)
     else:
         first = row_start * cfg.width
         pix = torch.arange(first, first + n_rows * cfg.width,
@@ -487,11 +494,17 @@ def render_with_stats(scene: Scene, camera: Camera, key: torch.Tensor,
 
     On a CUDA scene that K4 takes, one K4 launch renders the frame: the
     same estimator with the fused kernel's murmur3 stream, so its image
-    agrees with the dense one statistically, not pixel by pixel."""
+    agrees with the dense one statistically, not pixel by pixel.  Else
+    the dense frame, captured as one CUDA graph and replayed where
+    `frame_graph.applies` (integrator/frame_graph.py): the same kernels
+    on the same inputs, so the same film bit for bit."""
     with span("pbr.frame"):
         if _use_fused(scene, cfg):
             hdr, count = fused_mod.render_fused_stats(scene, camera, key, cfg)
             return Film(hdr=hdr, spp=float(cfg.spp)), count
+        if frame_graph.applies(scene, cfg, tracer_name(scene, cfg)):
+            return frame_graph.render(_render_with_stats_dense, scene,
+                                      camera, key, cfg)
         return _render_with_stats_dense(scene, camera, key, cfg)
 
 

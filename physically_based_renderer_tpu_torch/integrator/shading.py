@@ -20,7 +20,7 @@ from ..core import math3d
 from ..models.bsdf import BsdfParams
 from ..ops.gather import take_rows
 from ..ops.intersect import Hit
-from ..ops.texture import META_W, build_pyramid, sample_slot, texture_meta
+from ..ops.texture import META_W, build_pyramid, meta_table, sample_slot
 from ..scene.types import MIP_LINEAR, Scene
 from ..utils import debug
 
@@ -77,7 +77,7 @@ def pack_tri_attrs(scene: Scene) -> torch.Tensor:
     uv_density = torch.sqrt(
         uv_area / torch.clamp_min(w_area, 1e-20)).detach()
 
-    meta_tab = torch.from_numpy(texture_meta(scene.textures)).to(scene.device)
+    meta_tab = meta_table(scene.textures, scene.device)
 
     def slot_meta(ids):
         rows = meta_tab[debug.check_index(
@@ -190,7 +190,8 @@ def shade_surface(scene: Scene, hit: Hit, ray_o: torch.Tensor,
         nm = torch.cat([nm[:, :2] * scale, nm[:, 2:3]], dim=-1)
         # Sanitize before normalize: lanes without a normal map carry the
         # zero vector, whose normalize-gradient is NaN.
-        nm = torch.where(has_nm, nm, nm.new_tensor([0.0, 0.0, 1.0]))
+        nm = torch.where(has_nm, nm,
+                         math3d.device_constant((0.0, 0.0, 1.0), nm.device))
         nm = math3d.normalize(nm)
         ns_mapped = math3d.normalize(
             nm[:, 0:1] * t + nm[:, 1:2] * b + nm[:, 2:3] * ns)

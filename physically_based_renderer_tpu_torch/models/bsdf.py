@@ -155,7 +155,7 @@ def sample_vndf_ggx(alpha: torch.Tensor, wo: torch.Tensor,
         lensq[..., None] > 1e-9,
         torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
                      torch.zeros_like(inv)], dim=-1),
-        torch.tensor([1.0, 0.0, 0.0], device=vh.device))
+        math3d.device_constant((1.0, 0.0, 0.0), vh.device))
     t2 = math3d.cross(vh, t1)
     r = torch.sqrt(u2[..., 0])
     phi = 2.0 * math.pi * u2[..., 1]

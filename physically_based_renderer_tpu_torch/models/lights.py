@@ -18,8 +18,8 @@ import torch
 from ..core import math3d
 from ..ops.gather import take_rows
 from ..ops.intersect import BIG
-from ..ops.texture import (build_pyramid, sample_env_bilinear, sample_slot,
-                           texture_meta)
+from ..ops.texture import (build_pyramid, meta_table, sample_env_bilinear,
+                           sample_slot)
 from ..scene.types import Scene
 from ..utils import debug
 
@@ -122,8 +122,7 @@ def sample_area_emitters(scene: Scene, p: torch.Tensor, u1: torch.Tensor,
             pyramid = build_pyramid(scene.textures)
         uv_l = (rows[:, 13:15] + b1[:, None] * rows[:, 15:17]
                 + b2[:, None] * rows[:, 17:19])
-        meta_tab = torch.from_numpy(texture_meta(scene.textures)).to(
-            rows.device)
+        meta_tab = meta_table(scene.textures, rows.device)
         tex_id = rows[:, 19].to(torch.int32)
         meta = torch.where((tex_id >= 0)[:, None],
                            meta_tab[debug.check_index(

@@ -152,9 +152,13 @@ def intersect_resident(geometry, o, d, t_min: float = 1e-4, t_max=BIG,
         soup = pack_resident_soup(geometry)
     o_s = o.detach().to(torch.float32).contiguous()
     d_s = d.detach().to(torch.float32).contiguous()
-    t_max_arr = torch.broadcast_to(
-        torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
-        (n,)).detach().contiguous()
+    if isinstance(t_max, torch.Tensor):
+        t_max_arr = torch.broadcast_to(
+            t_max.to(device=o.device, dtype=torch.float32),
+            (n,)).detach().contiguous()
+    else:       # a number fills on the device: no copy from the host
+        t_max_arr = torch.full((n,), t_max, dtype=torch.float32,
+                               device=o.device)
     if any_hit:
         return trace(soup, o_s, d_s, t_max_arr, t_min, True)
     t, tri = trace(soup, o_s, d_s, t_max_arr, t_min, False)

@@ -15,6 +15,7 @@ folds the continuous coordinate (u' = 1 - |1 - u mod 2|).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -47,10 +48,28 @@ def texture_meta(stack: TextureStack) -> np.ndarray:
     off0 is the texture's level-0 row offset into the mip pyramid's arena
     (levels of one texture are contiguous, nearest first).
     """
+    return _texture_meta(stack.shapes, stack.wrap, stack.filt)
+
+
+def meta_table(stack: TextureStack, device) -> torch.Tensor:
+    """`texture_meta(stack)` on `device`, made once per layout of the stack
+    (its static shapes, wraps and filters, all the table reads) and device,
+    and shared by its readers: no copy to the card per frame.  Never
+    evicted: a captured frame (integrator/frame_graph.py) reads it by
+    address."""
+    return _meta_table(stack.shapes, stack.wrap, stack.filt,
+                       torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _meta_table(shapes, wrap, filt, device) -> torch.Tensor:
+    return torch.from_numpy(_texture_meta(shapes, wrap, filt)).to(device)
+
+
+def _texture_meta(shapes, wrap, filt) -> np.ndarray:
     rows = []
     off = 0
-    for (h, w), (ws, wt), (mag, mi, mm) in zip(stack.shapes, stack.wrap,
-                                               stack.filt):
+    for (h, w), (ws, wt), (mag, mi, mm) in zip(shapes, wrap, filt):
         dims = _levels(h, w, mm)
         rows.append([off, h, w, ws, wt, mag, mi, mm, len(dims)])
         off += sum(hl * wl for hl, wl in dims)
@@ -210,7 +229,7 @@ def sample_bilinear(stack: TextureStack, tex_idx: torch.Tensor,
     attribute row).  tex_idx int[N]; entries < 0 return `default`.  The
     metadata rows and the texels are both K5a gathers on the card."""
     quads = build_pyramid(stack)
-    meta_tab = torch.from_numpy(texture_meta(stack)).to(quads.device)
+    meta_tab = meta_table(stack, quads.device)
     rows = take_rows(meta_tab, torch.clamp_min(tex_idx, 0))
     rows = torch.where((tex_idx >= 0)[:, None], rows, -1.0)
     return sample_slot(quads, rows, uv, lod=None, default=default)

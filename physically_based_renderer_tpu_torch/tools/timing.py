@@ -19,6 +19,26 @@ def kernels(events):
             and not e.key.startswith(("ProfilerStep", "pbr."))]
 
 
+def kernel_launches(fn, parts) -> dict:
+    """{part: launches of the kernels whose names hold `part`} in one call
+    of fn, as torch.profiler saw them on the card: kernels inside a CUDA
+    graph's replay too, which no launch counter of the port sees.  The
+    tracer now and then drops a short kernel's events (`device_ms`), so a
+    caller that asserts a count reads it again before it fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and not e.is_user_annotation()]
+    return {p: sum(p in n for n in names) for p in parts}
+
+
 def device_ms(fn, iters: int, kernel: str | None, warmup: int = 3,
               attempts: int = 4, per_call: int = 1):
     """Device time of fn under torch.profiler: (ms per launch of the

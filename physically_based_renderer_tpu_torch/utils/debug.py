@@ -84,6 +84,11 @@ def check_index(site: str, idx: torch.Tensor, size: int,
     return idx.clamp(0, max(size - 1, 0))
 
 
+def recording() -> bool:
+    """True inside `index_checks()`."""
+    return _records is not None
+
+
 @contextlib.contextmanager
 def index_checks():
     """Turn the index checks on for the render inside; on a clean exit read

@@ -8,6 +8,10 @@
   starts with `pbr.`:
 
       pbr.frame             integrator/path.py::render_with_stats
+      pbr.frame.capture     integrator/frame_graph.py: the dense frame
+                            captured as a CUDA graph
+      pbr.frame.replay      the same: a replay, its input and output
+                            copies
       pbr.k4.seeds          ops/fused.py::fused_frame, the seed words
       pbr.k4.pack           ops/fused.py::fused_frame, the tables
       pbr.tonemap           ops/tonemap.py::tonemap

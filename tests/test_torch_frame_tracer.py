@@ -75,17 +75,18 @@ def test_make_tracer_runs_once_a_band_outside_tracer_calls(tracer,
 
 
 def test_morton_ids_are_made_once_a_band(monkeypatch):
-    """The block tracer's morton pixel ids come to the device once a band,
-    not once a sample, and each band gets its own rows."""
+    """The block tracer's morton pixel ids are taken once a band, not once
+    a sample, and each band gets its own rows (`morton_pixel_ids_on`,
+    which copies them to the device once per band and device)."""
     scene = _scene("pallas")
     calls = []
-    real = path.morton_pixel_ids
+    real = path.morton_pixel_ids_on
 
     def spy(*a):
-        calls.append(a)
+        calls.append(a[:4])
         return real(*a)
 
-    monkeypatch.setattr(path, "morton_pixel_ids", spy)
+    monkeypatch.setattr(path, "morton_pixel_ids_on", spy)
     cfg = _cfg("pallas")
     keys = rng.split(rng.key(2), cfg.spp)
     half = SIZE // 2

@@ -449,7 +449,10 @@ def test_spd_tetra_frame_calls(cuda_device, monkeypatch):
 @pytest.mark.cuda
 def test_spd_tetra_frame_equals_the_plain_phase_a(cuda_device, monkeypatch):
     """A 64x64 spd_tetra frame with the kernels equals, pixel for pixel,
-    the same frame with the plain phase A."""
+    the same frame with the plain phase A (rendered eagerly: a second
+    render_with_stats of the scene would capture the frame's CUDA graph,
+    integrator/frame_graph.py, and the plain phase A copies from the
+    host)."""
     bc = config.get("spd_tetra")
     cfg = dataclasses.replace(bc.render, width=64, height=64)
     scene, cam = config.build_scene(bc.scene, cuda_device)
@@ -461,8 +464,9 @@ def test_spd_tetra_frame_equals_the_plain_phase_a(cuda_device, monkeypatch):
     assert bt.PHASE_A_LAUNCHES - before == cfg.spp * (
         1 + 2 * 3 * cfg.max_bounces)
     monkeypatch.setattr(bt, "block_inputs", bt.block_inputs_plain)
-    plain, plain_count = path.render_with_stats(
-        scene, cam, rng.key(7, cuda_device), cfg)
+    with torch.no_grad():
+        plain, plain_count = path._render_with_stats_dense(
+            scene, cam, rng.key(7, cuda_device), cfg)
     assert torch.equal(film.hdr.view(torch.int32),
                        plain.hdr.view(torch.int32))
     assert torch.equal(torch.as_tensor(count), torch.as_tensor(plain_count))
