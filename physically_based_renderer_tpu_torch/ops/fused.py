@@ -133,9 +133,8 @@ def _pack_tri_table(scene) -> torch.Tensor:
 def _pack_tex_tables(scene):
     """Texture tables: per-material meta f32[M, 6] (bc off/h/w, mr off/h/w;
     -1 marks no texture) + level-0 quad rows f32[R, 16] (repeat wrap baked,
-    the quad packing of ops/texture.py)."""
-    from ..scene.types import WRAP_REPEAT
-    from .texture import _quad_pack
+    the quad packing of ops/texture.py).  A textured scene's packing is
+    the span `pbr.k4.pack.tex`."""
     m = scene.materials
     dev = scene.device
     n_mats = m.base_color_factor.shape[0]
@@ -143,6 +142,15 @@ def _pack_tex_tables(scene):
         return (torch.full((n_mats, _MW), -1.0, dtype=torch.float32,
                            device=dev),
                 torch.zeros((1, 16), dtype=torch.float32, device=dev))
+    with span("pbr.k4.pack.tex"):
+        return _pack_textured(scene)
+
+
+def _pack_textured(scene):
+    from ..scene.types import WRAP_REPEAT
+    from .texture import _quad_pack
+    m = scene.materials
+    dev = scene.device
     st = scene.textures
     texels = st.texels.detach()
     pieces, row_off, acc = [], [], 0

@@ -25,10 +25,15 @@ from ..core import math3d
 from ..scene.types import (FILTER_NEAREST, MIP_LINEAR, MIP_NONE,
                            TextureStack, WRAP_CLAMP, WRAP_MIRROR,
                            WRAP_REPEAT)
+from ..utils.profiling import span
 from .gather import take_rows
 
 L_MAX = 13       # textures up to 8192 on the long side
 META_W = 9       # meta row: off0 h0 w0 wrapS wrapT mag min_inner min_mip nl
+
+# `_fetch_level` calls since the last reset: one level's quad gather each
+# (one K5a launch on the card).
+FETCHES = 0
 
 
 def _levels(h: int, w: int, min_mip: int) -> list[tuple[int, int]]:
@@ -136,6 +141,8 @@ def _wrap_u(u: torch.Tensor, mode: torch.Tensor) -> torch.Tensor:
 
 def _fetch_level(quads, meta, u, v, level):
     """One quad gather at per-ray level -> (quad f32[N, 16], fx, fy)."""
+    global FETCHES
+    FETCHES += 1
     off0, h0, w0 = meta[:, 0], meta[:, 1], meta[:, 2]
     ws, wt = meta[:, 3], meta[:, 4]
     # level dims + offset in exact small-int f32 math
@@ -185,7 +192,13 @@ def sample_slot(quads: torch.Tensor, meta: torch.Tensor, uv: torch.Tensor,
     lane returns `default`); uv f32[N, 2]; lod f32[N] = log2 of the ray's
     footprint in uv units (the texture-size term is added here), or None
     for level-0 bilinear.  trilinear=False drops the second level's gather.
+    The call is the span `pbr.texture`.
     """
+    with span("pbr.texture"):
+        return _sample_slot(quads, meta, uv, lod, default, trilinear)
+
+
+def _sample_slot(quads, meta, uv, lod, default, trilinear):
     has = meta[:, 0] >= 0.0
     safe = torch.where(has[:, None], meta, 0.0)
     h0, w0 = safe[:, 1], safe[:, 2]

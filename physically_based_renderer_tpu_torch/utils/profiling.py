@@ -14,6 +14,8 @@
                             copies
       pbr.k4.seeds          ops/fused.py::fused_frame, the seed words
       pbr.k4.pack           ops/fused.py::fused_frame, the tables
+      pbr.k4.pack.tex       the same, inside pbr.k4.pack: a textured
+                            scene's texture tables (`_pack_tex_tables`)
       pbr.tonemap           ops/tonemap.py::tonemap
       pbr.step              grad/inverse.py::make_train_step's step
       pbr.step.forward      its loss
@@ -24,6 +26,8 @@
                             root cull, octant sort, candidate selection
                             and K1's inputs, a tracer call
       pbr.trace.k1          the same call's K1 launch and winner decode
+      pbr.texture           ops/texture.py::sample_slot, a texture
+                            slot's fetch (never nested in itself)
 """
 
 from __future__ import annotations
